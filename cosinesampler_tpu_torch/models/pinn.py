@@ -1,0 +1,176 @@
+"""PIXEL-style PINN: multicell feature grids + tiny MLP + PDE residual.
+
+Counterpart of the JAX package's models/pinn.py for the fused path: sample the
+cell ensemble's value, jacobian and diagonal Hessian in one fused pass
+(ops/fused.py), push them through the tanh MLP in closed form, and train
+on the PDE residual, with gradients to the cells and the MLP by autograd.
+
+Parameters are a plain dict of leaf tensors with the JAX package's names
+and layouts (``cells`` (N, C, *S), ``w1`` (C, hidden), ``b1`` (hidden,),
+``w2`` (hidden, 1), ``b2`` (1,)), so utils/convert.py moves weights between
+the two packages unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..ops.config import SamplerConfig
+from ..ops.fused import sample_features_padded, sample_features_with_derivs
+
+
+@dataclasses.dataclass(frozen=True)
+class PINNConfig:
+    dim: int = 2
+    n_cells: int = 96
+    cell_dim: int = 4            # feature channels
+    cell_size: int = 16
+    hidden: int = 16
+    kernel: str = "cosine"
+    padding_mode: str = "zeros"
+    align_corners: bool = True
+    multicell: bool = True
+    backend: str = "auto"        # "xla": the plain PyTorch sampler
+    precision: str = "exact"
+    pde: str = "allen_cahn"      # allen_cahn (2D) | helmholtz (3D)
+
+    @property
+    def sampler(self) -> SamplerConfig:
+        return SamplerConfig(
+            dim=self.dim, kernel=self.kernel, padding_mode=self.padding_mode,
+            align_corners=self.align_corners, multicell=self.multicell,
+            backend=self.backend, precision=self.precision,
+        )
+
+
+def init_params(generator: torch.Generator, cfg: PINNConfig, device,
+                dtype=torch.float32):
+    """Cell grids ~ U[0, 1] and a Glorot-normal MLP, as leaf tensors that
+    require grad.  Drawn on the generator's device (the CPU for a default
+    ``torch.Generator``), so one seed gives one set of weights on every
+    device."""
+    spatial = (cfg.cell_size,) * cfg.dim
+    cells = torch.rand((cfg.n_cells, cfg.cell_dim, *spatial),
+                       generator=generator, dtype=dtype)
+    s1 = math.sqrt(2.0 / (cfg.cell_dim + cfg.hidden))
+    s2 = math.sqrt(2.0 / (cfg.hidden + 1))
+    w1 = torch.randn((cfg.cell_dim, cfg.hidden), generator=generator,
+                     dtype=dtype) * s1
+    w2 = torch.randn((cfg.hidden, 1), generator=generator, dtype=dtype) * s2
+    params = {
+        "cells": cells,
+        "w1": w1,
+        "b1": torch.zeros((cfg.hidden,), dtype=dtype),
+        "w2": w2,
+        "b2": torch.zeros((1,), dtype=dtype),
+    }
+    return {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+
+
+def _mlp_derivs(params, feats, dim):
+    """u, [u_x..], [u_xx..] of the tanh MLP over value/jac/diag-Hessian rows.
+
+    Closed form of the JAX package's nested jvp ladder, channels first:
+    with pre = W1^T f + b1 and h = tanh(pre),
+        u_x  = w2 . (tanh'(pre) * W1^T f_x)
+        u_xx = w2 . (tanh''(pre) * (W1^T f_x)^2 + tanh'(pre) * W1^T f_xx)
+    where tanh' = 1 - h^2 and tanh'' = -2 h tanh'.
+    """
+    w1 = params["w1"]                      # (C, hidden)
+    w2 = params["w2"][:, 0]                # (hidden,)
+
+    def lin(z):                            # (C, Q) -> (hidden, Q)
+        return torch.einsum("ch,cq->hq", w1, z)
+
+    h = torch.tanh(lin(feats[0]) + params["b1"][:, None])
+    d1 = 1.0 - h * h
+    d2 = -2.0 * h * d1
+    u = torch.einsum("h,hq->q", w2, h) + params["b2"][0]
+    u_d, u_dd = [], []
+    for ax in range(dim):
+        a = lin(feats[1 + ax])
+        b = lin(feats[1 + dim + ax])
+        u_d.append(torch.einsum("h,hq->q", w2, d1 * a))
+        u_dd.append(torch.einsum("h,hq->q", w2, d2 * a * a + d1 * b))
+    return u, u_d, u_dd
+
+
+def _residual_from_fields(u, u_d, u_dd, cfg: PINNConfig):
+    if cfg.pde == "allen_cahn":
+        # f = 2 u_y + 5 u^3 - 5 u - 1e-4 u_xx
+        return 2.0 * u_d[1] + 5.0 * u**3 - 5.0 * u - 1e-4 * u_dd[0]
+    if cfg.pde == "helmholtz":
+        # f = u_xx + u_yy (+ u_zz) + u
+        return sum(u_dd) + u
+    raise ValueError(f"unknown pde {cfg.pde!r}")
+
+
+def field_and_grads(params, pts, cfg: PINNConfig):
+    """u, [u_x, u_y(, u_z)], [u_xx, u_yy(, u_zz)] from one fused pass."""
+    feats = sample_features_with_derivs(params["cells"], pts, cfg.sampler)
+    return _mlp_derivs(params, feats, cfg.dim)
+
+
+def residual_fused(params, pts, cfg: PINNConfig):
+    """PDE residual via the fused value/derivative pass."""
+    u, u_d, u_dd = field_and_grads(params, pts, cfg)
+    return _residual_from_fields(u, u_d, u_dd, cfg)
+
+
+def loss_fused(params, pts, cfg: PINNConfig):
+    return torch.mean(residual_fused(params, pts, cfg) ** 2)
+
+
+def loss_fused_slots(params, pts, cfg: PINNConfig, plan=None):
+    """loss_fused computed in the sampler's slot layout, masked by ``occ``
+    (the identity layout in the port, see ops/fused.py)."""
+    feats, occ, _ = sample_features_padded(params["cells"], pts, cfg.sampler,
+                                           plan=plan)
+    u, u_d, u_dd = _mlp_derivs(params, feats, cfg.dim)
+    f = _residual_from_fields(u, u_d, u_dd, cfg)
+    return torch.sum(f * f * occ) / pts.shape[0]
+
+
+def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
+                    fused: bool = False, slot_resident: bool = False,
+                    planned: bool = False, vol_resident: bool = False,
+                    megakernel: bool = False):
+    """A step ``(params, pts[, plan]) -> loss`` that updates ``params`` in
+    place through ``optimizer`` (built over ``params.values()``).
+
+    ``fused`` uses loss_fused, ``slot_resident`` loss_fused_slots, and
+    ``planned`` loss_fused_slots with a plan argument (always None in the
+    port).  The returned loss is detached and stays on the device.
+    """
+    if megakernel:
+        raise NotImplementedError(
+            "megakernel=True needs the one-pass megakernel (ROADMAP B3)")
+    if vol_resident:
+        raise NotImplementedError(
+            "vol_resident=True needs the bricked 3D kernels (ROADMAP B10)")
+    if not (fused or slot_resident or planned):
+        raise NotImplementedError(
+            "fused=False (nested autograd through the sampler) needs the "
+            "recursive sampler (ROADMAP A3)")
+
+    def run(params, loss_fn):
+        optimizer.zero_grad(set_to_none=True)
+        lval = loss_fn(params)
+        lval.backward()
+        optimizer.step()
+        return lval.detach()
+
+    if planned:
+        def step(params, pts, plan):
+            return run(params, lambda p: loss_fused_slots(p, pts, cfg, plan))
+        return step
+
+    loss_fn = loss_fused_slots if slot_resident else loss_fused
+
+    def step(params, pts):
+        return run(params, lambda p: loss_fn(p, pts, cfg))
+
+    return step

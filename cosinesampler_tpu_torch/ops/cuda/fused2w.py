@@ -1,0 +1,171 @@
+"""Fused 2D value/jacobian/diag-Hessian blend and its cells transpose.
+
+Counterpart of the JAX package's ops/pallas/fused2w.py.  Each op has two
+versions in this module:
+
+* ``plain_fused_blend`` / ``plain_fused_bwd``: plain PyTorch, one
+  generic.blend / generic.splat per output row (the JAX package's
+  ``xla_fused_blend`` / ``xla_fused_bwd``), any dim and dtype.  They are
+  the oracle the kernels are held to.
+* ``fused_blend`` / ``fused_bwd``: the wrappers of the hand-written CUDA
+  kernels in csrc/fused2w.cu.  A tensor on the CPU takes the plain
+  version; a CUDA tensor launches the kernel on the current stream, or
+  raises for what the kernel does not take.  Each wrapper counts its
+  launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import generic
+from ..config import SamplerConfig
+from ..coords import offset_lattice
+from .build import check, load_kernels
+
+_KERNEL_IDS = {"cosine": 0, "linear": 1, "smoothstep": 2}
+_PADDING_IDS = {"zeros": 0, "border": 1, "reflection": 2}
+
+
+def all_orders(dim: int):
+    """Output row order: value, jac_x.., hess_xx.. (1 + 2*dim rows)."""
+    value = (0,) * dim
+    jac = [tuple(1 if i == ax else 0 for i in range(dim)) for ax in range(dim)]
+    hess = [tuple(2 if i == ax else 0 for i in range(dim)) for ax in range(dim)]
+    return [value] + jac + hess
+
+
+def _points_to_grid(points):
+    """(Q, d) shared points -> (1, 1.., Q, d) grid broadcast over the cells."""
+    q, dim = points.shape
+    return points.reshape((1,) * dim + (q, dim))
+
+
+def plain_fused_blend(cells, points, cfg: SamplerConfig):
+    """(1+2d, C, Q): one generic.blend per row, summed over the cells."""
+    n, c = cells.shape[:2]
+    q = points.shape[0]
+    grid = _points_to_grid(points)
+    return torch.stack([
+        generic.blend(cells, grid, cfg, o).reshape(n, c, q).sum(dim=0)
+        for o in all_orders(cfg.dim)])
+
+
+def plain_fused_bwd(g, points, in_spatial: Tuple[int, ...],
+                    cfg: SamplerConfig, n_cells: int):
+    """(N, C, *in_spatial) cells cotangent: one generic.splat per row."""
+    c, q = g.shape[1:]
+    grid = _points_to_grid(points)
+    total = None
+    for row, o in enumerate(all_orders(cfg.dim)):
+        gb = g[row][None].expand(n_cells, c, q)
+        part = generic.splat(gb, grid, in_spatial, cfg, o)
+        total = part if total is None else total + part
+    return total
+
+
+def check_kernel_inputs(cfg: SamplerConfig, *tensors: torch.Tensor) -> None:
+    """Raise for what the CUDA kernels do not take (device aside)."""
+    if cfg.dim != 2:
+        raise NotImplementedError(
+            "the CUDA fused kernels are 2D; 3D (fused3w) is ROADMAP queue B")
+    if cfg.precision in ("bf16", "fast"):
+        raise NotImplementedError(
+            f"precision={cfg.precision!r} has no CUDA kernel yet; the "
+            "kernels compute in f32 ('exact' / 'highest')")
+    if cfg.strict_reference and not cfg.align_corners:
+        raise NotImplementedError(
+            "strict_reference with align_corners=False mixes per-row "
+            "alignment, which the single-pass kernels cannot; use "
+            "backend='xla'")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+    if any(t.numel() >= 2**31 for t in tensors):
+        raise ValueError("tensor too large for the kernels' 32-bit indexing")
+
+
+def _cuda_device(*tensors: torch.Tensor) -> torch.device:
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(
+            "tensors must all be on the CPU (plain version) or all on one "
+            f"CUDA device, got {[str(t.device) for t in tensors]}")
+    return device
+
+
+def _launch_args(cfg: SamplerConfig, n: int, c: int, h: int, w: int, q: int,
+                 device: torch.device):
+    """The kernel library and the scalar arguments shared by both entry
+    points: sizes, config flags, the offset lattice and the stream."""
+    lib = load_kernels()
+    if c > lib.fused2w_max_channels():
+        raise NotImplementedError(
+            f"the CUDA kernels take at most {lib.fused2w_max_channels()} "
+            f"channels, got {c}")
+    if n * c * h * w >= 2**31:
+        raise ValueError("cell stack too large for the kernels' 32-bit "
+                         "indexing")
+    step, stop = offset_lattice(n, cfg.multicell)
+    args = (n, c, h, w, q, _KERNEL_IDS[cfg.kernel],
+            _PADDING_IDS[cfg.padding_mode], int(cfg.align_corners),
+            int(cfg.multicell), int(cfg.strict_reference), float(step),
+            float(stop), torch.cuda.current_stream(device).cuda_stream)
+    return lib, args
+
+
+def fused_blend(cells: torch.Tensor, points: torch.Tensor,
+                cfg: SamplerConfig) -> torch.Tensor:
+    """(5, C, Q) multicell-summed value/jac/diag-Hessian of (N, C, H, W)
+    cells at (Q, 2) points; kernel on CUDA tensors, plain on CPU ones."""
+    if cells.device.type == "cpu" and points.device.type == "cpu":
+        return plain_fused_blend(cells, points, cfg)
+    device = _cuda_device(cells, points)
+    check_kernel_inputs(cfg, cells, points)
+    if cells.dim() != 4 or points.dim() != 2 or points.shape[1] != 2:
+        raise ValueError(f"expected cells (N, C, H, W) and points (Q, 2), "
+                         f"got {tuple(cells.shape)} and {tuple(points.shape)}")
+    n, c, h, w = cells.shape
+    q = points.shape[0]
+    lib, args = _launch_args(cfg, n, c, h, w, q, device)
+    out = torch.empty((5, c, q), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.fused2w_blend(cells.data_ptr(), points.data_ptr(),
+                                out.data_ptr(), *args)
+    check(lib, err, "fused2w_blend launch")
+    fused_blend.launches += 1
+    return out
+
+
+def fused_bwd(g: torch.Tensor, points: torch.Tensor,
+              in_spatial: Tuple[int, ...], cfg: SamplerConfig,
+              n_cells: int) -> torch.Tensor:
+    """(N, C, H, W) cells cotangent of fused_blend for the (5, C, Q)
+    cotangent ``g``; kernel on CUDA tensors, plain on CPU ones."""
+    if g.device.type == "cpu" and points.device.type == "cpu":
+        return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
+    device = _cuda_device(g, points)
+    check_kernel_inputs(cfg, g, points)
+    if (g.dim() != 3 or g.shape[0] != 5 or points.dim() != 2
+            or points.shape != (g.shape[2], 2) or len(in_spatial) != 2):
+        raise ValueError(f"expected g (5, C, Q), points (Q, 2) and (H, W), got "
+                         f"{tuple(g.shape)}, {tuple(points.shape)} and "
+                         f"{tuple(in_spatial)}")
+    c, q = g.shape[1:]
+    h, w = in_spatial
+    lib, args = _launch_args(cfg, n_cells, c, h, w, q, device)
+    dcells = torch.zeros((n_cells, c, h, w), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.fused2w_bwd(g.data_ptr(), points.data_ptr(),
+                              dcells.data_ptr(), *args)
+    check(lib, err, "fused2w_bwd launch")
+    fused_bwd.launches += 1
+    return dcells
+
+
+fused_blend.launches = 0
+fused_bwd.launches = 0
