@@ -1,13 +1,28 @@
 """PyTorch + CUDA port of the JAX/TPU sampler package for NVIDIA Hopper.
 
-The fused 2D PINN training path: the fused value/jacobian/diag-Hessian
-sampler with hand-written CUDA kernels (csrc/), the PINN model and its
-trainer.  The JAX package beside it is the reference it is held
-to; this package imports neither it nor JAX.
+The public sampler (``sample``, ``cosine_sampler_2d/3d`` and the
+``CosineSampler2d/3d.apply`` shims) with exact derivatives at every order,
+the fused value/jacobian/diag-Hessian op, the PINN model and its trainer,
+over hand-written CUDA kernels (csrc/).  The JAX package beside it is the
+reference it is held to; this package imports neither it nor JAX.
 """
 
 from .models import pinn, train
-from .ops import SamplerConfig, sample_features_padded, sample_features_with_derivs
+from .ops import (CosineSampler2d, CosineSampler3d, SamplerConfig,
+                  cosine_sampler_2d, cosine_sampler_3d, make_sample_plan,
+                  sample, sample_features_padded,
+                  sample_features_with_derivs)
 
-__all__ = ["SamplerConfig", "pinn", "sample_features_padded",
-           "sample_features_with_derivs", "train"]
+__all__ = [
+    "CosineSampler2d",
+    "CosineSampler3d",
+    "SamplerConfig",
+    "cosine_sampler_2d",
+    "cosine_sampler_3d",
+    "sample",
+    "sample_features_padded",
+    "sample_features_with_derivs",
+    "make_sample_plan",
+    "pinn",
+    "train",
+]

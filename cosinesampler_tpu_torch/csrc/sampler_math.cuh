@@ -1,4 +1,4 @@
-// Per-thread sampler math shared by the fused2w kernels.
+// Per-thread sampler math shared by the fused2w and blend_o/splat_o kernels.
 //
 // Device counterparts of ops/coords.py and ops/interpolants.py.  The
 // coordinate transform uses the round-to-nearest intrinsics (__fadd_rn,
@@ -141,6 +141,68 @@ __device__ __forceinline__ AxisTable axis_table(float coord, int size,
   const float mult2 = mult * mult;
   a.w[2][0] = -w[2] * mult2;
   a.w[2][1] = w[2] * mult2;
+  return a;
+}
+
+// w^(k)(t) for any k >= 0 (ops/interpolants.py kernel_weight).  Cosine:
+// w^(k) = -(pi^k / 2) cos(pi t + k pi / 2), expanded by k mod 4 from one
+// sincospif; linear is 0 for k >= 2; smoothstep is -12 at k = 3 and 0
+// above.  The amplitude 0.5 pi^k is built as 0.5 * pi * pi ... in f32, the
+// order kernel_weights uses for k = 1, 2.
+__device__ __forceinline__ float kernel_weight(int kernel, float t, int k) {
+  if (kernel == kCosine) {
+    float s, c;
+    sincospif(t, &s, &c);
+    if (k == 0) return 0.5f * (1.0f - c);
+    const float pi = 3.14159265358979323846f;
+    float amp = 0.5f;
+    for (int i = 0; i < k; ++i) amp *= pi;
+    switch (k & 3) {
+      case 1: return amp * s;
+      case 2: return amp * c;
+      case 3: return -amp * s;
+      default: return -amp * c;
+    }
+  }
+  if (kernel == kLinear) return k == 0 ? t : (k == 1 ? 1.0f : 0.0f);
+  switch (k) {
+    case 0: return t * t * (3.0f - 2.0f * t);
+    case 1: return 6.0f * t * (1.0f - t);
+    case 2: return 6.0f - 12.0f * t;
+    case 3: return -12.0f;
+    default: return 0.0f;
+  }
+}
+
+// One grid axis at derivative order k: the floor corner index and the
+// corner weights, (1 - w, w) at order 0 and (-w^(k), w^(k)) * mult^k
+// above it (ops/generic.py _per_axis_tables).
+struct AxisWeights {
+  int i0;
+  float w0;  // floor corner
+  float w1;  // ceil corner
+};
+
+__device__ __forceinline__ AxisWeights axis_weights(float coord, int size,
+                                                    float offset, int k,
+                                                    const SamplerParams& p) {
+  float mult;
+  const float x = source_coord(coord, size, offset, p, &mult);
+  const float fx = floorf(x);
+  const float wk = kernel_weight(p.kernel, __fsub_rn(x, fx), k);
+  AxisWeights a;
+  // clamped first, as the TPU kernels do: a far out-of-bounds query keeps
+  // both corners out of bounds without overflowing the int
+  a.i0 = static_cast<int>(fminf(fmaxf(fx, -2.0f), size + 1.0f));
+  if (k == 0) {
+    a.w0 = 1.0f - wk;
+    a.w1 = wk;
+  } else {
+    float scale = mult;
+    for (int i = 1; i < k; ++i) scale *= mult;
+    a.w0 = -wk * scale;
+    a.w1 = wk * scale;
+  }
   return a;
 }
 

@@ -1,9 +1,17 @@
 """PIXEL-style PINN: multicell feature grids + tiny MLP + PDE residual.
 
-Counterpart of the JAX package's models/pinn.py for the fused path: sample the
-cell ensemble's value, jacobian and diagonal Hessian in one fused pass
-(ops/fused.py), push them through the tanh MLP in closed form, and train
-on the PDE residual, with gradients to the cells and the MLP by autograd.
+Counterpart of the JAX package's models/pinn.py, in two forms of one loss:
+
+* the fused path (``loss_fused``): sample the cell ensemble's value,
+  jacobian and diagonal Hessian in one fused pass (ops/fused.py) and push
+  them through the tanh MLP in closed form;
+* the nested-autograd path (``loss``), the reference's own recipe: sample
+  u through the public sampler (ops/sampler.py) and take u_y, u_xx (or the
+  Laplacian) with ``torch.autograd.grad(..., create_graph=True)``, so the
+  loss's gradient reaches the cells at third order.
+
+Both train on the PDE residual, with gradients to the cells and the MLP by
+autograd.
 
 Parameters are a plain dict of leaf tensors with the JAX package's names
 and layouts (``cells`` (N, C, *S), ``w1`` (C, hidden), ``b1`` (hidden,),
@@ -20,6 +28,7 @@ import torch
 
 from ..ops.config import SamplerConfig
 from ..ops.fused import sample_features_padded, sample_features_with_derivs
+from ..ops.sampler import sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +77,77 @@ def init_params(generator: torch.Generator, cfg: PINNConfig, device,
         "b2": torch.zeros((1,), dtype=dtype),
     }
     return {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+
+
+def _mlp(params, feats):
+    """(Q, C) features -> (Q,) u.  Plain matmuls: on the card TF32 must be
+    off (torch.backends.cuda.matmul.allow_tf32, False by default) or the
+    residual moves by far more than the f32 tolerance."""
+    h = torch.tanh(feats @ params["w1"] + params["b1"])
+    return (h @ params["w2"] + params["b2"])[..., 0]
+
+
+def field(params, pts, cfg: PINNConfig):
+    """u(points): sample the cells, sum the ensemble, apply the MLP.
+
+    pts: (Q, dim) in [-1, 1].  Returns (Q,).  The grid is the shared-query
+    grid of batch 1, which the sampler broadcasts across the cells.
+    """
+    cells = params["cells"]
+    n = cells.shape[0]
+    q = pts.shape[0]
+    grid = pts.reshape((1,) * cfg.dim + tuple(pts.shape))
+    out = sample(cells, grid, cfg.sampler)             # (N, C, ..., Q)
+    feats = out.reshape(n, cfg.cell_dim, q).sum(dim=0)  # (C, Q)
+    return _mlp(params, feats.T)
+
+
+def _with_grad(pts):
+    return pts if pts.requires_grad else pts.detach().requires_grad_(True)
+
+
+def spatial_derivative(params, pts, cfg: PINNConfig, axis: int,
+                       order: int = 1):
+    """d^order u / d(axis)^order per point, by nested grad-of-sum.
+
+    Valid because u(q) depends only on pts[q], so the gradient of the sum
+    is the per-point derivative.  The result keeps its graph
+    (``create_graph=True``) for the next order and for the loss.
+    """
+    if order == 0:
+        return field(params, pts, cfg)
+    pts = _with_grad(pts)
+    inner = spatial_derivative(params, pts, cfg, axis, order - 1)
+    (grad,) = torch.autograd.grad(inner.sum(), pts, create_graph=True)
+    return grad[:, axis]
+
+
+def residual(params, pts, cfg: PINNConfig):
+    """PDE residual at the collocation points, by nested autograd.
+
+    The JAX package evaluates ``field`` anew for each derivative; here u is
+    built once and every derivative comes from its graph, which is the
+    same function with fewer sampler launches.
+    """
+    pts = _with_grad(pts)
+    u = field(params, pts, cfg)
+    (du,) = torch.autograd.grad(u.sum(), pts, create_graph=True)
+
+    def second(ax):
+        (g,) = torch.autograd.grad(du[:, ax].sum(), pts, create_graph=True)
+        return g[:, ax]
+
+    if cfg.pde == "allen_cahn":
+        # f = 2 u_y + 5 u^3 - 5 u - 1e-4 u_xx
+        return 2.0 * du[:, 1] + 5.0 * u**3 - 5.0 * u - 1e-4 * second(0)
+    if cfg.pde == "helmholtz":
+        # f = u_xx + u_yy (+ u_zz) + u
+        return sum(second(ax) for ax in range(cfg.dim)) + u
+    raise ValueError(f"unknown pde {cfg.pde!r}")
+
+
+def loss(params, pts, cfg: PINNConfig):
+    return torch.mean(residual(params, pts, cfg) ** 2)
 
 
 def _mlp_derivs(params, feats, dim):
@@ -141,9 +221,10 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
     """A step ``(params, pts[, plan]) -> loss`` that updates ``params`` in
     place through ``optimizer`` (built over ``params.values()``).
 
-    ``fused`` uses loss_fused, ``slot_resident`` loss_fused_slots, and
+    ``fused`` uses loss_fused, ``slot_resident`` loss_fused_slots,
     ``planned`` loss_fused_slots with a plan argument (always None in the
-    port).  The returned loss is detached and stays on the device.
+    port), and none of them ``loss``, the nested-autograd residual.  The
+    returned loss is detached and stays on the device.
     """
     if megakernel:
         raise NotImplementedError(
@@ -151,10 +232,6 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
     if vol_resident:
         raise NotImplementedError(
             "vol_resident=True needs the bricked 3D kernels (ROADMAP B10)")
-    if not (fused or slot_resident or planned):
-        raise NotImplementedError(
-            "fused=False (nested autograd through the sampler) needs the "
-            "recursive sampler (ROADMAP A3)")
 
     def run(params, loss_fn):
         optimizer.zero_grad(set_to_none=True)
@@ -168,7 +245,8 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
             return run(params, lambda p: loss_fused_slots(p, pts, cfg, plan))
         return step
 
-    loss_fn = loss_fused_slots if slot_resident else loss_fused
+    loss_fn = (loss_fused_slots if slot_resident
+               else loss_fused if fused else loss)
 
     def step(params, pts):
         return run(params, lambda p: loss_fn(p, pts, cfg))

@@ -1,10 +1,11 @@
 """PINN training loop: fused sampler + native point stream + Adam.
 
 Counterpart of the JAX package's models/train.py: per-step collocation batches
-from the Philox stream (utils/pointgen.py), the fused train step
-(models/pinn.py) and per-step metrics.  Run it with
+from the Philox stream (utils/pointgen.py), the train step (models/pinn.py:
+the fused loss by default, the nested-autograd loss with ``fused=False``)
+and per-step metrics.  Run it with
 
-    python -m cosinesampler_tpu_torch.models.train --device cuda
+    python -m cosinesampler_tpu_torch.models.train --device cuda [--no-fused]
 
 The device is explicit: ``device="cuda"`` without a card raises, and
 nothing falls back to the CPU.
@@ -30,7 +31,7 @@ class TrainConfig:
     lr: float = 1e-3
     seed: int = 0
     device: str = "cuda"
-    fused: bool = True
+    fused: bool = True           # False: nested autograd (pinn.loss)
     # one collocation set for the whole run (the reference's own pattern);
     # the port builds no bin plan, so this only fixes the points
     fixed_points: bool = False
@@ -115,6 +116,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pde", default=None, help="allen_cahn | helmholtz")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="use nested autograd through the sampler instead "
+                         "of the fused kernels")
     ap.add_argument("--fixed-points", action="store_true",
                     help="one collocation set for the whole run")
     args = ap.parse_args(argv)
@@ -125,7 +129,8 @@ def main(argv=None):
                               cell_dim=args.cell_dim,
                               cell_size=args.cell_size, pde=pde),
         batch_points=args.batch_points, steps=args.steps, lr=args.lr,
-        seed=args.seed, device=args.device, fixed_points=args.fixed_points,
+        seed=args.seed, device=args.device, fused=not args.no_fused,
+        fixed_points=args.fixed_points,
     )
     train(cfg, on_metrics=lambda m: print(json.dumps(m), flush=True))
     return 0

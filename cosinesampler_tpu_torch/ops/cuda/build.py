@@ -3,10 +3,12 @@
 The CUDA kernels (``cosinesampler_tpu_torch/csrc/*.cu``) are compiled with
 nvcc for ``sm_90a`` into one shared library with a plain C interface and
 loaded with ctypes; no source includes PyTorch's headers, so a build takes
-seconds.  Each library goes into ``build/<name>-<hash>/`` at the repository
-root, keyed by a hash of its sources and its compile command, and a file
-lock serialises concurrent builds (pytest workers, several processes on
-one card).  A failed build raises with the compiler's stderr.
+seconds.  Every source is compiled to an object by its own compiler
+process, all started together, and the objects are then linked.  Each
+library goes into ``build/<name>-<hash>/`` at the repository root, keyed by
+a hash of its sources and its commands, and a file lock serialises
+concurrent builds (pytest workers, several processes on one card).  A
+failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -19,27 +21,32 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Sequence
+from typing import Optional, Sequence
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def build_shared_library(name: str, sources: Sequence[pathlib.Path],
                          command: Sequence[str],
+                         link_command: Optional[Sequence[str]] = None,
                          deps: Sequence[pathlib.Path] = (),
                          root: pathlib.Path = BUILD_ROOT) -> pathlib.Path:
-    """Compile ``sources`` with ``command + sources + ['-o', lib]``.
+    """Compile each of ``sources`` with ``command + ['-c', src, '-o', obj]``,
+    all at once, then link with ``link_command + objs + ['-o', lib]``
+    (``link_command`` defaults to ``command``).
 
     ``deps`` (headers) enter the content hash but not the command line.
     Returns the path of the library, building it only if no library of the
     same content exists.
     """
+    link_command = command if link_command is None else link_command
     digest = hashlib.sha256(" ".join(command).encode())
+    digest.update(" ".join(link_command).encode())
     for path in (*sources, *deps):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -51,14 +58,30 @@ def build_shared_library(name: str, sources: Sequence[pathlib.Path],
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
-            tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [*command, *map(str, sources), "-o", str(tmp)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
+            tag = f"{os.getpid()}.tmp"
+            # nvcc and g++ tell an object file by its ".o" suffix
+            objs = [out_dir / f"{tag}-{i}-{src.stem}.o"
+                    for i, src in enumerate(sources)]
+            procs = [subprocess.Popen(
+                [*command, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                for src, obj in zip(sources, objs)]
+            stderrs = [proc.communicate()[1] for proc in procs]
+            errors = [(proc.returncode, err)
+                      for proc, err in zip(procs, stderrs)]
+            tmp = out_dir / f"lib{name}.so.{tag}"
+            if all(rc == 0 for rc, _ in errors):
+                proc = subprocess.run(
+                    [*link_command, *map(str, objs), "-o", str(tmp)],
+                    capture_output=True, text=True)
+                errors = [(proc.returncode, proc.stderr)]
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            failed = [(rc, err) for rc, err in errors if rc != 0]
+            if failed:
                 raise RuntimeError(
-                    f"building {name} failed (exit {proc.returncode}):\n"
-                    f"{proc.stderr}")
+                    f"building {name} failed (exit {failed[0][0]}):\n"
+                    + "\n".join(err for _, err in failed))
             os.replace(tmp, lib)
     return lib
 
@@ -81,6 +104,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
+    for fn in (lib.blend_o, lib.splat_o):
+        # 3 data pointers; dim, n, c, d, h, w, q, grid batch, 3 orders,
+        # kernel, padding, align, multicell, strict; the offset lattice's
+        # step and stop; the stream
+        fn.argtypes = [ptr, ptr, ptr] + [i32] * 16 + [f32, f32, ptr]
+        fn.restype = i32
     lib.fused2w_max_channels.argtypes = []
     lib.fused2w_max_channels.restype = i32
     lib.csm_error_string.argtypes = [i32]
@@ -93,9 +122,10 @@ def load_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the CUDA kernel library."""
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
+    nvcc = nvcc_path()
     lib = build_shared_library(
-        "cosinesampler_kernels", sources,
-        [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}"], deps=headers)
+        "cosinesampler_kernels", sources, [nvcc, *NVCC_FLAGS, f"-I{CSRC}"],
+        link_command=[nvcc, *NVCC_FLAGS, "-shared"], deps=headers)
     return _declare(ctypes.CDLL(str(lib)))
 
 

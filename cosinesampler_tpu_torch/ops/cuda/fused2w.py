@@ -25,8 +25,8 @@ from ..config import SamplerConfig
 from ..coords import offset_lattice
 from .build import check, load_kernels
 
-_KERNEL_IDS = {"cosine": 0, "linear": 1, "smoothstep": 2}
-_PADDING_IDS = {"zeros": 0, "border": 1, "reflection": 2}
+KERNEL_IDS = {"cosine": 0, "linear": 1, "smoothstep": 2}
+PADDING_IDS = {"zeros": 0, "border": 1, "reflection": 2}
 
 
 def all_orders(dim: int):
@@ -89,7 +89,7 @@ def check_kernel_inputs(cfg: SamplerConfig, *tensors: torch.Tensor) -> None:
         raise ValueError("tensor too large for the kernels' 32-bit indexing")
 
 
-def _cuda_device(*tensors: torch.Tensor) -> torch.device:
+def cuda_device(*tensors: torch.Tensor) -> torch.device:
     device = tensors[0].device
     if device.type != "cuda" or any(t.device != device for t in tensors):
         raise ValueError(
@@ -111,8 +111,8 @@ def _launch_args(cfg: SamplerConfig, n: int, c: int, h: int, w: int, q: int,
         raise ValueError("cell stack too large for the kernels' 32-bit "
                          "indexing")
     step, stop = offset_lattice(n, cfg.multicell)
-    args = (n, c, h, w, q, _KERNEL_IDS[cfg.kernel],
-            _PADDING_IDS[cfg.padding_mode], int(cfg.align_corners),
+    args = (n, c, h, w, q, KERNEL_IDS[cfg.kernel],
+            PADDING_IDS[cfg.padding_mode], int(cfg.align_corners),
             int(cfg.multicell), int(cfg.strict_reference), float(step),
             float(stop), torch.cuda.current_stream(device).cuda_stream)
     return lib, args
@@ -124,7 +124,7 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     cells at (Q, 2) points; kernel on CUDA tensors, plain on CPU ones."""
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
-    device = _cuda_device(cells, points)
+    device = cuda_device(cells, points)
     check_kernel_inputs(cfg, cells, points)
     if cells.dim() != 4 or points.dim() != 2 or points.shape[1] != 2:
         raise ValueError(f"expected cells (N, C, H, W) and points (Q, 2), "
@@ -148,7 +148,7 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
     cotangent ``g``; kernel on CUDA tensors, plain on CPU ones."""
     if g.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
-    device = _cuda_device(g, points)
+    device = cuda_device(g, points)
     check_kernel_inputs(cfg, g, points)
     if (g.dim() != 3 or g.shape[0] != 5 or points.dim() != 2
             or points.shape != (g.shape[2], 2) or len(in_spatial) != 2):

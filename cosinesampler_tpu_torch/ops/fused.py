@@ -11,9 +11,9 @@ forward is the fused blend kernel and its backward the fused transpose
 kernel (ops/cuda/fused2w.py), or their plain versions for CPU tensors and
 under ``backend="xla"``.
 
-Gradients flow to the cells only.  The points cotangent (the JAX package's
-``_points_cotangent``) needs the recursive blend family, not yet ported:
-the op raises when ``points.requires_grad``.
+The points cotangent, when the points require grad, is the JAX package's
+``_points_cotangent``: order-bumped ``blend_o`` launches through the
+recursive autograd pair (ops/sampler.py), so it is differentiable in turn.
 """
 
 from __future__ import annotations
@@ -22,46 +22,63 @@ import torch
 
 from .config import SamplerConfig
 from .cuda import fused2w
-from .cuda.fused2w import plain_fused_blend, plain_fused_bwd
+from .cuda.fused2w import all_orders, plain_fused_blend, plain_fused_bwd
+from .sampler import BlendO, bump_orders
 
 __all__ = ["make_sample_plan", "plain_fused_blend", "plain_fused_bwd",
            "sample_features_padded", "sample_features_with_derivs"]
 
 
+def _points_cotangent(cells, points, g, cfg: SamplerConfig):
+    """(Q, d) points cotangent of the (1+2d, C, Q) cotangent ``g``: for
+    each axis, the order-bumped blend of every output row, summed over the
+    cells, weighed by that row of ``g`` and summed over the channels."""
+    n, c = cells.shape[:2]
+    q, dim = points.shape
+    grid = points.reshape((1,) * dim + (q, dim))
+    lanes = []
+    for ax in range(dim):
+        acc = 0.0
+        for row, o in enumerate(all_orders(dim)):
+            term = BlendO.apply(cells, grid, cfg, bump_orders(o, ax))
+            acc = acc + (g[row] * term.reshape(n, c, q).sum(dim=0)).sum(dim=0)
+        lanes.append(acc)
+    return torch.stack(lanes, dim=-1).to(points.dtype)
+
+
 class _FusedSample(torch.autograd.Function):
-    """(cells, points) -> (1+2d, C, Q); the gradient reaches the cells."""
+    """(cells, points) -> (1+2d, C, Q)."""
 
     @staticmethod
     def forward(ctx, cells, points, cfg: SamplerConfig):
-        ctx.save_for_backward(points)
+        ctx.save_for_backward(cells, points)
         ctx.cfg = cfg
-        ctx.cells_shape = tuple(cells.shape)
-        ctx.cells_dtype = cells.dtype
         if cfg.backend == "xla":
             return plain_fused_blend(cells, points, cfg)
         return fused2w.fused_blend(cells, points, cfg)
 
     @staticmethod
     def backward(ctx, g):
-        (points,) = ctx.saved_tensors
+        cells, points = ctx.saved_tensors
         cfg = ctx.cfg
-        n, _, *spatial = ctx.cells_shape
+        n, _, *spatial = cells.shape
         g = g.contiguous()
-        if cfg.backend == "xla":
-            dcells = plain_fused_bwd(g, points, tuple(spatial), cfg, n)
-        else:
-            dcells = fused2w.fused_bwd(g, points, tuple(spatial), cfg, n)
-        return dcells.to(ctx.cells_dtype), None, None
+        dcells = dpoints = None
+        if ctx.needs_input_grad[0]:
+            if cfg.backend == "xla":
+                dcells = plain_fused_bwd(g, points, tuple(spatial), cfg, n)
+            else:
+                dcells = fused2w.fused_bwd(g, points, tuple(spatial), cfg, n)
+            dcells = dcells.to(cells.dtype)
+        if ctx.needs_input_grad[1]:
+            dpoints = _points_cotangent(cells, points, g, cfg)
+        return dcells, dpoints, None
 
 
 def _check_points(points, cfg: SamplerConfig):
     if points.dim() != 2 or points.shape[-1] != cfg.dim:
         raise ValueError(
             f"points must be (Q, {cfg.dim}): got {tuple(points.shape)}")
-    if points.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the points cotangent of the fused op is not ported yet "
-            "(ROADMAP A5); detach the collocation points")
 
 
 def sample_features_with_derivs(cells, points, cfg: SamplerConfig):

@@ -121,15 +121,35 @@ def test_padded_identity_plan_matches_query_order():
         tfused.make_sample_plan(tp[:, :1], tc.shape, cfg)
 
 
-def test_points_cotangent_raises():
-    cells, pts, _ = _data(4)
+@pytest.mark.parametrize("kw", [dict(), dict(padding_mode="reflection",
+                                             kernel="smoothstep")],
+                         ids=["main-path", "reflection-smoothstep"])
+def test_points_cotangent_matches_jax(kw):
+    """The fused op's points cotangent (order-bumped blends) against
+    jax.grad of the JAX fused op with respect to the points, f64, plain
+    path on both sides."""
+    cells, pts, g = (a.astype(np.float64) for a in _data(4, lo=-0.95,
+                                                           hi=0.95))
+    jcfg = JConfig(dim=2, backend="xla", **kw)
+    want_dc, want_dp = jax.grad(
+        lambda c, p: (jfused.sample_features_with_derivs(c, p, jcfg)
+                      * jnp.asarray(g)).sum(), argnums=(0, 1))(
+        jnp.asarray(cells), jnp.asarray(pts))
+    tc = torch.tensor(cells, requires_grad=True)
     tp = torch.tensor(pts, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="points cotangent"):
-        tfused.sample_features_with_derivs(torch.tensor(cells), tp,
-                                           TConfig(dim=2))
-    with torch.no_grad():
-        tfused.sample_features_with_derivs(torch.tensor(cells), tp,
-                                           TConfig(dim=2))
+    out = tfused.sample_features_with_derivs(tc, tp, TConfig(dim=2, **kw))
+    (out * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(tp.grad.numpy(), want_dp, rtol=1e-9,
+                               atol=1e-9 * float(np.abs(want_dp).max()))
+    np.testing.assert_allclose(tc.grad.numpy(), want_dc, rtol=1e-9,
+                               atol=1e-9 * float(np.abs(want_dc).max()))
+    # only the points: no cells cotangent is formed
+    tp.grad = None
+    out = tfused.sample_features_with_derivs(torch.tensor(cells), tp,
+                                             TConfig(dim=2, **kw))
+    (out * torch.tensor(g)).sum().backward()
+    np.testing.assert_allclose(tp.grad.numpy(), want_dp, rtol=1e-9,
+                               atol=1e-9 * float(np.abs(want_dp).max()))
 
 
 def test_cpu_wrappers_take_plain_version_and_count_no_launch():

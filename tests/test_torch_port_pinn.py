@@ -1,6 +1,6 @@
-"""PyTorch port, the slice as a whole: the fused PINN loss, its gradients,
-Adam steps, the point stream and the trainer, held to the JAX package on
-the same weights and points (f32)."""
+"""PyTorch port, the slice as a whole: the fused and the nested-autograd
+PINN losses, their gradients, Adam steps, the point stream and the
+trainer, held to the JAX package on the same weights and points (f32)."""
 
 import json
 
@@ -60,6 +60,74 @@ def test_slice_loss_and_grads_match_jax(extra):
     assert set(params) == set(want_grads)
     for k, p in params.items():
         _close(p.grad.numpy(), want_grads[k], 1e-4)
+
+
+KW3 = dict(dim=3, n_cells=4, cell_size=6, hidden=8, pde="helmholtz")
+
+
+def _setup3(seed):
+    jcfg, tcfg = jpinn.PINNConfig(**KW3), tpinn.PINNConfig(**KW3)
+    jparams = jpinn.init_params(jax.random.PRNGKey(seed), jcfg)
+    np_params = {k: np.asarray(v) for k, v in jparams.items()}
+    pts = tpointgen.PointGenerator(256, 3, seed=seed,
+                                   force_numpy=True).batch(0)
+    return jcfg, tcfg, np_params, pts
+
+
+@pytest.mark.parametrize("dim", [2, 3], ids=["2d-allen-cahn",
+                                             "3d-helmholtz"])
+def test_nested_loss_and_grads_match_jax(dim):
+    """pinn.loss, the nested-autograd residual (third-order dloss/dcells),
+    against jax.value_and_grad(pinn.loss) on the same weights and points:
+    loss at rtol 1e-5, every gradient leaf at rtol 1e-4 (f32)."""
+    jcfg, tcfg, np_params, pts = _setup(5) if dim == 2 else _setup3(5)
+    value_and_grad = jax.value_and_grad(jpinn.loss)
+    if dim == 2:
+        # 3D runs eagerly: compiling its third-order graph takes far longer
+        # than running it once
+        value_and_grad = jax.jit(value_and_grad, static_argnums=2)
+    want_loss, want_grads = value_and_grad(
+        {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(pts),
+        jcfg)
+    params = params_from_numpy(np_params, "cpu")
+    loss = tpinn.loss(params, torch.from_numpy(pts), tcfg)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    assert set(params) == set(want_grads)
+    for k, p in params.items():
+        _close(p.grad.numpy(), want_grads[k], 1e-4)
+
+
+def test_nested_loss_equals_fused_loss():
+    """The two forms of one loss: nested autograd through the sampler and
+    the fused value/derivative pass."""
+    _, tcfg, np_params, pts = _setup(6)
+    grads = []
+    for loss_fn in (tpinn.loss, tpinn.loss_fused):
+        params = params_from_numpy(np_params, "cpu")
+        loss = loss_fn(params, torch.from_numpy(pts), tcfg)
+        loss.backward()
+        grads.append((float(loss.detach()),
+                      {k: v.grad.numpy() for k, v in params.items()}))
+    (l_nested, g_nested), (l_fused, g_fused) = grads
+    np.testing.assert_allclose(l_nested, l_fused, rtol=1e-5)
+    for k in g_fused:
+        _close(g_nested[k], g_fused[k], 1e-4)
+
+
+def test_spatial_derivative_matches_residual_fields():
+    _, tcfg, np_params, pts = _setup(7)
+    params = params_from_numpy(np_params, "cpu")
+    tp = torch.from_numpy(pts)
+    u, u_d, u_dd = tpinn.field_and_grads(params, tp, tcfg)
+    for axis in (0, 1):
+        _close(tpinn.spatial_derivative(params, tp, tcfg, axis, 1)
+               .detach().numpy(), u_d[axis].detach().numpy(), 1e-4)
+        _close(tpinn.spatial_derivative(params, tp, tcfg, axis, 2)
+               .detach().numpy(), u_dd[axis].detach().numpy(), 1e-4)
+    _close(tpinn.spatial_derivative(params, tp, tcfg, 0, 0).detach().numpy(),
+           u.detach().numpy(), 1e-6)
 
 
 def test_slot_loss_equals_query_loss():
@@ -144,7 +212,6 @@ def test_point_stream_bit_equal_to_jax(force_numpy):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(fused=False), "ROADMAP A3"),
     (dict(fused=True, megakernel=True), "ROADMAP B3"),
     (dict(fused=True, vol_resident=True), "ROADMAP B10"),
 ])
@@ -189,6 +256,32 @@ def test_train_end_to_end_on_cpu():
                                fixed_points=True)
     _, fixed_metrics = ttrain.train(fixed)
     assert fixed_metrics[0]["loss"] == metrics[0]["loss"]
+
+
+@pytest.mark.parametrize("model", [dict(KW), dict(KW3)],
+                         ids=["2d-allen-cahn", "3d-helmholtz"])
+def test_train_nested_on_cpu(model):
+    """fused=False trains on pinn.loss; its first loss is the fused
+    trainer's first loss (same weights and points, same function)."""
+    losses = {}
+    for fused in (False, True):
+        cfg = ttrain.TrainConfig(model=tpinn.PINNConfig(**model),
+                                 device="cpu", steps=2, batch_points=256,
+                                 log_every=1, fused=fused)
+        params, metrics = ttrain.train(cfg)
+        assert [m["step"] for m in metrics] == [1, 2]
+        assert all(np.isfinite(m["loss"]) for m in metrics)
+        assert all(bool(torch.isfinite(v).all()) for v in params.values())
+        losses[fused] = metrics[0]["loss"]
+    np.testing.assert_allclose(losses[False], losses[True], rtol=1e-5)
+
+
+def test_cli_no_fused(capsys):
+    assert ttrain.main(["--device", "cpu", "--steps", "2", "--batch-points",
+                        "256", "--n-cells", "4", "--no-fused"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [m["step"] for m in lines] == [2]
+    assert np.isfinite(lines[0]["loss"])
 
 
 def test_cli_prints_json_metrics(capsys):
