@@ -4,15 +4,18 @@
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card (main-path shapes and small
-variants).  Then it drives the port's two training paths at full width:
-the fused trainer (96 cells x 4 ch x 16 x 16, 100 000 points, hidden 16,
-Allen-Cahn) for 20 steps through fused2w_blend / fused2w_bwd, and the
+variants).  Then it drives the port's training paths at full width: the
+fused trainer (96 cells x 4 ch x 16 x 16, 100 000 points, hidden 16,
+Allen-Cahn) for 20 steps through fused2w_blend / fused2w_bwd, the
+megakernel trainer (``megakernel=True``) for 20 steps through mega2w, the
 nested-autograd trainer (``fused=False``, the public sampler to third
-order) for 10 steps through blend_o / splat_o, plus 3 steps of the 3D
-Helmholtz trainer (50 x 4 x 16^3).  It checks from the launch counters
-that each path went through its kernels, compares the nested loss with
-the fused one and the card with the CPU, and times kernels, library calls
-and steps against their plain versions.  The last lines are a JSON object
+order) for 10 steps through blend_o / splat_o, and the 3D Helmholtz
+trainer (50 x 4 x 16^3) for 3 steps nested and 3 steps fused through
+fused3w_blend / fused3w_bwd.  It checks from the launch counters that each
+path went through its kernels and no other, compares the megakernel losses
+with the fused ones, the nested loss with the fused one and the card with
+the CPU, and times kernels, library calls and steps against their plain
+versions.  The last lines are a JSON object
 of the kernels, the card's name and power limit as nvidia-smi prints
 them, and a JSON status object.  Any failure raises: the script then exits
 non-zero and prints no status.  It needs one CUDA card and imports nothing
@@ -34,11 +37,13 @@ from cosinesampler_tpu_torch.models import pinn
 from cosinesampler_tpu_torch.models.train import TrainConfig, train
 from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops.config import SamplerConfig
-from cosinesampler_tpu_torch.ops.cuda import blend_splat, build, fused2w
+from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2w,
+                                              fused3w, mega2w)
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
 # main path: BASELINE config 3 / bench.py's headline
 N, C, H, W, Q = 96, 4, 16, 16, 100_000
+HIDDEN = 16
 # the reference's test_3d workload
 N3, S3 = 50, 16
 STEPS, NESTED_STEPS, STEPS_3D = 20, 10, 3
@@ -54,12 +59,25 @@ SOURCES = {
     "fused2w_bwd": "cosinesampler_tpu_torch/csrc/fused2w.cu",
     "blend_o": "cosinesampler_tpu_torch/csrc/blend_splat.cu",
     "splat_o": "cosinesampler_tpu_torch/csrc/blend_splat.cu",
+    "mega2w": "cosinesampler_tpu_torch/csrc/mega2w.cu",
+    "fused3w_blend": "cosinesampler_tpu_torch/csrc/fused3w.cu",
+    "fused3w_bwd": "cosinesampler_tpu_torch/csrc/fused3w.cu",
 }
 REPLACES = {
     "fused2w_blend": "cosinesampler_tpu/ops/pallas/fused2w.py:276",
     "fused2w_bwd": "cosinesampler_tpu/ops/pallas/fused2w.py:432",
     "blend_o": "cosinesampler_tpu/ops/pallas/kernels.py:102",
     "splat_o": "cosinesampler_tpu/ops/pallas/kernels.py:201",
+    "mega2w": "cosinesampler_tpu/ops/pallas/mega2w.py:160",
+    "fused3w_blend": "cosinesampler_tpu/ops/pallas/fused3w.py:240",
+    "fused3w_bwd": "cosinesampler_tpu/ops/pallas/fused3w.py:396",
+}
+# each kernel's launch counter
+COUNTERS = {
+    "fused2w_blend": fused2w.fused_blend, "fused2w_bwd": fused2w.fused_bwd,
+    "blend_o": blend_splat.blend, "splat_o": blend_splat.splat,
+    "mega2w": mega2w.mega2w_step,
+    "fused3w_blend": fused3w.fused_blend, "fused3w_bwd": fused3w.fused_bwd,
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
 # FLOP/s
@@ -96,16 +114,12 @@ def _bound(nbytes, flops):
 
 
 def _reset_counts():
-    for fn in (fused2w.fused_blend, fused2w.fused_bwd, blend_splat.blend,
-               blend_splat.splat):
+    for fn in COUNTERS.values():
         fn.launches = 0
 
 
 def _counts():
-    return {"fused2w_blend": fused2w.fused_blend.launches,
-            "fused2w_bwd": fused2w.fused_bwd.launches,
-            "blend_o": blend_splat.blend.launches,
-            "splat_o": blend_splat.splat.launches}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def _rel_err(got, want):
@@ -330,41 +344,207 @@ def points_cotangent_phase():
         raise RuntimeError("points cotangent disagrees with the plain path")
 
 
+# --- mega2w -------------------------------------------------------------------
+
+def _mlp(c, hidden, gen, scale=1.0):
+    """Random MLP leaves (w1, b1, w2, b2) on the card; ``scale`` widens w1
+    so the pre-activations reach saturation."""
+    w1 = torch.randn((c, hidden), generator=gen) * 0.5 * scale
+    b1 = torch.randn((hidden,), generator=gen) * 0.1
+    w2 = torch.randn((hidden, 1), generator=gen) * 0.3
+    b2 = torch.full((1,), 0.1)
+    return [t.cuda() for t in (w1, b1, w2, b2)]
+
+
+def compare_mega(name, cfg, n, c, h, w, q, hidden=HIDDEN, pde="allen_cahn",
+                 seed=0, scale=1.0, check=True):
+    """mega2w against plain_mega2w_step on the card: every output finite,
+    and (``check``) the loss at rtol LOSS_RTOL, the cells gradient and each
+    MLP leaf within REL_TOL of its largest magnitude.  Returns the largest
+    abs error of any output."""
+    gen = torch.Generator().manual_seed(seed)
+    cells = torch.rand((n, c, h, w), generator=gen).cuda()
+    pts = (torch.rand((q, 2), generator=gen) * 2.2 - 1.1).cuda()
+    mlp = _mlp(c, hidden, gen, scale)
+    loss, grads = mega2w.mega2w_step(cells, *mlp, pts, cfg, pde)
+    ref_loss, ref = mega2w.plain_mega2w_step(cells, *mlp, pts, cfg, pde)
+    torch.cuda.synchronize()
+    outs = [loss[None], *grads.values()]
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        raise RuntimeError(f"mega2w {name}: non-finite kernel output")
+    if any(grads[k].shape != ref[k].shape for k in ref):
+        raise RuntimeError(f"mega2w {name}: shape mismatch")
+    errs = {k: _rel_err(grads[k].reshape(1, -1), ref[k].reshape(1, -1))
+            for k in ref}
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst = max(rel for _, rel in errs.values())
+    print(f"compare mega2w {name} ({n}x{c}x{h}x{w}, Q={q}, hidden {hidden}, "
+          f"{pde}): loss {float(loss):.8g} vs {float(ref_loss):.8g} (rel "
+          f"{loss_err:.2e}); leaf rel err "
+          f"{', '.join(f'{k} {rel:.2e}' for k, (_, rel) in errs.items())} "
+          f"(tolerances loss {LOSS_RTOL:g}, leaf {REL_TOL:g})", flush=True)
+    if check and not (loss_err <= LOSS_RTOL and worst <= REL_TOL):
+        raise RuntimeError(f"mega2w {name}: kernel disagrees with the plain "
+                           "version")
+    return max(max(a for a, _ in errs.values()),
+               abs(float(loss) - float(ref_loss)))
+
+
+def mega_kernel_phase():
+    main = SamplerConfig(dim=2)
+    err = compare_mega("main-path", main, N, C, H, W, Q)
+    small = (8, 3, 12, 10, 4096)
+    for name, kw, extra in [
+            ("helmholtz", {}, dict(pde="helmholtz")),
+            ("border", dict(padding_mode="border"), {}),
+            ("reflection", dict(padding_mode="reflection"), {}),
+            ("linear", dict(kernel="linear"), {}),
+            ("smoothstep", dict(kernel="smoothstep"), {}),
+            ("no-multicell", dict(multicell=False), {}),
+            ("align-false", dict(align_corners=False), {}),
+            ("hidden-8", {}, dict(hidden=8)),
+            ("hidden-32", {}, dict(hidden=32))]:
+        compare_mega(name, SamplerConfig(dim=2, **kw), *small, seed=1,
+                     **extra)
+    for c in (1, 3, 8):
+        compare_mega(f"channels-{c}", main, 8, c, 12, 10, 4096, seed=2)
+    compare_mega("q-4099", main, 8, 3, 12, 10, 4099, seed=3)
+    compare_mega("q-1000", main, 8, 3, 12, 10, 1000, seed=4)
+    # a cell too large for the shared-memory chunk: global atomics
+    compare_mega("large-cell", main, 2, 4, 128, 128, 4096, seed=5)
+    # w1 scaled so |pre-activation| reaches ~40: tanh saturates and d1 -> 0;
+    # the outputs must stay finite (the errors are printed, not checked:
+    # d1 = 1 - h^2 keeps only a few bits there)
+    compare_mega("saturated-tanh", main, 8, 4, 16, 16, 4096, seed=6,
+                 scale=10.0, check=False)
+    return err
+
+
+# --- fused3w ------------------------------------------------------------------
+
+def compare_3d(name, cfg, n, c, s, q, seed=0):
+    """Both fused3w kernels against their plain versions on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    cells = torch.rand((n, c, s, s, s), generator=gen).cuda()
+    pts = (torch.rand((q, 3), generator=gen) * 2.4 - 1.2).cuda()
+    g = torch.randn((7, c, q), generator=gen).cuda()
+    out = fused3w.fused_blend(cells, pts, cfg)
+    ref = fused3w.plain_fused_blend(cells, pts, cfg)
+    dcells = fused3w.fused_bwd(g, pts, (s, s, s), cfg, n)
+    dref = fused3w.plain_fused_bwd(g, pts, (s, s, s), cfg, n)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or dcells.shape != dref.shape:
+        raise RuntimeError(f"fused3w {name}: shape mismatch")
+    if not (torch.isfinite(out).all() and torch.isfinite(dcells).all()):
+        raise RuntimeError(f"fused3w {name}: non-finite kernel output")
+    abs_b, rel_b = _rel_err(out, ref)
+    abs_d, rel_d = _rel_err(dcells.reshape(1, -1), dref.reshape(1, -1))
+    print(f"compare fused3w {name} ({n}x{c}x{s}^3, Q={q}): blend max abs err "
+          f"{abs_b:.3e}, rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, rel "
+          f"{rel_d:.3e} (tolerance rel {REL_TOL:g})", flush=True)
+    if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
+        raise RuntimeError(f"fused3w {name}: kernel disagrees with the plain "
+                           "version")
+    return abs_b, abs_d
+
+
+def fused3w_kernel_phase():
+    main = SamplerConfig(dim=3)
+    errs = compare_3d("main-path", main, N3, C, S3, Q)
+    small = (6, 3, 7, 4096)
+    for name, kw in [
+            ("border", dict(padding_mode="border")),
+            ("reflection", dict(padding_mode="reflection")),
+            ("linear", dict(kernel="linear")),
+            ("smoothstep", dict(kernel="smoothstep")),
+            ("no-multicell", dict(multicell=False)),
+            ("align-false", dict(align_corners=False)),
+            ("reflection-strict-align-false",
+             dict(padding_mode="reflection", strict_reference=True,
+                  align_corners=False))]:
+        compare_3d(name, SamplerConfig(dim=3, **kw), *small, seed=1)
+    for c in (1, 3, 8):
+        compare_3d(f"channels-{c}", main, 6, c, 7, 4096, seed=2)
+    compare_3d("q-4099", main, 6, 3, 7, 4099, seed=3)
+    # a 4 x 32^3 cell (512 KB) is over the opted-in limit: global atomics
+    compare_3d("large-cell", main, 2, 4, 32, 4096, seed=4)
+
+    gen = torch.Generator().manual_seed(5)
+    cells = torch.rand((6, 3, 7, 7, 7), generator=gen).cuda()
+    pts = (torch.rand((4099, 3), generator=gen) * 2.4 - 1.2).cuda()
+    g = torch.randn((7, 3, 4099), generator=gen).cuda()
+    grads = {}
+    for backend in ("auto", "xla"):
+        p = pts.clone().requires_grad_(True)
+        out = tfused.sample_features_with_derivs(
+            cells, p, SamplerConfig(dim=3, backend=backend))
+        (out * g).sum().backward()
+        grads[backend] = p.grad
+    abs_e, rel_e = _rel_err(grads["auto"].T, grads["xla"].T)
+    print(f"points cotangent of the 3D fused op (6x3x7^3, Q=4099): kernel vs "
+          f"plain max abs err {abs_e:.3e}, rel {rel_e:.3e}", flush=True)
+    if not rel_e <= REL_TOL:
+        raise RuntimeError("3D points cotangent disagrees with the plain path")
+    return {"fused3w_blend": errs[0], "fused3w_bwd": errs[1]}
+
+
 # --- trainers -----------------------------------------------------------------
 
-def _train_checked(name, cfg, steps, must_launch, must_not, decrease=True):
+def _train_checked(name, cfg, steps, launched, decrease=True):
+    """Train with every launch count set to 0 just before and read just
+    after: each kernel of ``launched`` must have launched, every other
+    kernel not at all."""
     _reset_counts()
     params, metrics = train(cfg)
     launches = _counts()
     losses = [m["loss"] for m in metrics]
-    per_step = {k: v / steps for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items() if v}
     print(f"train {name}: {steps} steps; losses "
-          f"{' '.join(f'{v:.6g}' for v in losses)}; launches {launches}; "
-          f"per step {per_step}", flush=True)
+          f"{' '.join(f'{v:.6g}' for v in losses)}; launches per step "
+          f"{per_step}", flush=True)
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"{name}: loss is not finite at every step")
     if decrease and not losses[-1] < losses[0]:
         raise RuntimeError(f"{name}: loss did not decrease")
-    if any(launches[k] == 0 for k in must_launch):
+    if any(launches[k] == 0 for k in launched):
         raise RuntimeError(f"{name}: a kernel of the path never launched: "
                            f"{launches}")
-    if any(launches[k] != 0 for k in must_not):
+    if any(v != 0 for k, v in launches.items() if k not in launched):
         raise RuntimeError(f"{name}: another path's kernel launched: "
                            f"{launches}")
     for k, v in params.items():
         if not (v.is_cuda and torch.isfinite(v).all()):
             raise RuntimeError(f"{name}: parameter {k} is not finite")
-    return launches
+    return launches, losses
 
 
 def fused_trainer_phase():
     """The port's default trainer at the main path, on the card."""
-    launches = _train_checked(
+    launches, losses = _train_checked(
         f"fused {N}x{C}x{H}x{W}, {Q} points",
         TrainConfig(device="cuda", steps=STEPS, log_every=1, seed=0), STEPS,
-        ("fused2w_blend", "fused2w_bwd"), ("blend_o", "splat_o"))
+        ("fused2w_blend", "fused2w_bwd"))
     if launches["fused2w_blend"] != STEPS or launches["fused2w_bwd"] != STEPS:
         raise RuntimeError(f"expected {STEPS} launches of each fused kernel")
+    return launches, losses
+
+
+def mega_trainer_phase(fused_losses):
+    """The megakernel trainer at the main path: one mega2w launch a step
+    and no other kernel; its losses are the fused trainer's, the first at
+    rtol LOSS_RTOL and each within GRAD_TOL relative (the parameters drift
+    apart by f32 rounding, step by step)."""
+    launches, losses = _train_checked(
+        f"megakernel {N}x{C}x{H}x{W}, {Q} points",
+        TrainConfig(device="cuda", megakernel=True, steps=STEPS, log_every=1,
+                    seed=0), STEPS, ("mega2w",))
+    if launches["mega2w"] != STEPS:
+        raise RuntimeError(f"expected {STEPS} mega2w launches")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, fused_losses)]
+    print(f"megakernel vs fused trainer losses: worst rel diff {max(rel):.3e} "
+          f"(step {rel.index(max(rel)) + 1}), first {rel[0]:.3e}", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError("megakernel and fused trainers disagree")
     return launches
 
 
@@ -374,19 +554,34 @@ def nested_trainer_phase():
         f"nested {N}x{C}x{H}x{W}, {Q} points",
         TrainConfig(device="cuda", fused=False, steps=NESTED_STEPS,
                      log_every=1, seed=0), NESTED_STEPS,
-        ("blend_o", "splat_o"), ("fused2w_blend", "fused2w_bwd"))
+        ("blend_o", "splat_o"))[0]
+
+
+MODEL_3D = pinn.PINNConfig(dim=3, n_cells=N3, cell_size=S3, pde="helmholtz")
 
 
 def nested_3d_phase():
     """The 3D Helmholtz trainer (the reference's test_3d workload)."""
-    model = pinn.PINNConfig(dim=3, n_cells=N3, cell_size=S3,
-                            pde="helmholtz")
     _train_checked(
         f"nested 3D {N3}x{C}x{S3}^3, {Q} points",
-        TrainConfig(model=model, device="cuda", fused=False, steps=STEPS_3D,
+        TrainConfig(model=MODEL_3D, device="cuda", fused=False,
+                    steps=STEPS_3D, log_every=1, seed=0), STEPS_3D,
+        ("blend_o", "splat_o"), decrease=False)
+
+
+def fused_3d_phase():
+    """The default (fused) 3D trainer: fused3w_blend / fused3w_bwd once a
+    step each."""
+    launches, _ = _train_checked(
+        f"fused 3D {N3}x{C}x{S3}^3, {Q} points",
+        TrainConfig(model=MODEL_3D, device="cuda", steps=STEPS_3D,
                     log_every=1, seed=0), STEPS_3D,
-        ("blend_o", "splat_o"), ("fused2w_blend", "fused2w_bwd"),
-        decrease=False)
+        ("fused3w_blend", "fused3w_bwd"), decrease=False)
+    if (launches["fused3w_blend"] != STEPS_3D
+            or launches["fused3w_bwd"] != STEPS_3D):
+        raise RuntimeError(f"expected {STEPS_3D} launches of each fused3w "
+                           "kernel")
+    return launches
 
 
 def launch_breakdown_phase():
@@ -430,18 +625,26 @@ def _compare_losses(what, a, b):
 
 def nested_vs_fused_phase():
     """pinn.loss and pinn.loss_fused are one function: same params and
-    points at full width on the card."""
-    cfg = pinn.PINNConfig()
-    with PointGenerator(Q, 2, seed=10) as gen:
-        pts = torch.from_numpy(gen.batch(0))
-    _compare_losses("nested vs fused on the card (full width)",
-                    _loss_and_grads(pinn.loss, cfg, "cuda", pts, 10),
-                    _loss_and_grads(pinn.loss_fused, cfg, "cuda", pts, 10))
+    points at full width on the card, 2D (fused2w) and 3D (fused3w)."""
+    for what, cfg, dim in (("2D", pinn.PINNConfig(), 2), ("3D", MODEL_3D, 3)):
+        with PointGenerator(Q, dim, seed=10) as gen:
+            pts = torch.from_numpy(gen.batch(0))
+        _compare_losses(f"nested vs fused {what} on the card (full width)",
+                        _loss_and_grads(pinn.loss, cfg, "cuda", pts, 10),
+                        _loss_and_grads(pinn.loss_fused, cfg, "cuda", pts, 10))
+
+
+def _mega_loss_and_grads(cfg, device, pts, seed):
+    params = pinn.init_params(torch.Generator().manual_seed(seed), cfg,
+                              device)
+    loss, grads = pinn.value_and_grad_mega(params, pts.to(device), cfg)
+    return float(loss), {k: v.cpu() for k, v in grads.items()}
 
 
 def reference_phase():
     """Kernel paths on the card against the plain paths on the CPU, on a
-    small input (8 cells, 4096 points), fused and nested."""
+    small input (8 cells, 4096 points): fused, nested and megakernel in 2D,
+    fused in 3D."""
     cfg = pinn.PINNConfig(n_cells=8)
     with PointGenerator(4096, 2, seed=5) as gen:
         pts = torch.from_numpy(gen.batch(0))
@@ -449,6 +652,15 @@ def reference_phase():
         _compare_losses(f"reference {name}: kernel path on the card vs plain "
                         f"CPU", _loss_and_grads(loss_fn, cfg, "cuda", pts, 5),
                         _loss_and_grads(loss_fn, cfg, "cpu", pts, 5))
+    _compare_losses("reference megakernel: mega2w on the card vs plain CPU",
+                    _mega_loss_and_grads(cfg, "cuda", pts, 5),
+                    _mega_loss_and_grads(cfg, "cpu", pts, 5))
+    cfg3 = pinn.PINNConfig(dim=3, n_cells=8, cell_size=S3, pde="helmholtz")
+    with PointGenerator(4096, 3, seed=6) as gen:
+        pts3 = torch.from_numpy(gen.batch(0))
+    _compare_losses("reference fused 3D: fused3w on the card vs plain CPU",
+                    _loss_and_grads(pinn.loss_fused, cfg3, "cuda", pts3, 6),
+                    _loss_and_grads(pinn.loss_fused, cfg3, "cpu", pts3, 6))
 
 
 # --- times -------------------------------------------------------------------
@@ -516,10 +728,71 @@ def v1_time_phase():
     return times
 
 
-def _median_step_ms(cfg, fused, batches):
+def mega_fused3w_time_phase():
+    """mega2w, fused3w_blend and fused3w_bwd at the main paths against
+    their plain versions, and mega2w against the two fused2w kernels that
+    compute the same cells gradient in the two-kernel step, in turns."""
+    times = {}
+    main = SamplerConfig(dim=2)
+    gen = torch.Generator().manual_seed(13)
+    cells = torch.rand((N, C, H, W), generator=gen).cuda()
+    pts = (torch.rand((Q, 2), generator=gen) * 2 - 1).cuda()
+    mlp = _mlp(C, HIDDEN, gen)
+    g = torch.randn((5, C, Q), generator=gen).cuda()
+    # blend and splat: 5 rows x 4 corners x C FMAs per (query, cell) each;
+    # the MLP ~(20 C + 40) operations per (query, hidden unit); reads the
+    # cells, points and MLP, writes the cells gradient and the MLP's
+    flops = 2 * (2 * 5 * 4 * C * N * Q) + 2 * Q * HIDDEN * (20 * C + 40)
+    nbytes = 4 * (2 * N * C * H * W + 2 * Q + 2 * (C + 2) * HIDDEN + 3)
+    ms, plain_ms = _in_turns(
+        lambda: mega2w.mega2w_step(cells, *mlp, pts, main, "allen_cahn"),
+        lambda: mega2w.plain_mega2w_step(cells, *mlp, pts, main,
+                                         "allen_cahn"))
+    bound_ms, bound_by = _bound(nbytes, flops)
+    times["mega2w"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+
+    def two_kernels():
+        fused2w.fused_blend(cells, pts, main)
+        fused2w.fused_bwd(g, pts, (H, W), main, N)
+
+    pair_ms, mega_ms = _in_turns(two_kernels, lambda: mega2w.mega2w_step(
+        cells, *mlp, pts, main, "allen_cahn"))
+    print(f"time mega2w at the main path: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of it; fused2w_blend + fused2w_bwd "
+          f"{pair_ms:.4f} ms vs mega2w {mega_ms:.4f} ms in turns; no library "
+          f"call computes it", flush=True)
+
+    cfg3 = SamplerConfig(dim=3)
+    cells3 = torch.rand((N3, C, S3, S3, S3), generator=gen).cuda()
+    pts3 = (torch.rand((Q, 3), generator=gen) * 2 - 1).cuda()
+    g3 = torch.randn((7, C, Q), generator=gen).cuda()
+    # 7 rows x 8 corners x C FMAs per (query, cell); the blend reads cells
+    # and points and writes (7, C, Q), the bwd the other way round
+    flops3 = 2 * 7 * 8 * C * N3 * Q
+    nbytes3 = 4 * (N3 * C * S3 ** 3 + 3 * Q + 7 * C * Q)
+    for name, kernel, plain in [
+            ("fused3w_blend", lambda: fused3w.fused_blend(cells3, pts3, cfg3),
+             lambda: fused3w.plain_fused_blend(cells3, pts3, cfg3)),
+            ("fused3w_bwd",
+             lambda: fused3w.fused_bwd(g3, pts3, (S3,) * 3, cfg3, N3),
+             lambda: fused3w.plain_fused_bwd(g3, pts3, (S3,) * 3, cfg3, N3))]:
+        ms, plain_ms = _in_turns(kernel, plain)
+        bound_ms, bound_by = _bound(nbytes3, flops3)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        print(f"time {name} at the 3D main path: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of it; no library call computes it",
+              flush=True)
+    return times
+
+
+def _median_step_ms(cfg, batches, **step_kw):
     params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     step = pinn.make_train_step(
-        cfg, torch.optim.Adam(params.values(), lr=1e-3), fused=fused)
+        cfg, torch.optim.Adam(params.values(), lr=1e-3), **step_kw)
     for pts in batches[:3]:
         step(params, pts)
     times = []
@@ -534,36 +807,57 @@ def _median_step_ms(cfg, fused, batches):
     return statistics.median(times)
 
 
+def _step_turns(what, a, b, batches):
+    """Median step ms of two step setups (cfg, step kwargs), in turns
+    a, b, b, a."""
+    ta1, tb1, tb2, ta2 = (_median_step_ms(cfg, batches, **kw)
+                          for cfg, kw in (a, b, b, a))
+    print(f"step {what}: {(tb1 + tb2) / 2:.4f} ms vs {(ta1 + ta2) / 2:.4f} ms "
+          f"(turns {ta1:.4f} {tb1:.4f} {tb2:.4f} {ta2:.4f})", flush=True)
+
+
 def step_phase():
-    """Median step ms (CUDA events, 3 warm-up steps, 10 timed) on the
-    kernel path and with the same steps through the plain versions
-    (backend='xla'), fused and nested, in turns."""
+    """Median step ms (CUDA events, 3 warm-up steps, 10 timed) in turns: the
+    kernel path against the same steps through the plain versions
+    (backend='xla'), fused and nested; the megakernel step against the
+    two-kernel fused step; the 3D fused step against the 3D nested step."""
     with PointGenerator(Q, 2, seed=7) as gen:
         batches = [torch.from_numpy(gen.batch(i)).cuda() for i in range(13)]
     for name, fused in (("fused", True), ("nested", False)):
-        p1, k1, k2, p2 = (
-            _median_step_ms(pinn.PINNConfig(backend=b), fused, batches)
-            for b in ("xla", "auto", "auto", "xla"))
-        print(f"step {name}: median train step {(k1 + k2) / 2:.4f} ms on "
-              f"the kernel path, {(p1 + p2) / 2:.4f} ms on the plain path "
-              f"(turns {p1:.4f} {k1:.4f} {k2:.4f} {p2:.4f})", flush=True)
+        _step_turns(f"{name}, kernel path vs plain path",
+                    (pinn.PINNConfig(backend="xla"), dict(fused=fused)),
+                    (pinn.PINNConfig(), dict(fused=fused)), batches)
+    _step_turns("megakernel vs two-kernel fused",
+                (pinn.PINNConfig(), dict(fused=True)),
+                (pinn.PINNConfig(), dict(megakernel=True)), batches)
+    with PointGenerator(Q, 3, seed=8) as gen:
+        batches3 = [torch.from_numpy(gen.batch(i)).cuda() for i in range(13)]
+    _step_turns("3D fused vs 3D nested", (MODEL_3D, dict(fused=False)),
+                (MODEL_3D, dict(fused=True)), batches3)
 
 
 def main():
     card = device_phase()
     build_phase()
     errs, times = kernel_phase()
-    v1_errs = v1_kernel_phase()
-    errs.update(v1_errs)
+    errs.update(v1_kernel_phase())
     points_cotangent_phase()
-    launches = fused_trainer_phase()
+    errs["mega2w"] = mega_kernel_phase()
+    errs.update(fused3w_kernel_phase())
+    launches, fused_losses = fused_trainer_phase()
+    mega = mega_trainer_phase(fused_losses)
     nested = nested_trainer_phase()
-    launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"])
     launch_breakdown_phase()
     nested_3d_phase()
+    fused3 = fused_3d_phase()
+    launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"],
+                    mega2w=mega["mega2w"],
+                    fused3w_blend=fused3["fused3w_blend"],
+                    fused3w_bwd=fused3["fused3w_bwd"])
     nested_vs_fused_phase()
     reference_phase()
     times.update(v1_time_phase())
+    times.update(mega_fused3w_time_phase())
     step_phase()
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -52,13 +52,13 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "launch.cuh"
 #include "sampler_math.cuh"
 
 namespace {
 
 constexpr int kBlendThreads = 256;
 constexpr int kSplatThreads = 256;
-constexpr int kStaticSmemBytes = 48 * 1024;  // no opt-in attribute needed
 
 struct Shape {
   int n, c, q;
@@ -176,16 +176,15 @@ __global__ void __launch_bounds__(kSplatThreads)
   }
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 template <int D>
 cudaError_t launch_blend(const float* input, const float* grid, float* out,
                          const Shape& s, const csm::SamplerParams& p,
                          cudaStream_t stream) {
   const int pairs = s.n * s.q;
   if (pairs == 0 || s.c == 0) return cudaGetLastError();
-  blend_o_kernel<D><<<cdiv(pairs, kBlendThreads), kBlendThreads, 0, stream>>>(
-      input, grid, out, s, p);
+  blend_o_kernel<D>
+      <<<csm::cdiv(pairs, kBlendThreads), kBlendThreads, 0, stream>>>(
+          input, grid, out, s, p);
   return cudaGetLastError();
 }
 
@@ -195,14 +194,10 @@ cudaError_t launch_splat(const float* gout, const float* grid, float* out,
                          cudaStream_t stream) {
   if (s.n == 0 || s.q == 0 || s.c == 0 || s.texels == 0)
     return cudaGetLastError();
-  int device = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  csm::DeviceLimits lim;
+  cudaError_t err = csm::device_limits(&lim);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return err;
+  const int sms = lim.sms, optin = lim.smem_optin;
 
   const int64_t cell_bytes =
       static_cast<int64_t>(s.c) * s.texels * static_cast<int64_t>(sizeof(float));
@@ -210,25 +205,22 @@ cudaError_t launch_splat(const float* gout, const float* grid, float* out,
   // up to 48 KB of cells per block, or one larger cell in opted-in memory
   const int cells_per_chunk =
       !smem ? s.n
-            : (cell_bytes <= kStaticSmemBytes
-                   ? std::min<int64_t>(s.n, kStaticSmemBytes / cell_bytes)
+            : (cell_bytes <= csm::kStaticSmemBytes
+                   ? std::min<int64_t>(s.n, csm::kStaticSmemBytes / cell_bytes)
                    : 1);
-  const int chunks = cdiv(s.n, cells_per_chunk);
+  const int chunks = csm::cdiv(s.n, cells_per_chunk);
   // enough blocks for ~4 per SM, but no block with fewer queries than threads
   const int q_blocks = std::max(
-      1, std::min(std::min(cdiv(4 * sms, chunks), cdiv(s.q, kSplatThreads)),
+      1, std::min(std::min(csm::cdiv(4 * sms, chunks),
+                           csm::cdiv(s.q, kSplatThreads)),
                   65535));
-  const int q_per_block = cdiv(s.q, q_blocks);
-  const dim3 blocks(chunks, cdiv(s.q, q_per_block));
+  const int q_per_block = csm::cdiv(s.q, q_blocks);
+  const dim3 blocks(chunks, csm::cdiv(s.q, q_per_block));
   if (smem) {
     const size_t bytes = static_cast<size_t>(cells_per_chunk) * cell_bytes;
     auto* kernel = &splat_o_kernel<D, true>;
-    if (bytes > static_cast<size_t>(kStaticSmemBytes)) {
-      err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-    }
+    err = csm::allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
     kernel<<<blocks, kSplatThreads, bytes, stream>>>(
         gout, grid, out, s, cells_per_chunk, q_per_block, p);
   } else {
@@ -258,20 +250,6 @@ Shape make_shape(int dim, int n, int c, int d, int h, int w, int q,
   return s;
 }
 
-csm::SamplerParams make_params(int kernel, int padding, int align,
-                               int multicell, int strict, float off_step,
-                               float off_stop) {
-  csm::SamplerParams p;
-  p.kernel = kernel;
-  p.padding = padding;
-  p.align = align != 0;
-  p.multicell = multicell != 0;
-  p.strict = strict != 0;
-  p.off_step = off_step;
-  p.off_stop = off_stop;
-  return p;
-}
-
 bool bad_args(int dim, int grid_batch, int n, int ox, int oy, int oz) {
   return (dim != 2 && dim != 3) || (grid_batch != 1 && grid_batch != n) ||
          ox < 0 || oy < 0 || oz < 0;
@@ -288,8 +266,8 @@ int blend_o(const void* input, const void* grid, void* out, int dim, int n,
             int strict, float off_step, float off_stop, void* stream) {
   if (bad_args(dim, grid_batch, n, ox, oy, oz)) return cudaErrorInvalidValue;
   const Shape s = make_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
-  const csm::SamplerParams p = make_params(kernel, padding, align, multicell,
-                                           strict, off_step, off_stop);
+  const csm::SamplerParams p = csm::make_params(
+      kernel, padding, align, multicell, strict, off_step, off_stop);
   const auto* in = static_cast<const float*>(input);
   const auto* gr = static_cast<const float*>(grid);
   auto* o = static_cast<float*>(out);
@@ -305,8 +283,8 @@ int splat_o(const void* gout, const void* grid, void* out, int dim, int n,
             int strict, float off_step, float off_stop, void* stream) {
   if (bad_args(dim, grid_batch, n, ox, oy, oz)) return cudaErrorInvalidValue;
   const Shape s = make_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
-  const csm::SamplerParams p = make_params(kernel, padding, align, multicell,
-                                           strict, off_step, off_stop);
+  const csm::SamplerParams p = csm::make_params(
+      kernel, padding, align, multicell, strict, off_step, off_stop);
   const auto* g = static_cast<const float*>(gout);
   const auto* gr = static_cast<const float*>(grid);
   auto* o = static_cast<float*>(out);

@@ -1,4 +1,5 @@
-// Per-thread sampler math shared by the fused2w and blend_o/splat_o kernels.
+// Per-thread sampler math shared by the fused, mega2w and blend_o/splat_o
+// kernels.
 //
 // Device counterparts of ops/coords.py and ops/interpolants.py.  The
 // coordinate transform uses the round-to-nearest intrinsics (__fadd_rn,
@@ -31,6 +32,20 @@ struct SamplerParams {
   float off_step;
   float off_stop;
 };
+
+inline SamplerParams make_params(int kernel, int padding, int align,
+                                 int multicell, int strict, float off_step,
+                                 float off_stop) {
+  SamplerParams p;
+  p.kernel = kernel;
+  p.padding = padding;
+  p.align = align != 0;
+  p.multicell = multicell != 0;
+  p.strict = strict != 0;
+  p.off_step = off_step;
+  p.off_stop = off_stop;
+  return p;
+}
 
 // Floor corner index and the order-0/1/2 corner weights of one axis,
 // already scaled by mult**k.  w[k][0] weighs the floor corner, w[k][1]
@@ -133,7 +148,9 @@ __device__ __forceinline__ AxisTable axis_table(float coord, int size,
   float w[3];
   kernel_weights(p.kernel, __fsub_rn(x, fx), w);
   AxisTable a;
-  a.i0 = static_cast<int>(fx);
+  // clamped as in axis_weights: a far out-of-bounds query keeps both
+  // corners out of bounds without overflowing the int
+  a.i0 = static_cast<int>(fminf(fmaxf(fx, -2.0f), size + 1.0f));
   a.w[0][0] = 1.0f - w[0];
   a.w[0][1] = w[0];
   a.w[1][0] = -w[1] * mult;

@@ -11,7 +11,8 @@ Counterpart of the JAX package's models/pinn.py, in two forms of one loss:
   loss's gradient reaches the cells at third order.
 
 Both train on the PDE residual, with gradients to the cells and the MLP by
-autograd.
+autograd.  The megakernel step (``value_and_grad_mega``) computes the fused
+loss's value and gradient in one kernel launch instead (ops/cuda/mega2w.py).
 
 Parameters are a plain dict of leaf tensors with the JAX package's names
 and layouts (``cells`` (N, C, *S), ``w1`` (C, hidden), ``b1`` (hidden,),
@@ -27,7 +28,8 @@ import math
 import torch
 
 from ..ops.config import SamplerConfig
-from ..ops.fused import sample_features_padded, sample_features_with_derivs
+from ..ops.fused import (make_fused_mega, sample_features_padded,
+                         sample_features_with_derivs)
 from ..ops.sampler import sample
 
 
@@ -214,6 +216,38 @@ def loss_fused_slots(params, pts, cfg: PINNConfig, plan=None):
     return torch.sum(f * f * occ) / pts.shape[0]
 
 
+def _cells_shape(cfg: PINNConfig):
+    return (cfg.n_cells, cfg.cell_dim, *(cfg.cell_size,) * cfg.dim)
+
+
+def mega_available(cfg: PINNConfig, n_queries: int) -> bool:
+    """True when the one-launch megakernel step serves this trainer shape."""
+    return make_fused_mega(cfg.sampler, _cells_shape(cfg), n_queries,
+                           cfg.pde, cfg.hidden) is not None
+
+
+def value_and_grad_mega(params, pts, cfg: PINNConfig, plan=None):
+    """(loss, grads) of loss_fused_slots from one mega2w launch (the fused
+    blend, the MLP and residual backward and the cotangent splat), with
+    grads a dict of params' keys.  Where the kernel does not serve
+    (mega_available is False, or ``backend="xla"``) it is torch.autograd
+    of loss_fused_slots, the JAX package's semantics.  CPU tensors take the
+    plain version of the kernel.  Both results are detached."""
+    if plan is not None:
+        raise ValueError("the port builds no bin plans (make_sample_plan "
+                         "returns None); pass plan=None")
+    run = make_fused_mega(cfg.sampler, _cells_shape(cfg), pts.shape[0],
+                          cfg.pde, cfg.hidden)
+    if run is None:
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        lval = loss_fused_slots(leaves, pts, cfg)
+        grads = torch.autograd.grad(lval, list(leaves.values()))
+        return lval.detach(), dict(zip(leaves, grads))
+    return run(params["cells"], {k: params[k] for k in ("w1", "b1", "w2",
+                                                        "b2")}, pts)
+
+
 def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
                     fused: bool = False, slot_resident: bool = False,
                     planned: bool = False, vol_resident: bool = False,
@@ -223,12 +257,20 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
 
     ``fused`` uses loss_fused, ``slot_resident`` loss_fused_slots,
     ``planned`` loss_fused_slots with a plan argument (always None in the
-    port), and none of them ``loss``, the nested-autograd residual.  The
-    returned loss is detached and stays on the device.
+    port), and none of them ``loss``, the nested-autograd residual.
+    ``megakernel`` returns ``step(params, pts, plan=None)``: the gradient
+    of loss_fused_slots from value_and_grad_mega, set as each ``p.grad``
+    before ``optimizer.step()``.  The returned loss is detached and stays on
+    the device.
     """
     if megakernel:
-        raise NotImplementedError(
-            "megakernel=True needs the one-pass megakernel (ROADMAP B3)")
+        def mega_step(params, pts, plan=None):
+            lval, grads = value_and_grad_mega(params, pts, cfg, plan)
+            for k, p in params.items():
+                p.grad = grads[k]
+            optimizer.step()
+            return lval
+        return mega_step
     if vol_resident:
         raise NotImplementedError(
             "vol_resident=True needs the bricked 3D kernels (ROADMAP B10)")

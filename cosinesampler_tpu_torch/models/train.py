@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's models/train.py: per-step collocation batches
 from the Philox stream (utils/pointgen.py), the train step (models/pinn.py:
-the fused loss by default, the nested-autograd loss with ``fused=False``)
-and per-step metrics.  Run it with
+the fused loss by default, the nested-autograd loss with ``fused=False``,
+the one-launch megakernel gradient with ``megakernel=True``) and per-step
+metrics.  Run it with
 
-    python -m cosinesampler_tpu_torch.models.train --device cuda [--no-fused]
+    python -m cosinesampler_tpu_torch.models.train --device cuda \
+        [--no-fused | --megakernel] [--dim 3]
 
 The device is explicit: ``device="cuda"`` without a card raises, and
 nothing falls back to the CPU.
@@ -32,12 +34,14 @@ class TrainConfig:
     seed: int = 0
     device: str = "cuda"
     fused: bool = True           # False: nested autograd (pinn.loss)
+    # the one-launch train-step gradient (pinn.value_and_grad_mega, 2D);
+    # falls back to autograd of the fused loss where it does not serve
+    megakernel: bool = False
     # one collocation set for the whole run (the reference's own pattern);
     # the port builds no bin plan, so this only fixes the points
     fixed_points: bool = False
     # not ported yet: each raises NotImplementedError naming its ROADMAP item
     vol_resident: bool = False
-    megakernel: bool = False
     shard: bool = False
     autotune: bool = False
     checkpoint_dir: Optional[str] = None
@@ -46,7 +50,6 @@ class TrainConfig:
 
 _NOT_PORTED = {
     "vol_resident": "the bricked 3D kernels (ROADMAP B10)",
-    "megakernel": "the one-pass megakernel (ROADMAP B3)",
     "shard": "data-parallel training (ROADMAP A9)",
     "autotune": "the kernel autotuner (ROADMAP A10)",
     "checkpoint_dir": "checkpoints (ROADMAP A7)",
@@ -72,7 +75,8 @@ def train(cfg: TrainConfig,
     generator = torch.Generator().manual_seed(cfg.seed)
     params = pinn.init_params(generator, mcfg, device)
     optimizer = torch.optim.Adam(params.values(), lr=cfg.lr)
-    step_fn = pinn.make_train_step(mcfg, optimizer, fused=cfg.fused)
+    step_fn = pinn.make_train_step(mcfg, optimizer, fused=cfg.fused,
+                                   megakernel=cfg.megakernel)
 
     metrics: List[Dict] = []
     with PointGenerator(cfg.batch_points, mcfg.dim, seed=cfg.seed) as gen:
@@ -119,6 +123,10 @@ def main(argv=None):
     ap.add_argument("--no-fused", action="store_true",
                     help="use nested autograd through the sampler instead "
                          "of the fused kernels")
+    ap.add_argument("--megakernel", action="store_true",
+                    help="one-launch train-step gradient (2D): the fused "
+                         "blend, the MLP and residual backward and the "
+                         "cotangent splat in a single CUDA kernel")
     ap.add_argument("--fixed-points", action="store_true",
                     help="one collocation set for the whole run")
     args = ap.parse_args(argv)
@@ -130,7 +138,7 @@ def main(argv=None):
                               cell_size=args.cell_size, pde=pde),
         batch_points=args.batch_points, steps=args.steps, lr=args.lr,
         seed=args.seed, device=args.device, fused=not args.no_fused,
-        fixed_points=args.fixed_points,
+        fixed_points=args.fixed_points, megakernel=args.megakernel,
     )
     train(cfg, on_metrics=lambda m: print(json.dumps(m), flush=True))
     return 0

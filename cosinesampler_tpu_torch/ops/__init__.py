@@ -1,6 +1,7 @@
 """Sampler ops: configuration, coordinate and interpolant math, the plain
 blend/splat oracle, the any-order autograd pair over the blend_o/splat_o
-kernels, the public API and the fused op over the fused2w kernels."""
+kernels, the public API, the fused op over the fused2w (2D) and fused3w
+(3D) kernels, and the hook of the one-launch mega2w train step."""
 
 from .api import (CosineSampler2d, CosineSampler3d, cosine_sampler_2d,
                   cosine_sampler_3d)

@@ -104,6 +104,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
+    for fn in (lib.fused3w_blend, lib.fused3w_bwd):
+        # 3 data pointers; n, c, d, h, w, q, kernel, padding, align,
+        # multicell, strict; the offset lattice's step and stop; the stream
+        fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
+        fn.restype = i32
+    # cells, w1, b1, w2, b2, points, dcells, grads; n, c, h, w, q, hidden,
+    # pde, kernel, padding, align, multicell, strict; the offset lattice's
+    # step and stop; the stream
+    lib.mega2w_step.argtypes = [ptr] * 8 + [i32] * 12 + [f32, f32, ptr]
+    lib.mega2w_step.restype = i32
     for fn in (lib.blend_o, lib.splat_o):
         # 3 data pointers; dim, n, c, d, h, w, q, grid batch, 3 orders,
         # kernel, padding, align, multicell, strict; the offset lattice's

@@ -12,10 +12,14 @@ versions in this module:
   version; a CUDA tensor launches the kernel on the current stream, or
   raises for what the kernel does not take.  Each wrapper counts its
   launches in its ``launches`` attribute.
+
+The launch helpers (``kernel_blend``, ``kernel_bwd``, ``sampler_args``)
+serve the 3D wrappers (ops/cuda/fused3w.py) and mega2w too.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -67,15 +71,13 @@ def plain_fused_bwd(g, points, in_spatial: Tuple[int, ...],
 
 
 def check_kernel_inputs(cfg: SamplerConfig, *tensors: torch.Tensor) -> None:
-    """Raise for what the CUDA kernels do not take (device aside)."""
-    if cfg.dim != 2:
-        raise NotImplementedError(
-            "the CUDA fused kernels are 2D; 3D (fused3w) is ROADMAP queue B")
+    """Raise for what the fused and mega2w CUDA kernels do not take
+    (device and shapes aside)."""
     if cfg.precision in ("bf16", "fast"):
         raise NotImplementedError(
             f"precision={cfg.precision!r} has no CUDA kernel yet; the "
             "kernels compute in f32 ('exact' / 'highest')")
-    if cfg.strict_reference and not cfg.align_corners:
+    if cfg.strict_reference and cfg.dim == 2 and not cfg.align_corners:
         raise NotImplementedError(
             "strict_reference with align_corners=False mixes per-row "
             "alignment, which the single-pass kernels cannot; use "
@@ -98,24 +100,73 @@ def cuda_device(*tensors: torch.Tensor) -> torch.device:
     return device
 
 
-def _launch_args(cfg: SamplerConfig, n: int, c: int, h: int, w: int, q: int,
-                 device: torch.device):
-    """The kernel library and the scalar arguments shared by both entry
-    points: sizes, config flags, the offset lattice and the stream."""
+def sampler_args(cfg: SamplerConfig, n: int, device: torch.device):
+    """The config flags, the offset lattice and the stream: the trailing
+    arguments of every fused and mega2w C entry point."""
+    step, stop = offset_lattice(n, cfg.multicell)
+    return (KERNEL_IDS[cfg.kernel], PADDING_IDS[cfg.padding_mode],
+            int(cfg.align_corners), int(cfg.multicell),
+            int(cfg.strict_reference), float(step), float(stop),
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
+            out: torch.Tensor, cfg: SamplerConfig, n: int, c: int,
+            spatial: Tuple[int, ...], q: int) -> None:
     lib = load_kernels()
     if c > lib.fused2w_max_channels():
         raise NotImplementedError(
             f"the CUDA kernels take at most {lib.fused2w_max_channels()} "
             f"channels, got {c}")
-    if n * c * h * w >= 2**31:
+    if n * c * math.prod(spatial) >= 2**31:
         raise ValueError("cell stack too large for the kernels' 32-bit "
                          "indexing")
-    step, stop = offset_lattice(n, cfg.multicell)
-    args = (n, c, h, w, q, KERNEL_IDS[cfg.kernel],
-            PADDING_IDS[cfg.padding_mode], int(cfg.align_corners),
-            int(cfg.multicell), int(cfg.strict_reference), float(step),
-            float(stop), torch.cuda.current_stream(device).cuda_stream)
-    return lib, args
+    with torch.cuda.device(out.device):
+        err = getattr(lib, entry)(first.data_ptr(), points.data_ptr(),
+                                  out.data_ptr(), n, c, *spatial, q,
+                                  *sampler_args(cfg, n, out.device))
+    check(lib, err, f"{entry} launch")
+
+
+def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
+                 points: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
+    """(1+2d, C, Q) from the fused blend kernel ``entry`` of dimension
+    ``dim`` (fused2w_blend, fused3w_blend) on CUDA tensors."""
+    device = cuda_device(cells, points)
+    check_kernel_inputs(cfg, cells, points)
+    if (cfg.dim != dim or cells.dim() != 2 + dim or points.dim() != 2
+            or points.shape[1] != dim):
+        raise ValueError(
+            f"{entry} takes a {dim}D config, cells (N, C, *S) and points "
+            f"(Q, {dim}); got dim {cfg.dim}, {tuple(cells.shape)} and "
+            f"{tuple(points.shape)}")
+    n, c, *spatial = cells.shape
+    q = points.shape[0]
+    out = torch.empty((1 + 2 * dim, c, q), dtype=torch.float32, device=device)
+    _launch(entry, cells, points, out, cfg, n, c, tuple(spatial), q)
+    return out
+
+
+def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
+               in_spatial: Tuple[int, ...], cfg: SamplerConfig,
+               n_cells: int) -> torch.Tensor:
+    """(N, C, *in_spatial) from the fused transpose kernel ``entry`` of
+    dimension ``dim`` (fused2w_bwd, fused3w_bwd) on CUDA tensors."""
+    device = cuda_device(g, points)
+    check_kernel_inputs(cfg, g, points)
+    if (cfg.dim != dim or g.dim() != 3 or g.shape[0] != 1 + 2 * dim
+            or points.dim() != 2 or points.shape != (g.shape[2], dim)
+            or len(in_spatial) != dim):
+        raise ValueError(
+            f"{entry} takes a {dim}D config, g ({1 + 2 * dim}, C, Q), "
+            f"points (Q, {dim}) and {dim} spatial sizes; got dim {cfg.dim}, "
+            f"{tuple(g.shape)}, {tuple(points.shape)} and "
+            f"{tuple(in_spatial)}")
+    c, q = g.shape[1:]
+    dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
+                         device=device)
+    _launch(entry, g, points, dcells, cfg, n_cells, c, tuple(in_spatial), q)
+    return dcells
 
 
 def fused_blend(cells: torch.Tensor, points: torch.Tensor,
@@ -124,19 +175,7 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     cells at (Q, 2) points; kernel on CUDA tensors, plain on CPU ones."""
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
-    device = cuda_device(cells, points)
-    check_kernel_inputs(cfg, cells, points)
-    if cells.dim() != 4 or points.dim() != 2 or points.shape[1] != 2:
-        raise ValueError(f"expected cells (N, C, H, W) and points (Q, 2), "
-                         f"got {tuple(cells.shape)} and {tuple(points.shape)}")
-    n, c, h, w = cells.shape
-    q = points.shape[0]
-    lib, args = _launch_args(cfg, n, c, h, w, q, device)
-    out = torch.empty((5, c, q), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = lib.fused2w_blend(cells.data_ptr(), points.data_ptr(),
-                                out.data_ptr(), *args)
-    check(lib, err, "fused2w_blend launch")
+    out = kernel_blend("fused2w_blend", 2, cells, points, cfg)
     fused_blend.launches += 1
     return out
 
@@ -148,21 +187,8 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
     cotangent ``g``; kernel on CUDA tensors, plain on CPU ones."""
     if g.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
-    device = cuda_device(g, points)
-    check_kernel_inputs(cfg, g, points)
-    if (g.dim() != 3 or g.shape[0] != 5 or points.dim() != 2
-            or points.shape != (g.shape[2], 2) or len(in_spatial) != 2):
-        raise ValueError(f"expected g (5, C, Q), points (Q, 2) and (H, W), got "
-                         f"{tuple(g.shape)}, {tuple(points.shape)} and "
-                         f"{tuple(in_spatial)}")
-    c, q = g.shape[1:]
-    h, w = in_spatial
-    lib, args = _launch_args(cfg, n_cells, c, h, w, q, device)
-    dcells = torch.zeros((n_cells, c, h, w), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = lib.fused2w_bwd(g.data_ptr(), points.data_ptr(),
-                              dcells.data_ptr(), *args)
-    check(lib, err, "fused2w_bwd launch")
+    dcells = kernel_bwd("fused2w_bwd", 2, g, points, tuple(in_spatial), cfg,
+                        n_cells)
     fused_bwd.launches += 1
     return dcells
 

@@ -8,8 +8,11 @@ Counterpart of the JAX package's ops/fused.py:
 summed over the multicell ensemble, with derivatives with respect to the
 normalized coordinates.  The op is one ``torch.autograd.Function``: its
 forward is the fused blend kernel and its backward the fused transpose
-kernel (ops/cuda/fused2w.py), or their plain versions for CPU tensors and
-under ``backend="xla"``.
+kernel (ops/cuda/fused2w.py in 2D, ops/cuda/fused3w.py in 3D), or their
+plain versions for CPU tensors and under ``backend="xla"``.
+
+``make_fused_mega`` is the hook of the one-launch train-step gradient
+(ops/cuda/mega2w.py) that models/pinn.py's megakernel step calls.
 
 The points cotangent, when the points require grad, is the JAX package's
 ``_points_cotangent``: order-bumped ``blend_o`` launches through the
@@ -21,12 +24,16 @@ from __future__ import annotations
 import torch
 
 from .config import SamplerConfig
-from .cuda import fused2w
+from .cuda import fused2w, fused3w, mega2w
 from .cuda.fused2w import all_orders, plain_fused_blend, plain_fused_bwd
 from .sampler import BlendO, bump_orders
 
-__all__ = ["make_sample_plan", "plain_fused_blend", "plain_fused_bwd",
-           "sample_features_padded", "sample_features_with_derivs"]
+__all__ = ["make_fused_mega", "make_sample_plan", "plain_fused_blend",
+           "plain_fused_bwd", "sample_features_padded",
+           "sample_features_with_derivs"]
+
+# the kernel wrappers of each dim
+_KERNELS = {2: fused2w, 3: fused3w}
 
 
 def _points_cotangent(cells, points, g, cfg: SamplerConfig):
@@ -55,7 +62,7 @@ class _FusedSample(torch.autograd.Function):
         ctx.cfg = cfg
         if cfg.backend == "xla":
             return plain_fused_blend(cells, points, cfg)
-        return fused2w.fused_blend(cells, points, cfg)
+        return _KERNELS[cfg.dim].fused_blend(cells, points, cfg)
 
     @staticmethod
     def backward(ctx, g):
@@ -68,7 +75,8 @@ class _FusedSample(torch.autograd.Function):
             if cfg.backend == "xla":
                 dcells = plain_fused_bwd(g, points, tuple(spatial), cfg, n)
             else:
-                dcells = fused2w.fused_bwd(g, points, tuple(spatial), cfg, n)
+                dcells = _KERNELS[cfg.dim].fused_bwd(g, points,
+                                                     tuple(spatial), cfg, n)
             dcells = dcells.to(cells.dtype)
         if ctx.needs_input_grad[1]:
             dpoints = _points_cotangent(cells, points, g, cfg)
@@ -116,3 +124,26 @@ def sample_features_padded(cells, points, cfg: SamplerConfig, plan=None):
     positions = torch.arange(q, dtype=torch.int64, device=points.device)
     return out, occ, positions
 
+
+
+def make_fused_mega(cfg: SamplerConfig, cells_shape, n_queries: int,
+                    pde: str, hidden: int):
+    """The one-launch train-step gradient (ops/cuda/mega2w.py), or None
+    when it does not serve this config and shape: a callable
+    ``(cells, mlp_params, points, plan=None) -> (loss, grads)`` whose grads
+    dict matches pinn.init_params.  ``backend="xla"`` takes no kernel.
+    ``n_queries`` is the JAX signature's; the kernel takes any Q."""
+    del n_queries
+    if cfg.backend == "xla" or not mega2w.supports(cfg, tuple(cells_shape),
+                                                   pde, hidden):
+        return None
+
+    def run(cells, mlp_params, points, plan=None):
+        if plan is not None:
+            raise ValueError("the port builds no bin plans (make_sample_plan "
+                             "returns None); pass plan=None")
+        return mega2w.mega2w_step(cells, mlp_params["w1"], mlp_params["b1"],
+                                  mlp_params["w2"], mlp_params["b2"], points,
+                                  cfg, pde)
+
+    return run

@@ -1,11 +1,13 @@
 """Time and profile the PyTorch port's PINN train step on one CUDA card.
 
-    python scripts/profile_port_step.py [--nested] [--dim 3] [--profile]
+    python scripts/profile_port_step.py [--nested | --megakernel] [--dim 3]
+                                        [--profile]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
-``--dim 3``: 50 x 4 x 16^3, Helmholtz), fused by default or through nested
-autograd with ``--nested``, on points already on the card.  Prints the
+``--dim 3``: 50 x 4 x 16^3, Helmholtz), fused by default, through nested
+autograd with ``--nested`` or as the one-launch megakernel gradient with
+``--megakernel``, on points already on the card.  Prints the
 card's name and power limit, the median step time (CUDA events, 3 warm-up
 steps) and the kernel launches per step.  ``--profile`` adds a
 torch.profiler window of 5 steps: device time per step, the device's busy
@@ -35,12 +37,21 @@ try:    # checkouts from before the blend_o / splat_o kernels lack them
     _COUNTERS.update(blend_o=blend_splat.blend, splat_o=blend_splat.splat)
 except ImportError:
     pass
+try:    # and those from before the mega2w / fused3w kernels these
+    from cosinesampler_tpu_torch.ops.cuda import fused3w, mega2w
+    _COUNTERS.update(mega2w=mega2w.mega2w_step,
+                     fused3w_blend=fused3w.fused_blend,
+                     fused3w_bwd=fused3w.fused_bwd)
+except ImportError:
+    pass
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nested", action="store_true",
                     help="train on the nested-autograd loss (fused=False)")
+    ap.add_argument("--megakernel", action="store_true",
+                    help="train with the one-launch megakernel gradient")
     ap.add_argument("--dim", type=int, default=2, choices=(2, 3))
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
@@ -56,7 +67,8 @@ def main(argv=None):
     params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     step = pinn.make_train_step(
         cfg, torch.optim.Adam(params.values(), lr=1e-3),
-        fused=not args.nested)
+        fused=not args.nested, megakernel=args.megakernel)
+
     with PointGenerator(100_000, args.dim, seed=7) as gen:
         batches = [torch.from_numpy(gen.batch(i)).cuda()
                    for i in range(3 + args.steps)]
@@ -75,7 +87,8 @@ def main(argv=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     per_step = {k: fn.launches / args.steps for k, fn in _COUNTERS.items()}
-    path = "nested" if args.nested else "fused"
+    path = ("megakernel" if args.megakernel else
+            "nested" if args.nested else "fused")
     print(f"{card}; {path} {args.dim}D step: median "
           f"{statistics.median(times):.4f} ms over {args.steps} (min {min(times):.4f}, max {max(times):.4f});"
           f" launches per step {per_step}", flush=True)

@@ -212,7 +212,6 @@ def test_point_stream_bit_equal_to_jax(force_numpy):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(fused=True, megakernel=True), "ROADMAP B3"),
     (dict(fused=True, vol_resident=True), "ROADMAP B10"),
 ])
 def test_make_train_step_unported_modes_raise(kwargs, match):
@@ -224,7 +223,7 @@ def test_make_train_step_unported_modes_raise(kwargs, match):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("vol_resident", True), ("megakernel", True), ("shard", True),
+    ("vol_resident", True), ("shard", True),
     ("autotune", True), ("checkpoint_dir", "ckpt")])
 def test_train_unported_options_raise(field, value):
     cfg = ttrain.TrainConfig(device="cpu", steps=1, batch_points=64,
