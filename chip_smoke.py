@@ -9,13 +9,17 @@ fused trainer (96 cells x 4 ch x 16 x 16, 100 000 points, hidden 16,
 Allen-Cahn) for 20 steps through fused2w_blend / fused2w_bwd, the
 megakernel trainer (``megakernel=True``) for 20 steps through mega2w, the
 nested-autograd trainer (``fused=False``, the public sampler to third
-order) for 10 steps through blend_o / splat_o, and the 3D Helmholtz
-trainer (50 x 4 x 16^3) for 3 steps nested and 3 steps fused through
-fused3w_blend / fused3w_bwd.  It checks from the launch counters that each
+order) for 10 steps through blend_o / splat_o, the 3D Helmholtz trainer
+(50 x 4 x 16^3) for 3 steps nested and 3 steps fused through
+fused3w_blend / fused3w_bwd, and the vol-resident trainer of BASELINE
+config 5 (16 x 4 x 128^3, 1 000 000 points) for 5 steps through
+fused3b_blend / fused3b_bwd.  It checks from the launch counters that each
 path went through its kernels and no other, compares the megakernel losses
-with the fused ones, the nested loss with the fused one and the card with
-the CPU, and times kernels, library calls and steps against their plain
-versions.  The last lines are a JSON object
+with the fused ones, the vol-resident losses with the fused3w trainer's,
+the nested loss with the fused one and the card with the CPU, and times
+kernels, library calls and steps against their plain versions, and the
+bricked kernels against fused3w at config 5.  The last lines are a JSON
+object
 of the kernels, the card's name and power limit as nvidia-smi prints
 them, and a JSON status object.  Any failure raises: the script then exits
 non-zero and prints no status.  It needs one CUDA card and imports nothing
@@ -38,7 +42,7 @@ from cosinesampler_tpu_torch.models.train import TrainConfig, train
 from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops.config import SamplerConfig
 from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2w,
-                                              fused3w, mega2w)
+                                              fused3b, fused3w, mega2w)
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
 # main path: BASELINE config 3 / bench.py's headline
@@ -47,6 +51,8 @@ HIDDEN = 16
 # the reference's test_3d workload
 N3, S3 = 50, 16
 STEPS, NESTED_STEPS, STEPS_3D = 20, 10, 3
+# BASELINE config 5: the vol-resident 3D trainer at full width
+N5, S5, Q5, STEPS_VOL = 16, 128, 1_000_000, 5
 # kernel vs plain: max |kernel - plain| over the largest |plain| of the row
 # (f32, other summation order, f32 atomics in the splats).  A blend_o or
 # splat_o launch is one row: order k scales it by (pi * mult)^k, so only an
@@ -62,6 +68,8 @@ SOURCES = {
     "mega2w": "cosinesampler_tpu_torch/csrc/mega2w.cu",
     "fused3w_blend": "cosinesampler_tpu_torch/csrc/fused3w.cu",
     "fused3w_bwd": "cosinesampler_tpu_torch/csrc/fused3w.cu",
+    "fused3b_blend": "cosinesampler_tpu_torch/csrc/fused3b.cu",
+    "fused3b_bwd": "cosinesampler_tpu_torch/csrc/fused3b.cu",
 }
 REPLACES = {
     "fused2w_blend": "cosinesampler_tpu/ops/pallas/fused2w.py:276",
@@ -71,6 +79,8 @@ REPLACES = {
     "mega2w": "cosinesampler_tpu/ops/pallas/mega2w.py:160",
     "fused3w_blend": "cosinesampler_tpu/ops/pallas/fused3w.py:240",
     "fused3w_bwd": "cosinesampler_tpu/ops/pallas/fused3w.py:396",
+    "fused3b_blend": "cosinesampler_tpu/ops/pallas/fused3b.py:481",
+    "fused3b_bwd": "cosinesampler_tpu/ops/pallas/fused3b.py:831",
 }
 # each kernel's launch counter
 COUNTERS = {
@@ -78,6 +88,8 @@ COUNTERS = {
     "blend_o": blend_splat.blend, "splat_o": blend_splat.splat,
     "mega2w": mega2w.mega2w_step,
     "fused3w_blend": fused3w.fused_blend, "fused3w_bwd": fused3w.fused_bwd,
+    "fused3b_blend": fused3b.fused3b_blend_vol,
+    "fused3b_bwd": fused3b.fused3b_bwd_vol,
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
 # FLOP/s
@@ -488,6 +500,104 @@ def fused3w_kernel_phase():
     return {"fused3w_blend": errs[0], "fused3w_bwd": errs[1]}
 
 
+# --- fused3b ------------------------------------------------------------------
+
+def _cuda_gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _vol_case(n, c, spatial, q, seed, lo=-1.2, hi=1.2, cfg=None, pts=None):
+    """Cells, their kernel-layout volume, points (``pts`` if given) and
+    their trimmed brick plan, made on the card."""
+    gen = _cuda_gen(seed)
+    cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
+    if pts is None:
+        pts = (torch.rand((q, 3), generator=gen, device="cuda") * (hi - lo)
+               + lo)
+    plan = tfused.make_vol_plan(pts, cells.shape, cfg)
+    return cells, fused3b.cells_to_vol(cells), pts, plan
+
+
+def compare_3b(name, cfg, n, c, spatial, q, seed=0, lo=-1.2, hi=1.2,
+               pts=None):
+    """Both fused3b kernels against their plain versions on the card: the
+    (7, C, QP) slot output, and the volume cotangent through from_vol.
+    The layout has no pad slots: the cotangent has exactly the cells'
+    elements."""
+    cells, vol, pts, plan = _vol_case(n, c, spatial, q, seed, lo, hi, cfg,
+                                      pts)
+    g_p = torch.randn((7, c, plan[1].shape[0]), generator=_cuda_gen(seed + 1),
+                      device="cuda")
+    out = fused3b.fused3b_blend_vol(vol, plan, cfg)
+    ref = fused3b.plain_fused3b_blend_vol(vol, plan, cfg)
+    dvol = fused3b.fused3b_bwd_vol(g_p, plan, spatial, cfg, n)
+    dref = fused3b.plain_fused3b_bwd_vol(g_p, plan, spatial, cfg, n)
+    torch.cuda.synchronize()
+    if (out.shape != ref.shape or dvol.shape != dref.shape
+            or dvol.numel() != cells.numel()):
+        raise RuntimeError(f"fused3b {name}: shape mismatch")
+    if not (torch.isfinite(out).all() and torch.isfinite(dvol).all()):
+        raise RuntimeError(f"fused3b {name}: non-finite kernel output")
+    if bool((out[:, :, plan[1] == 0] != 0).any()):
+        raise RuntimeError(f"fused3b {name}: a pad slot is not zero")
+    abs_b, rel_b = _rel_err(out, ref)
+    abs_d, rel_d = _rel_err(fused3b.vol_to_cells(dvol).reshape(1, -1),
+                            fused3b.vol_to_cells(dref).reshape(1, -1))
+    print(f"compare fused3b {name} ({n}x{c}x{'x'.join(map(str, spatial))}, "
+          f"Q={q}, QP={plan[1].shape[0]}): blend max abs err {abs_b:.3e}, "
+          f"rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, rel {rel_d:.3e} "
+          f"(tolerance rel {REL_TOL:g})", flush=True)
+    if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
+        raise RuntimeError(f"fused3b {name}: kernel disagrees with the plain "
+                           "version")
+    return abs_b, abs_d
+
+
+def _trainer_points(q, dim, seed=0):
+    """The fixed points train() draws for ``seed``, on the card."""
+    with PointGenerator(q, dim, seed=seed) as gen:
+        return torch.from_numpy(gen.batch(0)).cuda()
+
+
+def fused3b_kernel_phase():
+    """fused3b at config 5 (the vol-resident trainer's 1 000 000 points and
+    so its plan) and in variants; the layout round trip; the slot rows
+    against fused3w's at the same points."""
+    main = SamplerConfig(dim=3)
+    pts5 = _trainer_points(Q5, 3)
+    errs = compare_3b("config-5", main, N5, C, (S5,) * 3, Q5, pts=pts5)
+    small = (6, 3, (9, 9, 9), 4099)
+    for name, kw, extra in [
+            ("border", dict(padding_mode="border"), {}),
+            ("reflection", dict(padding_mode="reflection"), {}),
+            ("linear", dict(kernel="linear"), {}),
+            ("smoothstep", dict(kernel="smoothstep"), {}),
+            ("no-multicell", dict(multicell=False), {}),
+            ("align-false", dict(align_corners=False), {}),
+            ("reflection-strict-align-false",
+             dict(padding_mode="reflection", strict_reference=True,
+                  align_corners=False), {}),
+            ("points-1.4", {}, dict(lo=-1.4, hi=1.4))]:
+        compare_3b(name, SamplerConfig(dim=3, **kw), *small, seed=1, **extra)
+    for c in (1, 3, 8):
+        compare_3b(f"channels-{c}", main, 6, c, (9, 9, 9), 4099, seed=2)
+    compare_3b("non-cubic-20x28x36", main, 6, 4, (20, 28, 36), 8192, seed=3)
+    # 9^3: 11 z slabs x 6 y groups = 66 bins; the route takes Q >= 132
+    compare_3b("q-133", main, 6, 3, (9, 9, 9), 133, seed=4)
+
+    cells, vol, pts, plan = _vol_case(N5, C, (S5,) * 3, Q5, 5, cfg=main,
+                                      pts=pts5)
+    if not torch.equal(fused3b.vol_to_cells(vol), cells):
+        raise RuntimeError("from_vol(to_vol(cells)) differs from the cells")
+    slots = fused3b.fused3b_blend_vol(vol, plan, main)[:, :, plan[0]]
+    diff = float((slots - fused3w.fused_blend(cells, pts, main)).abs().max())
+    print(f"fused3b vs fused3w blend at config 5 (Q={Q5}): max "
+          f"abs diff {diff:.3e}; from_vol(to_vol(cells)) == cells", flush=True)
+    if diff > REL_TOL * float(slots.abs().max()):
+        raise RuntimeError("fused3b and fused3w disagree")
+    return {"fused3b_blend": errs[0], "fused3b_bwd": errs[1]}
+
+
 # --- trainers -----------------------------------------------------------------
 
 def _train_checked(name, cfg, steps, launched, decrease=True):
@@ -581,6 +691,74 @@ def fused_3d_phase():
             or launches["fused3w_bwd"] != STEPS_3D):
         raise RuntimeError(f"expected {STEPS_3D} launches of each fused3w "
                            "kernel")
+    return launches
+
+
+MODEL_5 = pinn.PINNConfig(dim=3, n_cells=N5, cell_size=S5, pde="helmholtz")
+
+
+def _fixed_point_losses(cfg, q, steps, seed=0):
+    """The losses of ``steps`` query-ordered fused steps (fused3w in 3D) on
+    the trainer's fixed points and initial weights for ``seed``."""
+    params = pinn.init_params(torch.Generator().manual_seed(seed), cfg,
+                              "cuda")
+    pts = _trainer_points(q, cfg.dim, seed)
+    step = pinn.make_train_step(
+        cfg, torch.optim.Adam(params.values(), lr=1e-3), fused=True)
+    return [float(step(params, pts)) for _ in range(steps)]
+
+
+def _vol_loss_and_grads(cfg, device, pts, seed):
+    params = pinn.init_params(torch.Generator().manual_seed(seed), cfg,
+                              device)
+    params = pinn.params_to_vol(params, cfg, pts.shape[0])
+    pts = pts.to(device)
+    plan = tfused.make_vol_plan(pts, (cfg.n_cells, cfg.cell_dim,
+                                      *(cfg.cell_size,) * 3), cfg.sampler)
+    loss = pinn.loss_fused_slots_vol(params, pts, cfg, plan)
+    loss.backward()
+    grads = {k: v.grad for k, v in params.items()}
+    grads["cells"] = fused3b.vol_to_cells(grads["cells"])
+    return float(loss.detach()), {k: v.cpu() for k, v in grads.items()}
+
+
+def vol_trainer_phase():
+    """The vol-resident trainer at BASELINE config 5: one fused3b_blend and
+    one fused3b_bwd launch a step and no other kernel; its losses are the
+    query-ordered fused3w trainer's on the same fixed points, the first at
+    rtol LOSS_RTOL and each within GRAD_TOL relative.  Then card vs CPU
+    at 5 x 3 x 6^3, Q = 120."""
+    launches, losses = _train_checked(
+        f"vol-resident {N5}x{C}x{S5}^3, {Q5} points",
+        TrainConfig(model=MODEL_5, device="cuda", batch_points=Q5,
+                    steps=STEPS_VOL, log_every=1, seed=0, vol_resident=True),
+        STEPS_VOL, ("fused3b_blend", "fused3b_bwd"))
+    if (launches["fused3b_blend"] != STEPS_VOL
+            or launches["fused3b_bwd"] != STEPS_VOL):
+        raise RuntimeError(f"expected {STEPS_VOL} launches of each fused3b "
+                           "kernel")
+    _reset_counts()
+    ref = _fixed_point_losses(MODEL_5, Q5, STEPS_VOL)
+    ref_launches = _counts()
+    if (ref_launches["fused3w_blend"] != STEPS_VOL
+            or ref_launches["fused3b_blend"] != 0):
+        raise RuntimeError(f"the fused3w trainer took another route: "
+                           f"{ref_launches}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"vol-resident vs fused3w trainer losses on the same fixed points: "
+          f"{' '.join(f'{v:.8g}' for v in ref)} (fused3w); worst rel diff "
+          f"{max(rel):.3e}, first {rel[0]:.3e}; the (D, H, W, N, C) volume "
+          f"has no pad slots", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError("vol-resident and fused3w trainers disagree")
+    cfg = pinn.PINNConfig(dim=3, n_cells=5, cell_dim=3, cell_size=6,
+                          pde="helmholtz")
+    with PointGenerator(120, 3, seed=7) as gen:
+        pts = torch.from_numpy(gen.batch(0))
+    _compare_losses("reference vol-resident: fused3b on the card vs plain "
+                    "CPU (5x3x6^3, Q=120)",
+                    _vol_loss_and_grads(cfg, "cuda", pts, 7),
+                    _vol_loss_and_grads(cfg, "cpu", pts, 7))
     return launches
 
 
@@ -789,6 +967,194 @@ def mega_fused3w_time_phase():
     return times
 
 
+def fused3b_time_phase():
+    """fused3b_blend_vol / fused3b_bwd_vol at config 5 (1 000 000 points)
+    against their bounds and plain versions, and against fused3w_blend /
+    fused3w_bwd on the same volume and points in query order, in turns;
+    the plan's build time; step medians of the vol-resident, planned and
+    query-ordered (fused3w) steps in turns, and the vol-resident step's
+    peak device memory."""
+    cfg = SamplerConfig(dim=3)
+    spatial = (S5,) * 3
+    pts = _trainer_points(Q5, 3)
+    cells = torch.rand((N5, C, *spatial), generator=_cuda_gen(14),
+                       device="cuda")
+    vol = fused3b.cells_to_vol(cells)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = tfused.make_vol_plan(pts, cells.shape, cfg)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    plan_ms2 = _time_ms(lambda: tfused.make_vol_plan(pts, cells.shape, cfg),
+                        3)
+    qp = plan[1].shape[0]
+    real_blocks = int(plan[4].sum())
+    print(f"plan at config 5: first build {plan_ms:.2f} ms (host clock), "
+          f"then {plan_ms2:.3f} ms (CUDA events, 3 builds); QP {qp} slots "
+          f"(bound {(-(-Q5 // 128) + (S5 + 2) * 65) * 128}), "
+          f"{plan[4].numel()} blocks, {real_blocks} with queries", flush=True)
+    g_p = torch.randn((7, C, qp), generator=_cuda_gen(15), device="cuda")
+    g_q = torch.randn((7, C, Q5), generator=_cuda_gen(16), device="cuda")
+    # 7 rows x 8 corners x C FMAs per (real query, cell).  Both kernels
+    # read the mask of every slot and the flag of every block, and the
+    # points of the Q real slots only; the blend reads the volume once and
+    # writes (7, C, QP), zeros in the pad slots included; the bwd reads
+    # the cotangent of the real slots and writes the volume once
+    flops = 2 * 7 * 8 * C * N5 * Q5
+    vol_bytes = 4 * N5 * C * S5 ** 3
+    plan_bytes = 4 * (3 * Q5 + qp + plan[4].numel())
+    bounds = {"fused3b_blend": _bound(vol_bytes + plan_bytes + 4 * 7 * C * qp,
+                                      flops),
+              "fused3b_bwd": _bound(4 * 7 * C * Q5 + plan_bytes + vol_bytes,
+                                    flops)}
+    ops = {
+        "fused3b_blend": (lambda: fused3b.fused3b_blend_vol(vol, plan, cfg),
+                          lambda: fused3b.plain_fused3b_blend_vol(vol, plan,
+                                                                  cfg),
+                          lambda: fused3w.fused_blend(cells, pts, cfg)),
+        "fused3b_bwd": (lambda: fused3b.fused3b_bwd_vol(g_p, plan, spatial,
+                                                        cfg, N5),
+                        lambda: fused3b.plain_fused3b_bwd_vol(g_p, plan,
+                                                              spatial, cfg,
+                                                              N5),
+                        lambda: fused3w.fused_bwd(g_q, pts, spatial, cfg,
+                                                  N5)),
+    }
+    # the layout check: fused3w (the (N, C, D, H, W) layout) on the real
+    # queries in the plan's slot order, i.e. sorted as fused3b sees them
+    srt = plan[5][plan[1] > 0].contiguous()
+    sorted_ops = {
+        "fused3b_blend": lambda: fused3w.fused_blend(cells, srt, cfg),
+        "fused3b_bwd": lambda: fused3w.fused_bwd(g_q, srt, spatial, cfg, N5),
+    }
+    times = {}
+    for name, (kernel, plain, other) in ops.items():
+        ms, plain_ms = _in_turns(kernel, plain, reps=2)
+        ms, other_ms = _in_turns(kernel, other, reps=5)
+        _, sorted_ms = _in_turns(kernel, sorted_ops[name], reps=5)
+        bound_ms, bound_by = bounds[name]
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None,
+                           fused3w_ms_same_work=other_ms)
+        print(f"time {name} at config 5 ({N5}x{C}x{S5}^3, Q={Q5}, QP={qp}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it; "
+              f"{name.replace('3b', '3w')} on the same volume and points "
+              f"in query order {other_ms:.4f} ms, in the plan's sorted "
+              f"order {sorted_ms:.4f} ms; no library call computes it",
+              flush=True)
+
+    del cells, vol, g_p, g_q
+    torch.cuda.empty_cache()
+
+    _fixed_step_turns("config 5", MODEL_5, pts, ("vol", "planned", "fused3w"),
+                      plan)
+    return times
+
+
+def _fixed_step(model, pts, kind, plan=None):
+    """One fixed-point train step of ``kind``: "vol" (vol-resident, on
+    ``plan``), "planned" (make_sample_plan's plan, per-call relayout) or
+    "fused3w" (query order, no plan)."""
+    params = pinn.init_params(_cuda_gen(0), model, "cuda")
+    step_plan = None
+    if kind == "vol":
+        step_plan = plan
+        params = pinn.params_to_vol(params, model, pts.shape[0])
+    elif kind == "planned":
+        step_plan = tfused.make_sample_plan(pts, tuple(params["cells"].shape),
+                                            model.sampler)
+        if step_plan is None:
+            raise RuntimeError("the shape should take the planned route")
+    step = pinn.make_train_step(
+        model, torch.optim.Adam(params.values(), lr=1e-3), fused=True,
+        planned=kind == "planned", vol_resident=kind == "vol")
+    args = (params, pts) + ((step_plan,) if step_plan is not None else ())
+    return lambda: step(*args)
+
+
+def _fixed_step_median(run):
+    """Median ms of 10 steps after 3 warm-up steps (CUDA events), and the
+    peak device memory of the timed steps in GiB."""
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times_ms = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times_ms.append(start.elapsed_time(end))
+    return statistics.median(times_ms), torch.cuda.max_memory_allocated() / 2**30
+
+
+def _fixed_step_turns(what, model, pts, kinds, plan=None):
+    """Step medians of each kind of fixed-point step, in turns (the kinds,
+    then the same reversed)."""
+    runs = []
+    for kind in kinds + kinds[::-1]:
+        run = _fixed_step(model, pts, kind, plan)
+        runs.append((kind, *_fixed_step_median(run)))
+        del run
+        torch.cuda.empty_cache()
+    for kind in kinds:
+        ms = [m for k, m, _ in runs if k == kind]
+        peak = max(p for k, _, p in runs if k == kind)
+        print(f"step {what} {kind}: {sum(ms) / 2:.4f} ms (turns "
+              f"{ms[0]:.4f} {ms[1]:.4f}); peak device memory {peak:.3f} GiB",
+              flush=True)
+
+
+def route_phase():
+    """Both 3D routes' kernels (blend + bwd) at cells below and above the
+    shared memory of one block (4 x 24^3 is 221 KB, 4 x 32^3 512 KB) and
+    stacks below and above the card's L2, in turns: fused3w in query
+    order against fused3b over the kernel layout with the stack's plan.
+    Then the fixed-point step on both routes (make_sample_plan's planned
+    step against the query-ordered fused3w step) at the two smallest."""
+    cfg = SamplerConfig(dim=3)
+    for n, s, q in ((N3, S3, Q), (16, 24, Q5), (16, 32, Q5), (16, 48, Q5),
+                    (16, 64, Q5)):
+        spatial = (s,) * 3
+        with PointGenerator(q, 3, seed=17) as gen:
+            pts = torch.from_numpy(gen.batch(0)).cuda()
+        cells = torch.rand((n, C, *spatial), generator=_cuda_gen(17),
+                           device="cuda")
+        vol = fused3b.cells_to_vol(cells)
+        plan = tfused.make_vol_plan(pts, cells.shape, cfg)
+        g_q = torch.randn((7, C, q), generator=_cuda_gen(18), device="cuda")
+        g_p = torch.randn((7, C, plan[1].shape[0]), generator=_cuda_gen(19),
+                          device="cuda")
+
+        def bricked():
+            fused3b.fused3b_blend_vol(vol, plan, cfg)
+            fused3b.fused3b_bwd_vol(g_p, plan, spatial, cfg, n)
+
+        def windowed():
+            fused3w.fused_blend(cells, pts, cfg)
+            fused3w.fused_bwd(g_q, pts, spatial, cfg, n)
+
+        b_ms, w_ms = _in_turns(bricked, windowed, reps=5)
+        planned = tfused.make_sample_plan(pts, cells.shape, cfg) is not None
+        print(f"route {n}x{C}x{s}^3 ({4 * cells.numel() / 1e6:.1f} MB), "
+              f"Q={q}: fused3b blend + bwd {b_ms:.4f} ms, fused3w blend + "
+              f"bwd {w_ms:.4f} ms; make_sample_plan routes it to "
+              f"{'fused3b' if planned else 'fused3w'}", flush=True)
+        if not planned:
+            raise RuntimeError("make_sample_plan gave no plan")
+        del cells, vol, plan, g_q, g_p
+        torch.cuda.empty_cache()
+        if s <= 24:
+            _fixed_step_turns(
+                f"fixed points {n}x{C}x{s}^3, Q={q},",
+                pinn.PINNConfig(dim=3, n_cells=n, cell_size=s,
+                                pde="helmholtz"), pts, ("planned", "fused3w"))
+
+
 def _median_step_ms(cfg, batches, **step_kw):
     params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     step = pinn.make_train_step(
@@ -844,20 +1210,26 @@ def main():
     points_cotangent_phase()
     errs["mega2w"] = mega_kernel_phase()
     errs.update(fused3w_kernel_phase())
+    errs.update(fused3b_kernel_phase())
     launches, fused_losses = fused_trainer_phase()
     mega = mega_trainer_phase(fused_losses)
     nested = nested_trainer_phase()
     launch_breakdown_phase()
     nested_3d_phase()
     fused3 = fused_3d_phase()
+    vol = vol_trainer_phase()
     launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"],
                     mega2w=mega["mega2w"],
                     fused3w_blend=fused3["fused3w_blend"],
-                    fused3w_bwd=fused3["fused3w_bwd"])
+                    fused3w_bwd=fused3["fused3w_bwd"],
+                    fused3b_blend=vol["fused3b_blend"],
+                    fused3b_bwd=vol["fused3b_bwd"])
     nested_vs_fused_phase()
     reference_phase()
     times.update(v1_time_phase())
     times.update(mega_fused3w_time_phase())
+    times.update(fused3b_time_phase())
+    route_phase()
     step_phase()
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -37,19 +37,6 @@
 
 #include "fused_rows.cuh"
 
-namespace {
-
-csm::CellGeom<3> geom3(int d, int h, int w) {
-  csm::CellGeom<3> g;
-  g.size[0] = w;
-  g.size[1] = h;
-  g.size[2] = d;
-  g.texels = d * h * w;
-  return g;
-}
-
-}  // namespace
-
 extern "C" {
 
 int fused3w_blend(const void* cells, const void* points, void* out, int n,
@@ -61,7 +48,7 @@ int fused3w_blend(const void* cells, const void* points, void* out, int n,
   return csm::dispatch_channels(c, [&](auto cc) {
     return csm::fused::launch_blend<3, decltype(cc)::value>(
         static_cast<const float*>(cells), static_cast<const float*>(points),
-        static_cast<float*>(out), n, geom3(d, h, w), q, p,
+        static_cast<float*>(out), n, csm::cell_geom3(d, h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -76,7 +63,7 @@ int fused3w_bwd(const void* g, const void* points, void* dcells, int n,
   return csm::dispatch_channels(c, [&](auto cc) {
     return csm::fused::launch_bwd<3, decltype(cc)::value>(
         static_cast<const float*>(g), static_cast<const float*>(points),
-        static_cast<float*>(dcells), n, geom3(d, h, w), q, p,
+        static_cast<float*>(dcells), n, csm::cell_geom3(d, h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }

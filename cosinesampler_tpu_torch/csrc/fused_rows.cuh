@@ -31,6 +31,16 @@ struct CellGeom {
 template <int D>
 constexpr int kRows = 1 + 2 * D;
 
+// The geometry of a (D, H, W) cell.
+inline CellGeom<3> cell_geom3(int d, int h, int w) {
+  CellGeom<3> g;
+  g.size[0] = w;
+  g.size[1] = h;
+  g.size[2] = d;
+  g.texels = d * h * w;
+  return g;
+}
+
 // Calls f(flat texel index, wr) for every in-bounds corner of the query
 // at pt in cell ni, wr[r] being the corner's weight in row r.  Corners run
 // with axis 0 fastest; a corner out of bounds (zeros padding) is dropped.

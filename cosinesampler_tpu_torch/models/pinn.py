@@ -13,6 +13,8 @@ Counterpart of the JAX package's models/pinn.py, in two forms of one loss:
 Both train on the PDE residual, with gradients to the cells and the MLP by
 autograd.  The megakernel step (``value_and_grad_mega``) computes the fused
 loss's value and gradient in one kernel launch instead (ops/cuda/mega2w.py).
+The vol-resident step (``loss_fused_slots_vol``) keeps ``cells`` in the
+bricked 3D kernels' layout across steps (ops/cuda/fused3b.py).
 
 Parameters are a plain dict of leaf tensors with the JAX package's names
 and layouts (``cells`` (N, C, *S), ``w1`` (C, hidden), ``b1`` (hidden,),
@@ -28,8 +30,8 @@ import math
 import torch
 
 from ..ops.config import SamplerConfig
-from ..ops.fused import (make_fused_mega, sample_features_padded,
-                         sample_features_with_derivs)
+from ..ops.fused import (make_fused_mega, make_fused_vol,
+                         sample_features_padded, sample_features_with_derivs)
 from ..ops.sampler import sample
 
 
@@ -64,19 +66,20 @@ def init_params(generator: torch.Generator, cfg: PINNConfig, device,
     ``torch.Generator``), so one seed gives one set of weights on every
     device."""
     spatial = (cfg.cell_size,) * cfg.dim
+    kw = dict(dtype=dtype, device=generator.device)
     cells = torch.rand((cfg.n_cells, cfg.cell_dim, *spatial),
-                       generator=generator, dtype=dtype)
+                       generator=generator, **kw)
     s1 = math.sqrt(2.0 / (cfg.cell_dim + cfg.hidden))
     s2 = math.sqrt(2.0 / (cfg.hidden + 1))
     w1 = torch.randn((cfg.cell_dim, cfg.hidden), generator=generator,
-                     dtype=dtype) * s1
-    w2 = torch.randn((cfg.hidden, 1), generator=generator, dtype=dtype) * s2
+                     **kw) * s1
+    w2 = torch.randn((cfg.hidden, 1), generator=generator, **kw) * s2
     params = {
         "cells": cells,
         "w1": w1,
-        "b1": torch.zeros((cfg.hidden,), dtype=dtype),
+        "b1": torch.zeros((cfg.hidden,), **kw),
         "w2": w2,
-        "b2": torch.zeros((1,), dtype=dtype),
+        "b2": torch.zeros((1,), **kw),
     }
     return {k: v.to(device).requires_grad_(True) for k, v in params.items()}
 
@@ -206,14 +209,65 @@ def loss_fused(params, pts, cfg: PINNConfig):
     return torch.mean(residual_fused(params, pts, cfg) ** 2)
 
 
-def loss_fused_slots(params, pts, cfg: PINNConfig, plan=None):
-    """loss_fused computed in the sampler's slot layout, masked by ``occ``
-    (the identity layout in the port, see ops/fused.py)."""
-    feats, occ, _ = sample_features_padded(params["cells"], pts, cfg.sampler,
-                                           plan=plan)
+def _slot_loss(params, feats, occ, q, cfg: PINNConfig):
     u, u_d, u_dd = _mlp_derivs(params, feats, cfg.dim)
     f = _residual_from_fields(u, u_d, u_dd, cfg)
-    return torch.sum(f * f * occ) / pts.shape[0]
+    return torch.sum(f * f * occ) / q
+
+
+def loss_fused_slots(params, pts, cfg: PINNConfig, plan=None):
+    """loss_fused computed in the sampler's slot layout, masked by ``occ``:
+    the identity layout without a plan, the brick plan's with one
+    (ops/fused.py sample_features_padded)."""
+    feats, occ, _ = sample_features_padded(params["cells"], pts, cfg.sampler,
+                                           plan=plan)
+    return _slot_loss(params, feats, occ, pts.shape[0], cfg)
+
+
+def _fused_vol_for(cfg: PINNConfig, n_queries: int):
+    """The kernel-layout fused op of this trainer shape, or raise."""
+    ops = make_fused_vol(cfg.sampler, cfg.n_cells, cfg.cell_dim,
+                         (cfg.cell_size,) * cfg.dim, n_queries)
+    if ops is None:
+        raise ValueError(
+            "vol_resident training requires a config and shape that the "
+            "bricked 3D kernels take (ops/cuda/fused3b.py supports: 3D, at "
+            "most 8 channels, at least 2 queries per bin, not "
+            "backend='xla'); this one does not")
+    return ops
+
+
+def vol_converters(cfg: PINNConfig, n_queries: int):
+    """(to_vol, from_vol): the cells' conversions to and from the kernel
+    layout of this trainer shape."""
+    _, to_vol, from_vol = _fused_vol_for(cfg, n_queries)
+    return to_vol, from_vol
+
+
+def _convert_cells(params, convert):
+    cells = params["cells"]
+    return {**params, "cells": convert(cells.detach()).requires_grad_(
+        cells.requires_grad)}
+
+
+def params_to_vol(params, cfg: PINNConfig, n_queries: int):
+    """``params`` with ``cells`` in the kernel layout, a leaf again (once,
+    before the vol-resident loop and before the optimizer is built)."""
+    return _convert_cells(params, vol_converters(cfg, n_queries)[0])
+
+
+def params_from_vol(params, cfg: PINNConfig, n_queries: int):
+    """The inverse of params_to_vol: ``cells`` back in (N, C, *S)."""
+    return _convert_cells(params, vol_converters(cfg, n_queries)[1])
+
+
+def loss_fused_slots_vol(params, pts, cfg: PINNConfig, plan):
+    """loss_fused_slots with ``params['cells']`` in the kernel layout and
+    a plan of ops.fused.make_vol_plan: the same loss, without the per-step
+    relayout of the cells and of their gradient."""
+    fused_vol, _, _ = _fused_vol_for(cfg, pts.shape[0])
+    feats, occ, _ = fused_vol(params["cells"], pts, plan)
+    return _slot_loss(params, feats, occ, pts.shape[0], cfg)
 
 
 def _cells_shape(cfg: PINNConfig):
@@ -234,8 +288,8 @@ def value_and_grad_mega(params, pts, cfg: PINNConfig, plan=None):
     of loss_fused_slots, the JAX package's semantics.  CPU tensors take the
     plain version of the kernel.  Both results are detached."""
     if plan is not None:
-        raise ValueError("the port builds no bin plans (make_sample_plan "
-                         "returns None); pass plan=None")
+        raise ValueError("the megakernel takes no bin plan (the port's "
+                         "plans are 3D brick plans); pass plan=None")
     run = make_fused_mega(cfg.sampler, _cells_shape(cfg), pts.shape[0],
                           cfg.pde, cfg.hidden)
     if run is None:
@@ -256,8 +310,12 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
     place through ``optimizer`` (built over ``params.values()``).
 
     ``fused`` uses loss_fused, ``slot_resident`` loss_fused_slots,
-    ``planned`` loss_fused_slots with a plan argument (always None in the
-    port), and none of them ``loss``, the nested-autograd residual.
+    ``planned`` loss_fused_slots with a plan argument (make_sample_plan's
+    brick plan, or None), and none of them ``loss``, the nested-autograd
+    residual.  ``vol_resident`` returns ``step(params, pts, plan)`` over
+    loss_fused_slots_vol: ``params['cells']`` in the kernel layout
+    (params_to_vol, before the optimizer is built, so that its state is
+    born in that layout) and a plan of ops.fused.make_vol_plan.
     ``megakernel`` returns ``step(params, pts, plan=None)``: the gradient
     of loss_fused_slots from value_and_grad_mega, set as each ``p.grad``
     before ``optimizer.step()``.  The returned loss is detached and stays on
@@ -271,9 +329,6 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
             optimizer.step()
             return lval
         return mega_step
-    if vol_resident:
-        raise NotImplementedError(
-            "vol_resident=True needs the bricked 3D kernels (ROADMAP B10)")
 
     def run(params, loss_fn):
         optimizer.zero_grad(set_to_none=True)
@@ -281,6 +336,12 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
         lval.backward()
         optimizer.step()
         return lval.detach()
+
+    if vol_resident:
+        def vol_step(params, pts, plan):
+            return run(params,
+                       lambda p: loss_fused_slots_vol(p, pts, cfg, plan))
+        return vol_step
 
     if planned:
         def step(params, pts, plan):

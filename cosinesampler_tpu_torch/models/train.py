@@ -3,11 +3,17 @@
 Counterpart of the JAX package's models/train.py: per-step collocation batches
 from the Philox stream (utils/pointgen.py), the train step (models/pinn.py:
 the fused loss by default, the nested-autograd loss with ``fused=False``,
-the one-launch megakernel gradient with ``megakernel=True``) and per-step
+the one-launch megakernel gradient with ``megakernel=True``, the cells in
+the bricked 3D kernels' layout with ``vol_resident=True``) and per-step
 metrics.  Run it with
 
     python -m cosinesampler_tpu_torch.models.train --device cuda \
-        [--no-fused | --megakernel] [--dim 3]
+        [--no-fused | --megakernel] [--dim 3] [--fixed-points]
+
+or, for BASELINE config 5 (16 x 4 x 128^3, 1M points, vol-resident),
+
+    python -m cosinesampler_tpu_torch.models.train --device cuda --dim 3 \
+        --n-cells 16 --cell-size 128 --batch-points 1000000 --vol-resident
 
 The device is explicit: ``device="cuda"`` without a card raises, and
 nothing falls back to the CPU.
@@ -21,6 +27,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..ops.fused import make_sample_plan, make_vol_plan
 from ..utils.pointgen import PointGenerator
 from . import pinn
 
@@ -38,10 +45,12 @@ class TrainConfig:
     # falls back to autograd of the fused loss where it does not serve
     megakernel: bool = False
     # one collocation set for the whole run (the reference's own pattern);
-    # the port builds no bin plan, so this only fixes the points
+    # with the fused loss its bin plan is built once (make_sample_plan)
     fixed_points: bool = False
-    # not ported yet: each raises NotImplementedError naming its ROADMAP item
+    # the cells in the bricked 3D kernels' layout across steps, Adam's
+    # moments too (3D; requires fused, implies fixed_points)
     vol_resident: bool = False
+    # not ported yet: each raises NotImplementedError naming its ROADMAP item
     shard: bool = False
     autotune: bool = False
     checkpoint_dir: Optional[str] = None
@@ -49,7 +58,6 @@ class TrainConfig:
 
 
 _NOT_PORTED = {
-    "vol_resident": "the bricked 3D kernels (ROADMAP B10)",
     "shard": "data-parallel training (ROADMAP A9)",
     "autotune": "the kernel autotuner (ROADMAP A10)",
     "checkpoint_dir": "checkpoints (ROADMAP A7)",
@@ -70,23 +78,41 @@ def train(cfg: TrainConfig,
     for name, what in _NOT_PORTED.items():
         if getattr(cfg, name):
             raise NotImplementedError(f"TrainConfig.{name} needs {what}")
-    device = _device(cfg.device)
     mcfg = cfg.model
+    if cfg.vol_resident:
+        if not cfg.fused:
+            raise ValueError("vol_resident=True requires fused=True: the "
+                             "bricked kernels serve the fused loss")
+        # raises ValueError for a shape the bricked kernels do not take
+        pinn.vol_converters(mcfg, cfg.batch_points)
+    device = _device(cfg.device)
     generator = torch.Generator().manual_seed(cfg.seed)
     params = pinn.init_params(generator, mcfg, device)
-    optimizer = torch.optim.Adam(params.values(), lr=cfg.lr)
-    step_fn = pinn.make_train_step(mcfg, optimizer, fused=cfg.fused,
-                                   megakernel=cfg.megakernel)
+    cells_shape = tuple(params["cells"].shape)
+    fixed = cfg.fixed_points or cfg.vol_resident
 
     metrics: List[Dict] = []
     with PointGenerator(cfg.batch_points, mcfg.dim, seed=cfg.seed) as gen:
-        fixed_pts = (torch.from_numpy(gen.batch(0)).to(device)
-                     if cfg.fixed_points else None)
+        fixed_pts = (torch.from_numpy(gen.batch(0)).to(device) if fixed
+                     else None)
+        plan = None
+        if cfg.vol_resident:
+            plan = make_vol_plan(fixed_pts, cells_shape, mcfg.sampler)
+            # before the optimizer, so that its moments are born in the
+            # kernel layout (the update commutes with the permutation)
+            params = pinn.params_to_vol(params, mcfg, cfg.batch_points)
+        elif fixed and cfg.fused and not cfg.megakernel:
+            plan = make_sample_plan(fixed_pts, cells_shape, mcfg.sampler)
+        optimizer = torch.optim.Adam(params.values(), lr=cfg.lr)
+        step_fn = pinn.make_train_step(
+            mcfg, optimizer, fused=cfg.fused, megakernel=cfg.megakernel,
+            planned=plan is not None, vol_resident=cfg.vol_resident)
         t_last = time.perf_counter()
         for step in range(cfg.steps):
             pts = (fixed_pts if fixed_pts is not None
                    else torch.from_numpy(gen.batch(step)).to(device))
-            lval = step_fn(params, pts)
+            lval = (step_fn(params, pts) if plan is None
+                    else step_fn(params, pts, plan))
             if (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps:
                 loss = float(lval)          # waits for the device
                 now = time.perf_counter()
@@ -101,6 +127,8 @@ def train(cfg: TrainConfig,
                 if on_metrics:
                     on_metrics(rec)
                 t_last = now
+    if cfg.vol_resident:
+        params = pinn.params_from_vol(params, mcfg, cfg.batch_points)
     return params, metrics
 
 
@@ -128,7 +156,11 @@ def main(argv=None):
                          "blend, the MLP and residual backward and the "
                          "cotangent splat in a single CUDA kernel")
     ap.add_argument("--fixed-points", action="store_true",
-                    help="one collocation set for the whole run")
+                    help="one collocation set for the whole run; builds "
+                         "its bin plan once")
+    ap.add_argument("--vol-resident", action="store_true",
+                    help="train with the cells in the bricked 3D kernels' "
+                         "layout (3D; implies --fixed-points)")
     args = ap.parse_args(argv)
 
     pde = args.pde or ("allen_cahn" if args.dim == 2 else "helmholtz")
@@ -139,6 +171,7 @@ def main(argv=None):
         batch_points=args.batch_points, steps=args.steps, lr=args.lr,
         seed=args.seed, device=args.device, fused=not args.no_fused,
         fixed_points=args.fixed_points, megakernel=args.megakernel,
+        vol_resident=args.vol_resident,
     )
     train(cfg, on_metrics=lambda m: print(json.dumps(m), flush=True))
     return 0

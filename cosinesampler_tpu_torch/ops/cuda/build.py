@@ -109,6 +109,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
         fn.restype = i32
+    for fn in (lib.fused3b_blend, lib.fused3b_bwd):
+        # vol or g, slot points, occ, hasv, out; n, c, d, h, w, qp, kernel,
+        # padding, align, multicell, strict; the offset lattice's step and
+        # stop; the stream
+        fn.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
+        fn.restype = i32
     # cells, w1, b1, w2, b2, points, dcells, grads; n, c, h, w, q, hidden,
     # pde, kernel, padding, align, multicell, strict; the offset lattice's
     # step and stop; the stream

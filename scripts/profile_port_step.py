@@ -2,12 +2,18 @@
 
     python scripts/profile_port_step.py [--nested | --megakernel] [--dim 3]
                                         [--profile]
+    python scripts/profile_port_step.py --config5 vol|planned|fused
+                                        [--profile]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
 ``--dim 3``: 50 x 4 x 16^3, Helmholtz), fused by default, through nested
 autograd with ``--nested`` or as the one-launch megakernel gradient with
-``--megakernel``, on points already on the card.  Prints the
+``--megakernel``, on points already on the card.  ``--config5`` runs
+BASELINE config 5 (16 x 4 x 128^3, 1 000 000 fixed points, Helmholtz):
+the vol-resident step (``vol``), the planned step with its per-call
+relayout (``planned``) or the query-ordered fused3w step (``fused``), and
+prints the step's peak device memory.  Prints the
 card's name and power limit, the median step time (CUDA events, 3 warm-up
 steps) and the kernel launches per step.  ``--profile`` adds a
 torch.profiler window of 5 steps: device time per step, the device's busy
@@ -44,6 +50,35 @@ try:    # and those from before the mega2w / fused3w kernels these
                      fused3w_bwd=fused3w.fused_bwd)
 except ImportError:
     pass
+try:    # and those from before the fused3b kernels these
+    from cosinesampler_tpu_torch.ops import fused as tfused
+    from cosinesampler_tpu_torch.ops.cuda import fused3b
+    _COUNTERS.update(fused3b_blend=fused3b.fused3b_blend_vol,
+                     fused3b_bwd=fused3b.fused3b_bwd_vol)
+except ImportError:
+    pass
+
+
+def _config5_step(kind):
+    """(step taking a point batch, its fixed points) of BASELINE config 5."""
+    cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=128, pde="helmholtz")
+    q = 1_000_000
+    params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    with PointGenerator(q, 3, seed=7) as gen:
+        pts = torch.from_numpy(gen.batch(0)).cuda()
+    shape = tuple(params["cells"].shape)
+    plan = None
+    if kind == "vol":
+        plan = tfused.make_vol_plan(pts, shape, cfg.sampler)
+        params = pinn.params_to_vol(params, cfg, q)
+    elif kind == "planned":
+        plan = tfused.make_sample_plan(pts, shape, cfg.sampler)
+    step = pinn.make_train_step(
+        cfg, torch.optim.Adam(params.values(), lr=1e-3), fused=True,
+        planned=kind == "planned", vol_resident=kind == "vol")
+    if plan is None:
+        return lambda p: step(params, p), pts
+    return lambda p: step(params, p, plan), pts
 
 
 def main(argv=None):
@@ -53,6 +88,8 @@ def main(argv=None):
     ap.add_argument("--megakernel", action="store_true",
                     help="train with the one-launch megakernel gradient")
     ap.add_argument("--dim", type=int, default=2, choices=(2, 3))
+    ap.add_argument("--config5", choices=("vol", "planned", "fused"),
+                    help="BASELINE config 5 instead of the main path")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -62,19 +99,29 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = (pinn.PINNConfig() if args.dim == 2 else
-           pinn.PINNConfig(dim=3, n_cells=50, pde="helmholtz"))
-    params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
-    step = pinn.make_train_step(
-        cfg, torch.optim.Adam(params.values(), lr=1e-3),
-        fused=not args.nested, megakernel=args.megakernel)
+    if args.config5:
+        run, pts = _config5_step(args.config5)
+        batches = [pts] * (3 + args.steps)
+        path = f"config 5 {args.config5}"
+    else:
+        cfg = (pinn.PINNConfig() if args.dim == 2 else
+               pinn.PINNConfig(dim=3, n_cells=50, pde="helmholtz"))
+        params = pinn.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cuda")
+        step = pinn.make_train_step(
+            cfg, torch.optim.Adam(params.values(), lr=1e-3),
+            fused=not args.nested, megakernel=args.megakernel)
+        run = lambda p: step(params, p)     # noqa: E731
+        with PointGenerator(100_000, args.dim, seed=7) as gen:
+            batches = [torch.from_numpy(gen.batch(i)).cuda()
+                       for i in range(3 + args.steps)]
+        path = ("megakernel" if args.megakernel else
+                "nested" if args.nested else "fused") + f" {args.dim}D"
 
-    with PointGenerator(100_000, args.dim, seed=7) as gen:
-        batches = [torch.from_numpy(gen.batch(i)).cuda()
-                   for i in range(3 + args.steps)]
     for pts in batches[:3]:
-        step(params, pts)
+        run(pts)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for fn in _COUNTERS.values():
         fn.launches = 0
     times = []
@@ -82,16 +129,17 @@ def main(argv=None):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        step(params, pts)
+        run(pts)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    per_step = {k: fn.launches / args.steps for k, fn in _COUNTERS.items()}
-    path = ("megakernel" if args.megakernel else
-            "nested" if args.nested else "fused")
-    print(f"{card}; {path} {args.dim}D step: median "
+    per_step = {k: fn.launches / args.steps for k, fn in _COUNTERS.items()
+                if fn.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{card}; {path} step: median "
           f"{statistics.median(times):.4f} ms over {args.steps} (min {min(times):.4f}, max {max(times):.4f});"
-          f" launches per step {per_step}", flush=True)
+          f" launches per step {per_step}; peak device memory {peak:.3f} GiB",
+          flush=True)
     if not args.profile:
         return 0
 
@@ -101,11 +149,14 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for pts in window:
-            step(params, pts)
+            run(pts)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device work only: a user annotation (the optimizer's step range) is
+    # also listed on the device and would count its kernels twice
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     n = len(window)
     print(f"profile ({n} steps): device {device_ms / n:.4f} ms per step, "
