@@ -11,23 +11,32 @@ megakernel trainer (``megakernel=True``) for 20 steps through mega2w, the
 nested-autograd trainer (``fused=False``, the public sampler to third
 order) for 10 steps through blend_o / splat_o, the 3D Helmholtz trainer
 (50 x 4 x 16^3) for 3 steps nested and 3 steps fused through
-fused3w_blend / fused3w_bwd, and the vol-resident trainer of BASELINE
-config 5 (16 x 4 x 128^3, 1 000 000 points) for 5 steps through
-fused3b_blend / fused3b_bwd.  It checks from the launch counters that each
-path went through its kernels and no other, compares the megakernel losses
-with the fused ones, the vol-resident losses with the fused3w trainer's,
-the nested loss with the fused one and the card with the CPU, and times
-kernels, library calls and steps against their plain versions, and the
-bricked kernels against fused3w at config 5.  The last lines are a JSON
-object
-of the kernels, the card's name and power limit as nvidia-smi prints
-them, and a JSON status object.  Any failure raises: the script then exits
+fused3w_blend / fused3w_bwd, the vol-resident trainer of BASELINE config 5
+(16 x 4 x 128^3, 1 000 000 points) for 5 steps through fused3b_blend /
+fused3b_bwd, and the nested 3D trainer on config 5's volume (100 000
+points) for 3 steps through the route ops/cuda/route.py gives it
+(percell_blend / percell_splat); the per-cell surface of 4 x 4 x 128^3
+cells (per-cell 16^3 grids), its sparse case, a 4 x 4 x 1024^2 2D
+volume and a stack of 1024 x 4 x 16^3 cells (slab_blend / slab_splat) go
+through their routes too, and percell and slab are held to their plain
+versions at all those shapes.  It checks from the launch
+counters that each path went through its kernels and no other, compares
+the megakernel losses with the fused ones, the vol-resident losses with
+the fused3w trainer's, the routed nested 128^3 losses with the blend_o
+route's, the nested loss with the fused one and the card with the CPU,
+and times kernels, library calls and steps against their plain versions,
+the bricked kernels against fused3w at config 5, and the sampler's routes
+against each other (the measurement behind route.rule).  The last lines
+are a JSON object of the kernels, the card's name and power limit as
+nvidia-smi prints them, and a JSON status object.  Any failure raises: the script then exits
 non-zero and prints no status.  It needs one CUDA card and imports nothing
 of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -40,9 +49,12 @@ import torch.nn.functional as F
 from cosinesampler_tpu_torch.models import pinn
 from cosinesampler_tpu_torch.models.train import TrainConfig, train
 from cosinesampler_tpu_torch.ops import fused as tfused
-from cosinesampler_tpu_torch.ops.config import SamplerConfig
+from cosinesampler_tpu_torch.ops import generic
+from cosinesampler_tpu_torch.ops.config import SamplerConfig, effective_align
 from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2w,
-                                              fused3b, fused3w, mega2w)
+                                              fused3b, fused3w, mega2w,
+                                              percell, route, slab)
+from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
 # main path: BASELINE config 3 / bench.py's headline
@@ -53,6 +65,16 @@ N3, S3 = 50, 16
 STEPS, NESTED_STEPS, STEPS_3D = 20, 10, 3
 # BASELINE config 5: the vol-resident 3D trainer at full width
 N5, S5, Q5, STEPS_VOL = 16, 128, 1_000_000, 5
+# the nested 3D trainer on config 5's volume with the reference's 3D point
+# count (test_3d.py), through the over-budget route (percell / slab)
+QN, STEPS_NESTED_VOL = 100_000, 3
+# the per-cell surface of scripts/smoke_slab.py: 4 x 4 x 128^3 cells,
+# per-cell (16, 16, 16) grids; its sparse case (2, 2, 2); and a 2D volume
+# over a block's shared memory, 4 x 4 x 1024^2 with per-cell 128^2 grids
+NP, SP, GP, GP_SPARSE = 4, 128, 16, 2
+S2D, G2D = 1024, 128
+# a stack over L2 of cells under a block's shared memory: per-cell points
+NS, SS, GS = 1024, 16, 1024
 # kernel vs plain: max |kernel - plain| over the largest |plain| of the row
 # (f32, other summation order, f32 atomics in the splats).  A blend_o or
 # splat_o launch is one row: order k scales it by (pi * mult)^k, so only an
@@ -70,6 +92,10 @@ SOURCES = {
     "fused3w_bwd": "cosinesampler_tpu_torch/csrc/fused3w.cu",
     "fused3b_blend": "cosinesampler_tpu_torch/csrc/fused3b.cu",
     "fused3b_bwd": "cosinesampler_tpu_torch/csrc/fused3b.cu",
+    "percell_blend": "cosinesampler_tpu_torch/csrc/percell.cu",
+    "percell_splat": "cosinesampler_tpu_torch/csrc/percell.cu",
+    "slab_blend": "cosinesampler_tpu_torch/csrc/slab.cu",
+    "slab_splat": "cosinesampler_tpu_torch/csrc/slab.cu",
 }
 REPLACES = {
     "fused2w_blend": "cosinesampler_tpu/ops/pallas/fused2w.py:276",
@@ -81,6 +107,10 @@ REPLACES = {
     "fused3w_bwd": "cosinesampler_tpu/ops/pallas/fused3w.py:396",
     "fused3b_blend": "cosinesampler_tpu/ops/pallas/fused3b.py:481",
     "fused3b_bwd": "cosinesampler_tpu/ops/pallas/fused3b.py:831",
+    "percell_blend": "cosinesampler_tpu/ops/pallas/percell.py:238",
+    "percell_splat": "cosinesampler_tpu/ops/pallas/percell.py:368",
+    "slab_blend": "cosinesampler_tpu/ops/pallas/slab.py:146",
+    "slab_splat": "cosinesampler_tpu/ops/pallas/slab.py:295",
 }
 # each kernel's launch counter
 COUNTERS = {
@@ -90,6 +120,8 @@ COUNTERS = {
     "fused3w_blend": fused3w.fused_blend, "fused3w_bwd": fused3w.fused_bwd,
     "fused3b_blend": fused3b.fused3b_blend_vol,
     "fused3b_bwd": fused3b.fused3b_bwd_vol,
+    "percell_blend": percell.blend, "percell_splat": percell.splat,
+    "slab_blend": slab.blend, "slab_splat": slab.splat,
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
 # FLOP/s
@@ -598,6 +630,400 @@ def fused3b_kernel_phase():
     return {"fused3b_blend": errs[0], "fused3b_bwd": errs[1]}
 
 
+# --- percell / slab -----------------------------------------------------------
+
+def _nested_vol_inputs(seed):
+    """Config 5's volume (16 x 4 x 128^3, 537 MB), the nested trainer's
+    first batch of 100 000 points as its shared grid, and a cotangent."""
+    gen = _cuda_gen(seed)
+    x = torch.rand((N5, C, *(S5,) * 3), generator=gen, device="cuda")
+    grid = _trainer_points(QN, 3).reshape(1, 1, 1, QN, 3)
+    gout = torch.randn((N5, C, 1, 1, QN), generator=gen, device="cuda")
+    return x, grid, gout
+
+
+def _per_cell_inputs(dim, n, spatial, grid_out, seed, lo=-0.95, hi=0.95):
+    """Cells, per-cell grids (N, *grid_out, dim) in [lo, hi] (the range of
+    scripts/smoke_slab.py) and a cotangent, made on the card."""
+    gen = _cuda_gen(seed)
+    x = torch.rand((n, C, *spatial), generator=gen, device="cuda")
+    grid = (torch.rand((n, *grid_out, dim), generator=gen, device="cuda")
+            * (hi - lo) + lo)
+    gout = torch.randn((n, C, *grid_out), generator=gen, device="cuda")
+    return x, grid, gout
+
+
+def _route_ops(name, x, grid, cfg, orders, plan=None):
+    """(kernel blend, kernel splat, plain blend, plain splat) of route
+    ``name`` ("percell", "slab") as zero-argument-but-gout callables."""
+    spatial = tuple(x.shape[2:])
+    if name == "percell":
+        return (lambda: percell.blend(x, grid, cfg, orders, plan),
+                lambda g: percell.splat(g, grid, spatial, cfg, orders, plan),
+                lambda: percell.plain_blend_percell(x, grid, cfg, orders,
+                                                    plan),
+                lambda g: percell.plain_splat_percell(g, grid, spatial, cfg,
+                                                      orders, plan))
+    dzb, ccb = slab.geometry(x.shape[1], spatial, 1)
+    dzs, ccs = slab.geometry(x.shape[1], spatial, 0)
+    return (lambda: slab.blend(x, grid, cfg, orders),
+            lambda g: slab.splat(g, grid, spatial, cfg, orders),
+            lambda: slab.plain_blend_slab(x, grid, cfg, orders, dzb, ccb),
+            lambda g: slab.plain_splat_slab(g, grid, spatial, cfg, orders,
+                                            dzs, ccs))
+
+
+def compare_route(what, name, cfg, x, grid, gout, orders_list):
+    """Route ``name``'s blend and splat against their plain versions on
+    the card at each order (one launch is one row, within REL_TOL), and
+    the blend equal bit for bit to blend_o's (the same corner walk and
+    FMA order).  Returns the largest abs errors."""
+    plan = (percell.make_plan(grid, tuple(x.shape), cfg)
+            if name == "percell" else None)
+    worst = [0.0, 0.0]
+    for orders in orders_list:
+        blend_k, splat_k, blend_p, splat_p = _route_ops(name, x, grid, cfg,
+                                                        orders, plan)
+        out, ref = blend_k(), blend_p()
+        dx = splat_k(gout)
+        dref = splat_p(gout)
+        other = blend_splat.blend(x, grid, cfg, orders)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or dx.shape != dref.shape:
+            raise RuntimeError(f"{name} {what} {orders}: shape mismatch")
+        if not (torch.isfinite(out).all() and torch.isfinite(dx).all()):
+            raise RuntimeError(f"{name} {what} {orders}: non-finite output")
+        abs_b, rel_b = _rel_err(out.reshape(1, -1), ref.reshape(1, -1))
+        abs_s, rel_s = _rel_err(dx.reshape(1, -1), dref.reshape(1, -1))
+        same = torch.equal(out, other)
+        print(f"compare {name} {what} ({'x'.join(map(str, x.shape))}, grid "
+              f"{tuple(grid.shape)}) orders {orders}: blend abs {abs_b:.3e} "
+              f"rel {rel_b:.3e}; splat abs {abs_s:.3e} rel {rel_s:.3e}; "
+              f"blend == blend_o bit for bit: {same}", flush=True)
+        if not (rel_b <= REL_TOL and rel_s <= REL_TOL):
+            raise RuntimeError(f"{name} {what} {orders}: kernel disagrees "
+                               "with the plain version")
+        if not same:
+            raise RuntimeError(f"{name} {what} {orders}: blend differs from "
+                               "blend_o's")
+        worst = [max(worst[0], abs_b), max(worst[1], abs_s)]
+        del out, ref, dx, dref, other
+    return worst
+
+
+def pc_slab_kernel_phase():
+    """percell and slab against their plain versions at the slice's shapes
+    (the nested trainer's volume and points, the per-cell surface, its
+    sparse case, the 2D volume) and in variants."""
+    errs = {}
+    cfg3 = SamplerConfig(dim=3)
+    x, grid, gout = _nested_vol_inputs(20)
+    e = compare_route("nested-volume", "percell", cfg3, x, grid, gout,
+                      [(0, 0, 0), (0, 0, 1), (2, 0, 0), (1, 1, 1), (3, 0, 0)])
+    errs["percell_blend"], errs["percell_splat"] = e
+    e = compare_route("nested-volume", "slab", cfg3, x, grid, gout,
+                      [(0, 0, 0), (0, 2, 0)])
+    errs["slab_blend"], errs["slab_splat"] = e
+    del x, grid, gout
+    torch.cuda.empty_cache()
+    for what, g in (("per-cell", GP), ("sparse", GP_SPARSE)):
+        x, grid, gout = _per_cell_inputs(3, NP, (SP,) * 3, (g,) * 3, 21)
+        for name in ("percell", "slab"):
+            compare_route(what, name, cfg3, x, grid, gout,
+                          [(0, 0, 0), (1, 0, 0), (0, 0, 2)])
+    x, grid, gout = _per_cell_inputs(2, NP, (S2D,) * 2, (G2D,) * 2, 22)
+    compare_route("2d", "slab", SamplerConfig(dim=2), x, grid, gout,
+                  [(0, 0), (1, 0), (0, 2)])
+    x, grid, gout = _per_cell_inputs(3, NS, (SS,) * 3, (1, 1, GS), 29)
+    compare_route("small-cells", "slab", cfg3, x, grid, gout,
+                  [(0, 0, 0), (1, 0, 0), (0, 2, 1)])
+    del x, grid, gout
+    torch.cuda.empty_cache()
+
+    # variants: volumes of several slabs (a 3 x 40 x 48 x 56 cell takes
+    # 7-row slabs, a 3 x 300 x 200 one 95-row slabs), points to +-1.4
+    wide = dict(lo=-1.4, hi=1.4)
+    small3 = (3, (40, 48, 56), (1, 1, 4099))
+    small2 = (3, (300, 200), (1, 4099))
+    for tag, kw in [
+            ("border", dict(padding_mode="border")),
+            ("reflection", dict(padding_mode="reflection")),
+            ("linear", dict(kernel="linear")),
+            ("smoothstep", dict(kernel="smoothstep")),
+            ("no-multicell", dict(multicell=False)),
+            ("align-false", dict(align_corners=False)),
+            ("reflection-strict-align-false",
+             dict(padding_mode="reflection", strict_reference=True,
+                  align_corners=False))]:
+        x, grid, gout = _per_cell_inputs(3, small3[0], small3[1], small3[2],
+                                         23, **wide)
+        for name in ("percell", "slab"):
+            compare_route(tag, name, SamplerConfig(dim=3, **kw), x, grid,
+                          gout, [(0, 0, 0), (1, 0, 2)])
+        x, grid, gout = _per_cell_inputs(2, small2[0], small2[1], small2[2],
+                                         24, **wide)
+        compare_route(tag + "-2d", "slab", SamplerConfig(dim=2, **kw), x,
+                      grid, gout, [(0, 0), (2, 1)])
+    # shared grids, orders to 3
+    x, grid, gout = _per_cell_inputs(3, small3[0], small3[1], small3[2], 25,
+                                     **wide)
+    shared = grid[:1].contiguous()
+    for name in ("percell", "slab"):
+        compare_route("shared-grid", name, cfg3, x, shared, gout,
+                      [(3, 0, 0), (0, 2, 1), (1, 1, 1)])
+    x, grid, gout = _per_cell_inputs(2, small2[0], small2[1], small2[2], 26,
+                                     **wide)
+    compare_route("shared-grid-2d", "slab", SamplerConfig(dim=2), x,
+                  grid[:1].contiguous(), gout, [(0, 3), (1, 2)])
+    return errs
+
+
+def _kernel_bytes(x, grid, out_elems, plan_bytes, touched=None):
+    """Bytes a blend-family kernel must move: the cell values it reads
+    (``touched`` of them; all if None), the grid and plan once, and its
+    output once."""
+    cells = x.numel() if touched is None else touched
+    return 4 * (cells + grid.numel() + out_elems) + plan_bytes
+
+
+def _touched_values(x, grid, cfg):
+    """The distinct cell values an order-0 blend of ``grid`` reads: the
+    in-bounds corners of every pair, times the channels (a data-dependent
+    count, from the plain corner math)."""
+    n, c, *spatial = x.shape
+    d = cfg.dim
+    q = math.prod(grid.shape[1:-1])
+    tables = generic.per_axis_tables(grid.reshape(grid.shape[0], q, d),
+                                     spatial, cfg, (0,) * d, n)
+    total = math.prod(spatial)
+    keys = []
+    for corner in itertools.product((0, 1), repeat=d):
+        idx, _, ok = generic.corner_index_weight(tables, corner, spatial, d)
+        cell = torch.arange(n, device=x.device)[:, None].expand(n, q)
+        keys.append((cell * total + idx.expand(n, q))[ok.expand(n, q)])
+    return int(torch.unique(torch.cat(keys)).numel()) * c
+
+
+def pc_slab_time_phase():
+    """At the nested trainer's volume and points: each route's kernels
+    against blend_o / splat_o on the same inputs and against their plain
+    versions (in turns), the plan's build, and the 3D grid_sample and its
+    backward at their one setting (linear, order 0, zeros, no multicell,
+    align_corners) beside the kernels at that setting.  Then the route
+    rule's measurement: one blend and one splat (percell with its plan's
+    build) on each route, across cell sizes and pair counts."""
+    cfg = SamplerConfig(dim=3)
+    o = (0, 0, 0)
+    x, grid, gout = _nested_vol_inputs(27)
+    spatial = (S5,) * 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = percell.make_plan(grid, tuple(x.shape), cfg)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    plan_ms2 = _time_ms(lambda: percell.make_plan(grid, tuple(x.shape), cfg),
+                        3)
+    pairs = N5 * QN
+    print(f"pair plan at the nested volume ({pairs} pairs): first build "
+          f"{plan_ms:.2f} ms (host clock), then {plan_ms2:.3f} ms (CUDA "
+          f"events, 3 builds)", flush=True)
+    touched = _touched_values(x, grid, cfg)
+    flops = 2 * 8 * C * pairs
+    out_elems = N5 * C * QN
+    bounds = {
+        "percell_blend": _bound(_kernel_bytes(x, grid, out_elems, 4 * pairs,
+                                              touched), flops),
+        "percell_splat": _bound(_kernel_bytes(gout, grid, x.numel(),
+                                              4 * pairs), flops),
+        "slab_blend": _bound(_kernel_bytes(x, grid, out_elems, 0, touched),
+                             flops),
+        "slab_splat": _bound(_kernel_bytes(gout, grid, x.numel(), 0), flops),
+    }
+    print(f"bounds at the nested volume: the blend reads {touched} distinct "
+          f"cell values of {x.numel()}", flush=True)
+    dzb, ccb = slab.geometry(C, spatial, 1)
+    dzs, ccs = slab.geometry(C, spatial, 0)
+    ops = {
+        "percell_blend": (
+            lambda: percell.blend(x, grid, cfg, o, plan),
+            lambda: percell.plain_blend_percell(x, grid, cfg, o, plan),
+            lambda: blend_splat.blend(x, grid, cfg, o)),
+        "percell_splat": (
+            lambda: percell.splat(gout, grid, spatial, cfg, o, plan),
+            lambda: percell.plain_splat_percell(gout, grid, spatial, cfg, o,
+                                                plan),
+            lambda: blend_splat.splat(gout, grid, spatial, cfg, o)),
+        "slab_blend": (
+            lambda: slab.blend(x, grid, cfg, o),
+            lambda: slab.plain_blend_slab(x, grid, cfg, o, dzb, ccb),
+            lambda: blend_splat.blend(x, grid, cfg, o)),
+        "slab_splat": (
+            lambda: slab.splat(gout, grid, spatial, cfg, o),
+            lambda: slab.plain_splat_slab(gout, grid, spatial, cfg, o, dzs,
+                                          ccs),
+            lambda: blend_splat.splat(gout, grid, spatial, cfg, o)),
+    }
+    times = {}
+    for name, (kernel, plain, other) in ops.items():
+        ms, plain_ms = _in_turns(kernel, plain, reps=1)
+        ms, other_ms = _in_turns(kernel, other, reps=5)
+        bound_ms, bound_by = bounds[name]
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           v1_ms_same_work=other_ms)
+        print(f"time {name} at the nested volume ({N5}x{C}x{S5}^3, shared "
+              f"Q={QN}, order 0): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of it; "
+              f"{'blend_o' if 'blend' in name else 'splat_o'} on the same "
+              f"inputs {other_ms:.4f} ms", flush=True)
+
+    _blend_order_times(x, grid, cfg, plan)
+
+    lib_cfg = SamplerConfig(dim=3, kernel="linear", multicell=False)
+    full = grid.expand(N5, *grid.shape[1:])
+    plan_l = percell.make_plan(grid, tuple(x.shape), lib_cfg)
+    library = {
+        "blend": lambda: F.grid_sample(x, full, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=True),
+        "splat": lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gout, x, full, 0, 0, True, [True, False])[0],
+    }
+    kernels = {
+        "percell_blend": lambda: percell.blend(x, grid, lib_cfg, o, plan_l),
+        "percell_splat": lambda: percell.splat(gout, grid, spatial, lib_cfg,
+                                               o, plan_l),
+        "slab_blend": lambda: slab.blend(x, grid, lib_cfg, o),
+        "slab_splat": lambda: slab.splat(gout, grid, spatial, lib_cfg, o),
+    }
+    for name, kernel in kernels.items():
+        lib = library["blend" if "blend" in name else "splat"]
+        _, err = _rel_err(kernel().reshape(1, -1), lib().reshape(1, -1))
+        if not err <= REL_TOL:
+            raise RuntimeError(f"{name}: the library call computes another "
+                               f"function ({err:.3e})")
+        ms, lib_ms = _in_turns(kernel, lib, reps=5)
+        times[name].update(library_ms=lib_ms, ms_at_library_setting=ms)
+        print(f"time {name} at linear, order 0, no multicell (nested "
+              f"volume): kernel {ms:.4f} ms, library "
+              f"{'grid_sample' if 'blend' in name else 'grid_sampler_3d_backward'}"
+              f" {lib_ms:.4f} ms (rel diff {err:.2e})", flush=True)
+    del x, grid, gout, full, plan, plan_l
+    torch.cuda.empty_cache()
+    route_sweep_phase()
+    return times
+
+
+def _blend_order_times(x, grid, cfg, plan):
+    """percell_blend's output order, timed in turns at order 0: each
+    cell's slot order (coalesced stores) gathered back to query order (the
+    wrapper's), that kernel alone, and the kernel's query-order variant
+    (scattered stores)."""
+    n, c, *spatial = x.shape
+    o = (0, 0, 0)
+    out = torch.empty((n, c, plan.q), device=x.device)
+
+    def launch(entry):
+        blend_splat.launch_pairs(entry, (x, grid, plan.perm, out), cfg, n, c,
+                                 spatial, plan.q, grid.shape[0], o,
+                                 effective_align(cfg, o))
+        return out
+
+    def wrapper():
+        return percell.blend(x, grid, cfg, o, plan)
+
+    want = wrapper().reshape(n, c, plan.q)
+    if not torch.equal(launch("percell_blend_query_order"), want):
+        raise RuntimeError("percell_blend: the query-order variant differs "
+                           "from the wrapper's output")
+    ms, query_ms = _in_turns(wrapper, lambda: launch(
+        "percell_blend_query_order"), reps=5)
+    ms2, slot_ms = _in_turns(wrapper, lambda: launch("percell_blend"), reps=5)
+    print(f"time percell_blend output order (nested volume, order 0): slot "
+          f"order and the gather back (the wrapper) {ms:.4f} / {ms2:.4f} ms; "
+          f"slot-order kernel alone {slot_ms:.4f} ms; query-order kernel "
+          f"{query_ms:.4f} ms", flush=True)
+
+
+def _route_ms(x, grid, gout, cfg):
+    """ms of one blend and one splat (order 0) on each route, in turns:
+    blend_o / splat_o; percell with its plan built in the call
+    ("percell+plan", a chain of one call) and with the plan reused (a
+    longer chain: the nested trainer's or a backward pass); slab.  Also
+    each op alone on blend_o and on percell with its plan reused."""
+    spatial = tuple(x.shape[2:])
+    o = (0,) * cfg.dim
+    runs = {
+        "blend_o": lambda: (blend_splat.blend(x, grid, cfg, o),
+                            blend_splat.splat(gout, grid, spatial, cfg, o)),
+        "slab": lambda: (slab.blend(x, grid, cfg, o),
+                         slab.splat(gout, grid, spatial, cfg, o)),
+        "blend_o blend": lambda: blend_splat.blend(x, grid, cfg, o),
+        "blend_o splat": lambda: blend_splat.splat(gout, grid, spatial, cfg,
+                                                   o),
+    }
+    if percell.supports(cfg, tuple(x.shape)):
+        plan = percell.make_plan(grid, tuple(x.shape), cfg)
+
+        def with_plan():
+            p = percell.make_plan(grid, tuple(x.shape), cfg)
+            percell.blend(x, grid, cfg, o, p)
+            percell.splat(gout, grid, spatial, cfg, o, p)
+
+        runs.update({
+            "percell+plan": with_plan,
+            "percell": lambda: (percell.blend(x, grid, cfg, o, plan),
+                                percell.splat(gout, grid, spatial, cfg, o,
+                                              plan)),
+            "percell blend": lambda: percell.blend(x, grid, cfg, o, plan),
+            "percell splat": lambda: percell.splat(gout, grid, spatial, cfg,
+                                                   o, plan)})
+    ms = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        ms[k].append(_time_ms(runs[k], 3))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def route_sweep_phase():
+    """The measurement behind route.rule: one blend + one splat on each
+    route, in turns (_route_ms), across cells below and above a block's
+    shared memory and pair counts from the sparse per-cell case to the
+    nested trainer's, and what route.rule picks."""
+    cases = []
+    for n, s, q in ((16, 16, 100_000), (16, 32, 100_000), (4, 64, 4096),
+                    (16, 64, 100_000), (4, 128, 8), (4, 128, 512),
+                    (4, 128, 4096), (4, 128, 32_768), (16, 128, 1024),
+                    (16, 128, 4096), (16, 128, 16_384), (16, 128, 65_536),
+                    (16, 128, 100_000)):
+        cases.append((3, n, (s,) * 3, (1, 1, q)))
+    # stacks over L2 of cells under a block's shared memory (66 and 221
+    # KB) and of 524 KB cells
+    cases += [(3, 1024, (16,) * 3, (1, 1, 256)),
+              (3, 1024, (16,) * 3, (1, 1, 1024)),
+              (3, 512, (24,) * 3, (1, 1, 2048)),
+              (3, 128, (32,) * 3, (1, 1, 8192))]
+    for n, s, q in ((4, 1024, 16), (4, 1024, 1024), (4, 1024, 16_384)):
+        cases.append((2, n, (s,) * 2, (1, q)))
+    for dim, n, spatial, grid_out in cases:
+        for shared in (False, True):
+            cfg = SamplerConfig(dim=dim)
+            x, grid, gout = _per_cell_inputs(dim, n, spatial, grid_out, 28)
+            if shared:
+                grid = grid[:1].contiguous()
+            q = math.prod(grid_out)
+            ms = _route_ms(x, grid, gout, cfg)
+            picked = route.rule(cfg, tuple(x.shape), n * q)
+            print(f"route sweep {dim}D {n}x{C}x{'x'.join(map(str, spatial))} "
+                  f"({4 * x[0].numel() / 1e3:.0f} KB a cell), "
+                  f"{'shared' if shared else 'per-cell'} Q={q} ({n * q} "
+                  f"pairs): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; rule picks {picked}", flush=True)
+            del x, grid, gout
+            torch.cuda.empty_cache()
+
+
 # --- trainers -----------------------------------------------------------------
 
 def _train_checked(name, cfg, steps, launched, decrease=True):
@@ -760,6 +1186,181 @@ def vol_trainer_phase():
                     _vol_loss_and_grads(cfg, "cuda", pts, 7),
                     _vol_loss_and_grads(cfg, "cpu", pts, 7))
     return launches
+
+
+MODEL_NV = pinn.PINNConfig(dim=3, n_cells=N5, cell_size=S5, pde="helmholtz")
+# the kernels of each route, blend then splat
+ROUTE_KERNELS = {"blend_o": ("blend_o", "splat_o"),
+                 "percell": ("percell_blend", "percell_splat"),
+                 "slab": ("slab_blend", "slab_splat")}
+SAMPLER_KERNELS = {k for pair in ROUTE_KERNELS.values() for k in pair}
+
+
+def _expected(cfg, cells_shape, n_pairs):
+    """The kernels route.rule sends a chain's blends and splats to."""
+    return ROUTE_KERNELS[route.rule(cfg, cells_shape, n_pairs)]
+
+
+def _check_route(what, launches, expected):
+    """Each expected sampler kernel launched, no other sampler kernel."""
+    got = {k for k, v in launches.items() if v and k in SAMPLER_KERNELS}
+    if got != set(expected):
+        raise RuntimeError(f"{what}: launched {sorted(got)}, the rule gives "
+                           f"{sorted(expected)}")
+
+
+@contextlib.contextmanager
+def _routed(name):
+    """Every blend_o / splat_o call of the sampler routed to ``name``
+    while the block runs (route.pick replaced, then restored)."""
+    pick = route.pick
+    route.pick = lambda *args: name
+    try:
+        yield
+    finally:
+        route.pick = pick
+
+
+def nested_vol_trainer_phase():
+    """The nested 3D trainer on config 5's volume (16 x 4 x 128^3, 100 000
+    fresh points a step), 3 steps through the routed kernels and no other,
+    and its losses against the same steps with every call routed to
+    blend_o / splat_o: the first at rtol LOSS_RTOL, each within
+    GRAD_TOL.  Returns the routed run's launches and its peak memory."""
+    def cfg():
+        return TrainConfig(model=MODEL_NV, device="cuda", fused=False,
+                           batch_points=QN, steps=STEPS_NESTED_VOL,
+                           log_every=1, seed=0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, losses = _train_checked(
+        f"nested 3D {N5}x{C}x{S5}^3, {QN} points", cfg(), STEPS_NESTED_VOL,
+        _expected(MODEL_NV.sampler, (N5, C, *(S5,) * 3), N5 * QN),
+        decrease=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    with _routed("blend_o"):
+        ref_launches, ref = _train_checked(
+            f"nested 3D {N5}x{C}x{S5}^3, {QN} points, routed to blend_o",
+            cfg(), STEPS_NESTED_VOL, ("blend_o", "splat_o"), decrease=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"nested 128^3 trainer: routed vs blend_o / splat_o losses "
+          f"{' '.join(f'{v:.8g}' for v in ref)} (blend_o); worst rel diff "
+          f"{max(rel):.3e}, first {rel[0]:.3e}; peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError("the routed and blend_o nested trainers disagree")
+    return launches
+
+
+def _per_cell_chain(x, grid, w, axis):
+    """u_ax, u_axax (per pair) and u_axax_cell of u = w . sample(cells,
+    grid) by nested autograd, on the tensors' device."""
+    cells = x.detach().requires_grad_(True)
+    g = grid.detach().requires_grad_(True)
+    out = sample(cells, g, SamplerConfig(dim=3))
+    u = torch.einsum("ncq,c->nq", out.reshape(*out.shape[:2], -1), w)
+    (g1,) = torch.autograd.grad(u.sum(), g, create_graph=True)
+    (g2,) = torch.autograd.grad(g1[..., axis].sum(), g, create_graph=True)
+    (g3,) = torch.autograd.grad(g2[..., axis].sum(), cells)
+    return [t.detach().cpu() for t in (g1[..., axis], g2[..., axis], g3)]
+
+
+def per_cell_chain_phase():
+    """The per-cell surface's u_z -> u_zz -> u_zz_cell chain (4 x 4 x 128^3
+    cells, per-cell 16^3 grids) on the card, through the routed kernels
+    only, against the same chain on the CPU (plain versions): each
+    output within GRAD_TOL of its largest magnitude."""
+    x, grid, _ = _per_cell_inputs(3, NP, (SP,) * 3, (GP,) * 3, 29)
+    w = torch.tensor([0.7, -0.3, 0.5, 1.1], device="cuda")
+    _reset_counts()
+    card = _per_cell_chain(x, grid, w, 2)
+    launches = {k: v for k, v in _counts().items() if v}
+    cpu = _per_cell_chain(x.cpu(), grid.cpu(), w.cpu(), 2)
+    errs = [_rel_err(a.reshape(1, -1), b.reshape(1, -1))[1]
+            for a, b in zip(card, cpu)]
+    print(f"per-cell chain ({NP}x{C}x{SP}^3, per-cell {GP}^3 grids): card vs "
+          f"CPU rel err u_z {errs[0]:.3e}, u_zz {errs[1]:.3e}, u_zz_cell "
+          f"{errs[2]:.3e} (tolerance {GRAD_TOL:g}); launches {launches}",
+          flush=True)
+    if max(errs) > GRAD_TOL:
+        raise RuntimeError("per-cell chain: card and CPU disagree")
+    _check_route("per-cell chain", launches,
+                 _expected(SamplerConfig(dim=3), tuple(x.shape),
+                           NP * GP ** 3))
+    return launches
+
+
+def sparse_and_2d_phase():
+    """The per-cell surface's sparse case (2^3 points a cell), the 2D
+    volume (4 x 4 x 1024^2, per-cell 128^2 grids) and a stack over L2 of
+    small cells (1024 x 4 x 16^3, per-cell 1024 points, 2^20 pairs):
+    sample() and the cell gradient of a quadratic loss on the card,
+    through the routes the rule gives them, against the plain versions on
+    the card (backend='xla').  Returns the launches of each."""
+    out = {}
+    for what, dim, n, spatial, grid_out in (
+            ("sparse", 3, NP, (SP,) * 3, (GP_SPARSE,) * 3),
+            ("2d", 2, NP, (S2D,) * 2, (G2D,) * 2),
+            ("small-cells", 3, NS, (SS,) * 3, (1, 1, GS))):
+        x, grid, _ = _per_cell_inputs(dim, n, spatial, grid_out, 30)
+        res = {}
+        _reset_counts()
+        for backend in ("auto", "xla"):
+            cells = x.clone().requires_grad_(True)
+            u = sample(cells, grid, SamplerConfig(dim=dim,
+                                                       backend=backend))
+            (u ** 2).sum().backward()
+            res[backend] = (u.detach(), cells.grad)
+            if backend == "auto":
+                launches = {k: v for k, v in _counts().items() if v}
+        errs = [_rel_err(a.reshape(1, -1), b.reshape(1, -1))[1]
+                for a, b in zip(res["auto"], res["xla"])]
+        print(f"{what} ({n}x{C}x{'x'.join(map(str, spatial))}, per-cell "
+              f"{'x'.join(map(str, grid_out))}): sample and cell gradient "
+              f"vs plain rel err {errs[0]:.3e}, {errs[1]:.3e}; launches "
+              f"{launches}", flush=True)
+        if max(errs) > REL_TOL:
+            raise RuntimeError(f"{what}: kernels and plain versions disagree")
+        _check_route(what, launches,
+                     _expected(SamplerConfig(dim=dim), tuple(x.shape),
+                               n * math.prod(grid_out)))
+        out[what] = launches
+    return out
+
+
+def nested_vol_step_phase():
+    """Median ms of the nested 128^3 train step (fresh points, CUDA events,
+    1 warm-up and 3 timed steps) with every call routed to percell,
+    blend_o / splat_o and slab, in turns."""
+    with PointGenerator(QN, 3, seed=31) as gen:
+        batches = [torch.from_numpy(gen.batch(i)).cuda() for i in range(4)]
+    kinds = ("percell", "blend_o", "slab")
+    runs = []
+    for kind in kinds + kinds[::-1]:
+        with _routed(kind):
+            params = pinn.init_params(torch.Generator().manual_seed(0),
+                                      MODEL_NV, "cuda")
+            step = pinn.make_train_step(
+                MODEL_NV, torch.optim.Adam(params.values(), lr=1e-3))
+            step(params, batches[0])
+            times = []
+            for pts in batches[1:]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(params, pts)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        runs.append((kind, statistics.median(times)))
+        del params, step
+        torch.cuda.empty_cache()
+    for kind in kinds:
+        ms = [m for k, m in runs if k == kind]
+        print(f"step nested 128^3 routed to {kind}: {sum(ms) / 2:.2f} ms "
+              f"(turns {ms[0]:.2f} {ms[1]:.2f})", flush=True)
 
 
 def launch_breakdown_phase():
@@ -1211,6 +1812,7 @@ def main():
     errs["mega2w"] = mega_kernel_phase()
     errs.update(fused3w_kernel_phase())
     errs.update(fused3b_kernel_phase())
+    errs.update(pc_slab_kernel_phase())
     launches, fused_losses = fused_trainer_phase()
     mega = mega_trainer_phase(fused_losses)
     nested = nested_trainer_phase()
@@ -1218,6 +1820,12 @@ def main():
     nested_3d_phase()
     fused3 = fused_3d_phase()
     vol = vol_trainer_phase()
+    nested_vol = nested_vol_trainer_phase()
+    per_cell = [per_cell_chain_phase(), *sparse_and_2d_phase().values()]
+    launches.update({k: nested_vol[k] for k in ("percell_blend",
+                                                "percell_splat")})
+    launches.update({k: sum(run.get(k, 0) for run in per_cell)
+                     for k in ("slab_blend", "slab_splat")})
     launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"],
                     mega2w=mega["mega2w"],
                     fused3w_blend=fused3["fused3w_blend"],
@@ -1229,8 +1837,10 @@ def main():
     times.update(v1_time_phase())
     times.update(mega_fused3w_time_phase())
     times.update(fused3b_time_phase())
+    times.update(pc_slab_time_phase())
     route_phase()
     step_phase()
+    nested_vol_step_phase()
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}

@@ -53,68 +53,26 @@
 #include <cstdint>
 
 #include "launch.cuh"
-#include "sampler_math.cuh"
+#include "pair_corners.cuh"
 
 namespace {
 
 constexpr int kBlendThreads = 256;
 constexpr int kSplatThreads = 256;
 
-struct Shape {
-  int n, c, q;
-  int grid_batch;  // 1 (shared queries) or n
-  int size[3];     // per grid axis: W, H, D
-  int stride[3];   // flat texel stride per grid axis: 1, W, H*W
-  int order[3];
-  int texels;      // prod(S)
-};
-
-// Corner offsets (flat texel index) and weights of one (cell, query) pair;
-// an out-of-bounds corner gets weight 0 and offset 0.
-template <int D>
-__device__ __forceinline__ void corners(const Shape& s, const float* grid,
-                                        int ni, int qi,
-                                        const csm::SamplerParams& p,
-                                        int off[1 << D], float wgt[1 << D]) {
-  const float offset = csm::cell_offset(ni, s.n, p);
-  const float* g =
-      grid + (static_cast<int64_t>(s.grid_batch == 1 ? 0 : ni) * s.q + qi) * D;
-  csm::AxisWeights a[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-    a[i] = csm::axis_weights(g[i], s.size[i], offset, s.order[i], p);
-  // corner bit D-1-i selects axis i's ceil corner: itertools.product order
-#pragma unroll
-  for (int k = 0; k < (1 << D); ++k) {
-    int idx = 0;
-    float w = 1.0f;
-    bool ok = true;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const int up = (k >> (D - 1 - i)) & 1;
-      const int ci = a[i].i0 + up;
-      ok = ok && ci >= 0 && ci < s.size[i];
-      idx += ci * s.stride[i];
-      w = i == 0 ? (up ? a[i].w1 : a[i].w0) : w * (up ? a[i].w1 : a[i].w0);
-    }
-    off[k] = ok ? idx : 0;
-    wgt[k] = ok ? w : 0.0f;
-  }
-}
-
 // One thread per (cell, query): thread t takes cell t / Q, query t % Q.
 template <int D>
 __global__ void __launch_bounds__(kBlendThreads)
     blend_o_kernel(const float* __restrict__ input,
                    const float* __restrict__ grid, float* __restrict__ out,
-                   Shape s, csm::SamplerParams p) {
+                   csm::PairShape s, csm::SamplerParams p) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= s.n * s.q) return;
   const int ni = t / s.q;
   const int qi = t - ni * s.q;
   int off[1 << D];
   float wgt[1 << D];
-  corners<D>(s, grid, ni, qi, p, off, wgt);
+  csm::pair_corners<D>(s, grid, ni, qi, p, off, wgt);
   const float* cell = input + static_cast<int64_t>(ni) * s.c * s.texels;
   float* dst = out + static_cast<int64_t>(ni) * s.c * s.q + qi;
   for (int c = 0; c < s.c; ++c) {
@@ -134,7 +92,7 @@ template <int D, bool SMEM>
 __global__ void __launch_bounds__(kSplatThreads)
     splat_o_kernel(const float* __restrict__ gout,
                    const float* __restrict__ grid, float* __restrict__ out,
-                   Shape s, int cells_per_chunk, int q_per_block,
+                   csm::PairShape s, int cells_per_chunk, int q_per_block,
                    csm::SamplerParams p) {
   extern __shared__ float sacc[];
   const int cell_elems = s.c * s.texels;
@@ -154,7 +112,7 @@ __global__ void __launch_bounds__(kSplatThreads)
     for (int ni = n0; ni < n1; ++ni) {
       int off[1 << D];
       float wgt[1 << D];
-      corners<D>(s, grid, ni, qi, p, off, wgt);
+      csm::pair_corners<D>(s, grid, ni, qi, p, off, wgt);
       const float* g = gout + static_cast<int64_t>(ni) * s.c * s.q + qi;
       float* cell = acc + static_cast<int64_t>(ni - n0) * cell_elems;
       for (int c = 0; c < s.c; ++c) {
@@ -178,8 +136,8 @@ __global__ void __launch_bounds__(kSplatThreads)
 
 template <int D>
 cudaError_t launch_blend(const float* input, const float* grid, float* out,
-                         const Shape& s, const csm::SamplerParams& p,
-                         cudaStream_t stream) {
+                         const csm::PairShape& s,
+                         const csm::SamplerParams& p, cudaStream_t stream) {
   const int pairs = s.n * s.q;
   if (pairs == 0 || s.c == 0) return cudaGetLastError();
   blend_o_kernel<D>
@@ -190,8 +148,8 @@ cudaError_t launch_blend(const float* input, const float* grid, float* out,
 
 template <int D>
 cudaError_t launch_splat(const float* gout, const float* grid, float* out,
-                         const Shape& s, const csm::SamplerParams& p,
-                         cudaStream_t stream) {
+                         const csm::PairShape& s,
+                         const csm::SamplerParams& p, cudaStream_t stream) {
   if (s.n == 0 || s.q == 0 || s.c == 0 || s.texels == 0)
     return cudaGetLastError();
   csm::DeviceLimits lim;
@@ -230,31 +188,6 @@ cudaError_t launch_splat(const float* gout, const float* grid, float* out,
   return cudaGetLastError();
 }
 
-Shape make_shape(int dim, int n, int c, int d, int h, int w, int q,
-                 int grid_batch, int ox, int oy, int oz) {
-  Shape s;
-  s.n = n;
-  s.c = c;
-  s.q = q;
-  s.grid_batch = grid_batch;
-  s.size[0] = w;
-  s.size[1] = h;
-  s.size[2] = dim == 3 ? d : 1;
-  s.stride[0] = 1;
-  s.stride[1] = w;
-  s.stride[2] = h * w;
-  s.order[0] = ox;
-  s.order[1] = oy;
-  s.order[2] = dim == 3 ? oz : 0;
-  s.texels = h * w * (dim == 3 ? d : 1);
-  return s;
-}
-
-bool bad_args(int dim, int grid_batch, int n, int ox, int oy, int oz) {
-  return (dim != 2 && dim != 3) || (grid_batch != 1 && grid_batch != n) ||
-         ox < 0 || oy < 0 || oz < 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -264,8 +197,10 @@ int blend_o(const void* input, const void* grid, void* out, int dim, int n,
             int c, int d, int h, int w, int q, int grid_batch, int ox, int oy,
             int oz, int kernel, int padding, int align, int multicell,
             int strict, float off_step, float off_stop, void* stream) {
-  if (bad_args(dim, grid_batch, n, ox, oy, oz)) return cudaErrorInvalidValue;
-  const Shape s = make_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
+  if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz))
+    return cudaErrorInvalidValue;
+  const csm::PairShape s =
+      csm::make_pair_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
   const auto* in = static_cast<const float*>(input);
@@ -281,8 +216,10 @@ int splat_o(const void* gout, const void* grid, void* out, int dim, int n,
             int c, int d, int h, int w, int q, int grid_batch, int ox, int oy,
             int oz, int kernel, int padding, int align, int multicell,
             int strict, float off_step, float off_stop, void* stream) {
-  if (bad_args(dim, grid_batch, n, ox, oy, oz)) return cudaErrorInvalidValue;
-  const Shape s = make_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
+  if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz))
+    return cudaErrorInvalidValue;
+  const csm::PairShape s =
+      csm::make_pair_shape(dim, n, c, d, h, w, q, grid_batch, ox, oy, oz);
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
   const auto* g = static_cast<const float*>(gout);

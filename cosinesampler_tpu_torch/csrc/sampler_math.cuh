@@ -193,7 +193,7 @@ __device__ __forceinline__ float kernel_weight(int kernel, float t, int k) {
 
 // One grid axis at derivative order k: the floor corner index and the
 // corner weights, (1 - w, w) at order 0 and (-w^(k), w^(k)) * mult^k
-// above it (ops/generic.py _per_axis_tables).
+// above it (ops/generic.py per_axis_tables).
 struct AxisWeights {
   int i0;
   float w0;  // floor corner

@@ -30,7 +30,7 @@ from ..generic import splat as plain_splat
 from .build import check, load_kernels
 from .fused2w import KERNEL_IDS, PADDING_IDS, cuda_device
 
-__all__ = ["blend", "plain_blend", "plain_splat", "splat"]
+__all__ = ["blend", "launch_pairs", "plain_blend", "plain_splat", "splat"]
 
 
 def _check_tensors(*tensors: torch.Tensor) -> None:
@@ -59,9 +59,14 @@ def _check_shapes(cfg: SamplerConfig, n: int, spatial, grid, orders) -> int:
     return math.prod(grid.shape[1:-1])
 
 
-def _launch(entry, first: torch.Tensor, grid: torch.Tensor,
-            out: torch.Tensor, cfg: SamplerConfig, n: int, c: int, spatial,
-            q: int, orders, align: bool) -> None:
+def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
+                 spatial, q: int, grid_batch: int, orders, align: bool,
+                 extra=()) -> None:
+    """Call ``entry``, a C entry point of the blend_o / splat_o family
+    (blend_o, splat_o, percell_*, slab_*), on the current stream of the
+    device of ``pointers[-1]``: the data pointers, then dim, n, c, d, h, w,
+    q, grid batch, three orders, ``extra`` (ints), the config flags, the
+    offset lattice and the stream."""
     lib = load_kernels()
     if n * c * max(q, math.prod(spatial)) >= 2**31:
         raise ValueError("cells or queries too many for the kernels' 32-bit "
@@ -69,11 +74,11 @@ def _launch(entry, first: torch.Tensor, grid: torch.Tensor,
     d, h, w = (1, *spatial) if cfg.dim == 2 else spatial
     ox, oy, oz = (*orders, 0) if cfg.dim == 2 else orders
     step, stop = offset_lattice(n, cfg.multicell)
-    device = out.device
+    device = pointers[-1].device
     with torch.cuda.device(device):
         err = getattr(lib, entry)(
-            first.data_ptr(), grid.data_ptr(), out.data_ptr(), cfg.dim, n, c,
-            d, h, w, q, grid.shape[0], ox, oy, oz, KERNEL_IDS[cfg.kernel],
+            *(t.data_ptr() for t in pointers), cfg.dim, n, c, d, h, w, q,
+            grid_batch, ox, oy, oz, *extra, KERNEL_IDS[cfg.kernel],
             PADDING_IDS[cfg.padding_mode], int(align), int(cfg.multicell),
             int(cfg.strict_reference), float(step), float(stop),
             torch.cuda.current_stream(device).cuda_stream)
@@ -94,8 +99,8 @@ def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
                       dtype=torch.promote_types(input.dtype, grid.dtype),
                       device=device)
     # the strict-mode 2D align quirk applies to the order-0 gather only
-    _launch("blend_o", input, grid, out, cfg, n, c, spatial, q, orders,
-            effective_align(cfg, orders))
+    launch_pairs("blend_o", (input, grid, out), cfg, n, c, spatial, q,
+                 grid.shape[0], orders, effective_align(cfg, orders))
     blend.launches += 1
     return out
 
@@ -117,8 +122,8 @@ def splat(gout: torch.Tensor, grid: torch.Tensor,
     out = torch.zeros((n, c, *in_spatial),
                       dtype=torch.promote_types(gout.dtype, grid.dtype),
                       device=device)
-    _launch("splat_o", gout, grid, out, cfg, n, c, tuple(in_spatial), q,
-            orders, cfg.align_corners)
+    launch_pairs("splat_o", (gout, grid, out), cfg, n, c, tuple(in_spatial),
+                 q, grid.shape[0], orders, cfg.align_corners)
     splat.launches += 1
     return out
 

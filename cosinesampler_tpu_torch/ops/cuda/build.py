@@ -126,6 +126,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 16 + [f32, f32, ptr]
         fn.restype = i32
+    for fn in (lib.percell_blend, lib.percell_blend_query_order,
+               lib.percell_splat):
+        # input or gout, grid, perm, out; then as blend_o
+        fn.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
+        fn.restype = i32
+    for fn in (lib.slab_blend, lib.slab_splat):
+        # as blend_o, with the slab rows dz and channels cc after the orders
+        fn.argtypes = [ptr, ptr, ptr] + [i32] * 18 + [f32, f32, ptr]
+        fn.restype = i32
     lib.fused2w_max_channels.argtypes = []
     lib.fused2w_max_channels.restype = i32
     lib.csm_error_string.argtypes = [i32]

@@ -28,12 +28,17 @@ from .coords import compute_source_coords, multicell_offsets
 from .interpolants import corner_weights
 
 
-def _per_axis_tables(grid_flat, spatial, cfg: SamplerConfig, orders, n_cells,
-                     fwd_quirk=False):
-    """Per-grid-axis (corner floor index, corner weights, axis size)."""
+def per_axis_tables(grid_flat, spatial, cfg: SamplerConfig, orders, n_cells,
+                    fwd_quirk=False, offset=None):
+    """Per-grid-axis (corner floor index, corner weights, axis size).
+
+    ``offset`` broadcasts against ``grid_flat[..., i]``: by default the
+    (N, 1) per-cell shifts; a caller with its own pair order passes each
+    pair's cell shift."""
     d = cfg.dim
-    offset = multicell_offsets(n_cells, cfg.multicell, grid_flat.dtype,
-                               grid_flat.device)[:, None]
+    if offset is None:
+        offset = multicell_offsets(n_cells, cfg.multicell, grid_flat.dtype,
+                                   grid_flat.device)[:, None]
     # the strict-mode 2D forward align hardcode applies to the order-0
     # gather only; the splat honours the real flag
     align = effective_align(cfg, orders) if fwd_quirk else cfg.align_corners
@@ -53,7 +58,7 @@ def _per_axis_tables(grid_flat, spatial, cfg: SamplerConfig, orders, n_cells,
     return tables
 
 
-def _corner_index_weight(tables, corner, spatial, d):
+def corner_index_weight(tables, corner, spatial, d):
     """Flat input index, blended weight and in-bounds mask for one corner."""
     idx = wgt = ok = None
     for i, p in enumerate(corner):
@@ -77,12 +82,12 @@ def blend(input, grid, cfg: SamplerConfig, orders: Tuple[int, ...]):
     out_spatial = tuple(grid.shape[1:-1])
     q = math.prod(out_spatial)
     gf = grid.reshape(grid.shape[0], q, d)
-    tables = _per_axis_tables(gf, spatial, cfg, orders, n, fwd_quirk=True)
+    tables = per_axis_tables(gf, spatial, cfg, orders, n, fwd_quirk=True)
     inp = input.reshape(n, c, -1)
     total = math.prod(spatial)
     out = torch.zeros((n, c, q), dtype=input.dtype, device=input.device)
     for corner in itertools.product((0, 1), repeat=d):
-        idx, wgt, ok = _corner_index_weight(tables, corner, spatial, d)
+        idx, wgt, ok = corner_index_weight(tables, corner, spatial, d)
         safe = idx.clamp(0, total - 1).expand(n, q)
         vals = torch.gather(inp, 2, safe[:, None, :].expand(n, c, q))
         out = out + torch.where(ok[:, None, :], wgt[:, None, :] * vals, 0.0)
@@ -98,13 +103,13 @@ def splat(gout, grid, in_spatial: Tuple[int, ...], cfg: SamplerConfig,
     q = math.prod(gout.shape[2:])
     gf = grid.reshape(grid.shape[0], q, d)
     gq = gout.reshape(n, c, q)
-    tables = _per_axis_tables(gf, in_spatial, cfg, orders, n)
+    tables = per_axis_tables(gf, in_spatial, cfg, orders, n)
     total = math.prod(in_spatial)
     # flat destination (cell, channel, texel) of every corner contribution
     base = (torch.arange(n * c, device=gout.device) * total).reshape(n, c, 1)
     acc = torch.zeros((n * c * total,), dtype=gout.dtype, device=gout.device)
     for corner in itertools.product((0, 1), repeat=d):
-        idx, wgt, ok = _corner_index_weight(tables, corner, in_spatial, d)
+        idx, wgt, ok = corner_index_weight(tables, corner, in_spatial, d)
         safe = idx.clamp(0, total - 1).expand(n, q)
         contrib = torch.where(ok[:, None, :], wgt[:, None, :] * gq, 0.0)
         acc.index_add_(0, (base + safe[:, None, :]).reshape(-1),

@@ -13,9 +13,11 @@ input-transpose ``splat_o`` is closed under differentiation:
 Both backwards call ``.apply`` of the pair, so each is itself
 differentiable and nested ``torch.autograd.grad(..., create_graph=True)``
 is exact at every order, the third-order cell gradient of a PINN loss
-included.  Each family member is one kernel launch (ops/cuda/blend_splat.py)
-or, under ``backend="xla"`` and for CPU tensors, one plain ops/generic.py
-call.
+included.  Each family member is one kernel launch, blend_o / splat_o,
+percell or slab as ops/cuda/route.py routes it, or, under
+``backend="xla"`` and for CPU tensors, one plain ops/generic.py call.
+Every member of one chain works on one grid and passes one
+``route.GridPlans`` along, so percell's pair plan is built once a chain.
 
 ``ctx.needs_input_grad`` is fixed when the forward runs, so a backward
 computes every cotangent whose input required grad then: a
@@ -32,26 +34,34 @@ import torch
 
 from . import generic
 from .config import SamplerConfig
-from .cuda import blend_splat
+from .cuda import route
 
 
-def _resolve(cfg: SamplerConfig, op: str):
-    """``"xla"``: the plain version; ``"auto"``/``"pallas"``: the kernel
-    wrapper, which takes the plain version only for CPU tensors."""
+def _blend(input, grid, cfg: SamplerConfig, orders, plans):
+    """``"xla"``: the plain version; ``"auto"``/``"pallas"``: the routed
+    kernel wrapper, which takes the plain version only for CPU tensors."""
     if cfg.backend == "xla":
-        return getattr(generic, op)
-    return getattr(blend_splat, op)
+        return generic.blend(input, grid, cfg, orders)
+    return route.blend(input, grid, cfg, orders, plans)
+
+
+def _splat(gout, grid, in_spatial, cfg: SamplerConfig, orders, plans):
+    if cfg.backend == "xla":
+        return generic.splat(gout, grid, in_spatial, cfg, orders)
+    return route.splat(gout, grid, in_spatial, cfg, orders, plans)
 
 
 def bump_orders(orders: Tuple[int, ...], axis: int) -> Tuple[int, ...]:
     return tuple(o + (1 if i == axis else 0) for i, o in enumerate(orders))
 
 
-def _grid_cotangent(weight, source, grid, cfg: SamplerConfig, orders):
+def _grid_cotangent(weight, source, grid, cfg: SamplerConfig, orders,
+                    plans):
     """grid_bar[..., ax] = sum_C weight * blend_{o+e_ax}(source), summed
     over the cells for a shared (batch-1) grid."""
     lanes = [(weight * BlendO.apply(source, grid, cfg,
-                                    bump_orders(orders, ax))).sum(dim=1)
+                                    bump_orders(orders, ax), plans)
+              ).sum(dim=1)
              for ax in range(cfg.dim)]
     grid_bar = torch.stack(lanes, dim=-1).to(grid.dtype)
     if grid.shape[0] == 1 and grid_bar.shape[0] != 1:
@@ -60,27 +70,31 @@ def _grid_cotangent(weight, source, grid, cfg: SamplerConfig, orders):
 
 
 class BlendO(torch.autograd.Function):
-    """(input (N, C, *S), grid (N or 1, *out, d)) -> (N, C, *out)."""
+    """(input (N, C, *S), grid (N or 1, *out, d)) -> (N, C, *out).
+
+    ``plans``: the chain's route.GridPlans; a call without one starts a
+    chain."""
 
     @staticmethod
     def forward(ctx, input, grid, cfg: SamplerConfig,
-                orders: Tuple[int, ...]):
+                orders: Tuple[int, ...], plans=None):
+        plans = route.GridPlans() if plans is None else plans
         ctx.save_for_backward(input, grid)
-        ctx.cfg, ctx.orders = cfg, orders
-        return _resolve(cfg, "blend")(input, grid, cfg, orders)
+        ctx.cfg, ctx.orders, ctx.plans = cfg, orders, plans
+        return _blend(input, grid, cfg, orders, plans)
 
     @staticmethod
     def backward(ctx, g):
         input, grid = ctx.saved_tensors
-        cfg, orders = ctx.cfg, ctx.orders
+        cfg, orders, plans = ctx.cfg, ctx.orders, ctx.plans
         g = g.contiguous()
         input_bar = grid_bar = None
         if ctx.needs_input_grad[0]:
             input_bar = SplatO.apply(g, grid, tuple(input.shape[2:]), cfg,
-                                     orders).to(input.dtype)
+                                     orders, plans).to(input.dtype)
         if ctx.needs_input_grad[1]:
-            grid_bar = _grid_cotangent(g, input, grid, cfg, orders)
-        return input_bar, grid_bar, None, None
+            grid_bar = _grid_cotangent(g, input, grid, cfg, orders, plans)
+        return input_bar, grid_bar, None, None, None
 
 
 class SplatO(torch.autograd.Function):
@@ -88,22 +102,24 @@ class SplatO(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gout, grid, in_spatial: Tuple[int, ...],
-                cfg: SamplerConfig, orders: Tuple[int, ...]):
+                cfg: SamplerConfig, orders: Tuple[int, ...], plans=None):
+        plans = route.GridPlans() if plans is None else plans
         ctx.save_for_backward(gout, grid)
-        ctx.cfg, ctx.orders = cfg, orders
-        return _resolve(cfg, "splat")(gout, grid, in_spatial, cfg, orders)
+        ctx.cfg, ctx.orders, ctx.plans = cfg, orders, plans
+        return _splat(gout, grid, in_spatial, cfg, orders, plans)
 
     @staticmethod
     def backward(ctx, cot):
         gout, grid = ctx.saved_tensors
-        cfg, orders = ctx.cfg, ctx.orders
+        cfg, orders, plans = ctx.cfg, ctx.orders, ctx.plans
         cot = cot.contiguous()
         gout_bar = grid_bar = None
         if ctx.needs_input_grad[0]:
-            gout_bar = BlendO.apply(cot, grid, cfg, orders).to(gout.dtype)
+            gout_bar = BlendO.apply(cot, grid, cfg, orders,
+                                    plans).to(gout.dtype)
         if ctx.needs_input_grad[1]:
-            grid_bar = _grid_cotangent(gout, cot, grid, cfg, orders)
-        return gout_bar, grid_bar, None, None, None
+            grid_bar = _grid_cotangent(gout, cot, grid, cfg, orders, plans)
+        return gout_bar, grid_bar, None, None, None, None
 
 
 def differentiable_blend(cfg: SamplerConfig, orders: Tuple[int, ...]):

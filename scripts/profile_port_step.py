@@ -4,6 +4,8 @@
                                         [--profile]
     python scripts/profile_port_step.py --config5 vol|planned|fused
                                         [--profile]
+    python scripts/profile_port_step.py --nested-vol [percell|blend_o|slab]
+                                        [--points Q] [--profile]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
@@ -13,7 +15,11 @@ autograd with ``--nested`` or as the one-launch megakernel gradient with
 BASELINE config 5 (16 x 4 x 128^3, 1 000 000 fixed points, Helmholtz):
 the vol-resident step (``vol``), the planned step with its per-call
 relayout (``planned``) or the query-ordered fused3w step (``fused``), and
-prints the step's peak device memory.  Prints the
+prints the step's peak device memory.  ``--nested-vol`` runs the nested
+3D trainer's step on config 5's volume (16 x 4 x 128^3, Helmholtz) with
+``--points`` fresh points a step (100 000 by default), every sampler call
+through the route ops/cuda/route.py gives it or, when named, through
+that route.  Prints the
 card's name and power limit, the median step time (CUDA events, 3 warm-up
 steps) and the kernel launches per step.  ``--profile`` adds a
 torch.profiler window of 5 steps: device time per step, the device's busy
@@ -57,6 +63,12 @@ try:    # and those from before the fused3b kernels these
                      fused3b_bwd=fused3b.fused3b_bwd_vol)
 except ImportError:
     pass
+try:    # and those from before the percell / slab kernels these
+    from cosinesampler_tpu_torch.ops.cuda import percell, route, slab
+    _COUNTERS.update(percell_blend=percell.blend, percell_splat=percell.splat,
+                     slab_blend=slab.blend, slab_splat=slab.splat)
+except ImportError:
+    route = None
 
 
 def _config5_step(kind):
@@ -90,6 +102,12 @@ def main(argv=None):
     ap.add_argument("--dim", type=int, default=2, choices=(2, 3))
     ap.add_argument("--config5", choices=("vol", "planned", "fused"),
                     help="BASELINE config 5 instead of the main path")
+    ap.add_argument("--nested-vol", nargs="?", const="rule",
+                    choices=("rule", "percell", "blend_o", "slab"),
+                    help="the nested 3D step on config 5's volume, through "
+                         "the route rule or the route named")
+    ap.add_argument("--points", type=int, default=100_000,
+                    help="points a step of --nested-vol")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -103,6 +121,20 @@ def main(argv=None):
         run, pts = _config5_step(args.config5)
         batches = [pts] * (3 + args.steps)
         path = f"config 5 {args.config5}"
+    elif args.nested_vol:
+        if args.nested_vol != "rule":
+            route.pick = lambda *a: args.nested_vol
+        cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=128,
+                              pde="helmholtz")
+        params = pinn.init_params(torch.Generator().manual_seed(0), cfg,
+                                  "cuda")
+        step = pinn.make_train_step(
+            cfg, torch.optim.Adam(params.values(), lr=1e-3))
+        run = lambda p: step(params, p)     # noqa: E731
+        with PointGenerator(args.points, 3, seed=7) as gen:
+            batches = [torch.from_numpy(gen.batch(i)).cuda()
+                       for i in range(3 + args.steps)]
+        path = f"nested 128^3 ({args.points} points, {args.nested_vol})"
     else:
         cfg = (pinn.PINNConfig() if args.dim == 2 else
                pinn.PINNConfig(dim=3, n_cells=50, pde="helmholtz"))
