@@ -19,7 +19,16 @@ points) for 3 steps through the route ops/cuda/route.py gives it
 cells (per-cell 16^3 grids), its sparse case, a 4 x 4 x 1024^2 2D
 volume and a stack of 1024 x 4 x 16^3 cells (slab_blend / slab_splat) go
 through their routes too, and percell and slab are held to their plain
-versions at all those shapes.  It checks from the launch
+versions at all those shapes.  At 16 feature channels the 2D trainer (20
+steps), the 3D trainer (5) and the megakernel trainer (5, through its
+autograd fallback) go through the channel-looped v1 kernels (fused_blend /
+fused_bwd), held to their plain versions at C in {9, 12, 16, 32, 64};
+the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs,
+timed against fused2w (the sweep behind the fused op's rule) and routed at
+their shapes.  The calls no kernel takes (f64, strict 2D with
+align_corners off, 2^31 elements) must take the counted plain route and
+match the CPU, and exact mode must give the same losses under
+torch.set_float32_matmul_precision("high").  It checks from the launch
 counters that each path went through its kernels and no other, compares
 the megakernel losses with the fused ones, the vol-resident losses with
 the fused3w trainer's, the routed nested 128^3 losses with the blend_o
@@ -50,10 +59,13 @@ from cosinesampler_tpu_torch.models import pinn
 from cosinesampler_tpu_torch.models.train import TrainConfig, train
 from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops import generic
+from cosinesampler_tpu_torch.ops.api import (cosine_sampler_2d,
+                                             cosine_sampler_3d)
 from cosinesampler_tpu_torch.ops.config import SamplerConfig, effective_align
-from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2w,
-                                              fused3b, fused3w, mega2w,
-                                              percell, route, slab)
+from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
+from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2d,
+                                              fused2w, fused3b, fused3w,
+                                              mega2w, percell, route, slab)
 from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
@@ -96,6 +108,10 @@ SOURCES = {
     "percell_splat": "cosinesampler_tpu_torch/csrc/percell.cu",
     "slab_blend": "cosinesampler_tpu_torch/csrc/slab.cu",
     "slab_splat": "cosinesampler_tpu_torch/csrc/slab.cu",
+    "fused_blend": "cosinesampler_tpu_torch/csrc/fused.cu",
+    "fused_bwd": "cosinesampler_tpu_torch/csrc/fused.cu",
+    "fused2d_blend": "cosinesampler_tpu_torch/csrc/fused2d.cu",
+    "fused2d_bwd": "cosinesampler_tpu_torch/csrc/fused2d.cu",
 }
 REPLACES = {
     "fused2w_blend": "cosinesampler_tpu/ops/pallas/fused2w.py:276",
@@ -111,6 +127,10 @@ REPLACES = {
     "percell_splat": "cosinesampler_tpu/ops/pallas/percell.py:368",
     "slab_blend": "cosinesampler_tpu/ops/pallas/slab.py:146",
     "slab_splat": "cosinesampler_tpu/ops/pallas/slab.py:295",
+    "fused_blend": "cosinesampler_tpu/ops/pallas/fused.py:93",
+    "fused_bwd": "cosinesampler_tpu/ops/pallas/fused.py:193",
+    "fused2d_blend": "cosinesampler_tpu/ops/pallas/fused2d.py:74",
+    "fused2d_bwd": "cosinesampler_tpu/ops/pallas/fused2d.py:154",
 }
 # each kernel's launch counter
 COUNTERS = {
@@ -122,6 +142,11 @@ COUNTERS = {
     "fused3b_bwd": fused3b.fused3b_bwd_vol,
     "percell_blend": percell.blend, "percell_splat": percell.splat,
     "slab_blend": slab.blend, "slab_splat": slab.splat,
+    "fused_blend": fused_v1.fused_blend, "fused_bwd": fused_v1.fused_bwd,
+    "fused2d_blend": fused2d.fused_blend, "fused2d_bwd": fused2d.fused_bwd,
+    # the plain route of the calls no kernel takes (ops/cuda/route.py): no
+    # training path may take it
+    "plain": route.run_plain,
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
 # FLOP/s
@@ -195,40 +220,55 @@ def _in_turns(kernel, plain, reps=10):
 
 # --- fused2w ----------------------------------------------------------------
 
-def _fused_inputs(n, c, h, w, q, seed):
+FUSED_MODS = {"fused2w": fused2w, "fused3w": fused3w, "fused": fused_v1,
+              "fused2d": fused2d}
+# points to +-1.4: corners out of range on every side
+WIDE = dict(lo=-1.4, hi=1.4)
+
+
+def _fused_inputs(n, c, spatial, q, seed, lo=-1.2, hi=1.2):
+    """Cells (N, C, *spatial), points (Q, d) in [lo, hi] and a cotangent
+    (1+2d, C, Q) on the card, from ``seed``."""
     gen = torch.Generator().manual_seed(seed)
-    cells = torch.rand((n, c, h, w), generator=gen, dtype=torch.float32)
-    pts = torch.rand((q, 2), generator=gen, dtype=torch.float32) * 2.4 - 1.2
-    g = torch.randn((5, c, q), generator=gen, dtype=torch.float32)
+    dim = len(spatial)
+    cells = torch.rand((n, c, *spatial), generator=gen, dtype=torch.float32)
+    pts = (torch.rand((q, dim), generator=gen, dtype=torch.float32)
+           * (hi - lo) + lo)
+    g = torch.randn((1 + 2 * dim, c, q), generator=gen, dtype=torch.float32)
     return [t.cuda() for t in (cells, pts, g)]
 
 
-def compare(name, cfg, n, c, h, w, q, seed=0):
-    """Both fused kernels against their plain versions on the card."""
-    cells, pts, g = _fused_inputs(n, c, h, w, q, seed)
-    out = fused2w.fused_blend(cells, pts, cfg)
-    ref = fused2w.plain_fused_blend(cells, pts, cfg)
-    dcells = fused2w.fused_bwd(g, pts, (h, w), cfg, n)
-    dref = fused2w.plain_fused_bwd(g, pts, (h, w), cfg, n)
+def compare_fused(kind, name, cfg, n, c, spatial, q, seed=0, lo=-1.2,
+                  hi=1.2):
+    """The blend and bwd of ``kind`` (a key of FUSED_MODS) against their
+    plain versions on the card; points in [lo, hi]."""
+    mod = FUSED_MODS[kind]
+    cells, pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    out = mod.fused_blend(cells, pts, cfg)
+    ref = mod.plain_fused_blend(cells, pts, cfg)
+    dcells = mod.fused_bwd(g, pts, spatial, cfg, n)
+    dref = mod.plain_fused_bwd(g, pts, spatial, cfg, n)
     torch.cuda.synchronize()
     if out.shape != ref.shape or dcells.shape != dref.shape:
-        raise RuntimeError(f"{name}: shape mismatch")
+        raise RuntimeError(f"{kind} {name}: shape mismatch")
     if not (torch.isfinite(out).all() and torch.isfinite(dcells).all()):
-        raise RuntimeError(f"{name}: non-finite kernel output")
+        raise RuntimeError(f"{kind} {name}: non-finite kernel output")
     abs_b, rel_b = _rel_err(out, ref)
     abs_d, rel_d = _rel_err(dcells.reshape(1, -1), dref.reshape(1, -1))
-    print(f"compare {name} ({n}x{c}x{h}x{w}, Q={q}): blend max abs err "
-          f"{abs_b:.3e}, rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, "
-          f"rel {rel_d:.3e} (tolerance rel {REL_TOL:g})", flush=True)
+    print(f"compare {kind} {name} ({n}x{c}x{'x'.join(map(str, spatial))}, "
+          f"Q={q}, points in [{lo:g}, {hi:g}]): blend max abs err "
+          f"{abs_b:.3e}, rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, rel "
+          f"{rel_d:.3e} (tolerance rel {REL_TOL:g})", flush=True)
     if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
-        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+        raise RuntimeError(f"{kind} {name}: kernel disagrees with the plain "
+                           "version")
     return abs_b, abs_d
 
 
 def kernel_phase():
     main = SamplerConfig(dim=2)
-    errs = compare("main-path", main, N, C, H, W, Q)
-    small = (8, 3, 12, 10, 4096)
+    errs = compare_fused("fused2w", "main-path", main, N, C, (H, W), Q)
+    small = (8, 3, (12, 10), 4096)
     for name, kw in [
             ("border", dict(padding_mode="border")),
             ("reflection", dict(padding_mode="reflection")),
@@ -242,11 +282,13 @@ def kernel_phase():
             ("reflection-strict-no-multicell",
              dict(padding_mode="reflection", multicell=False,
                   strict_reference=True))]:
-        compare(name, SamplerConfig(dim=2, **kw), *small, seed=1)
+        compare_fused("fused2w", name, SamplerConfig(dim=2, **kw), *small,
+                      seed=1)
     # a cell too large for the shared-memory accumulator: global atomics
-    compare("large-cell", main, 2, 4, 128, 128, 4096, seed=2)
+    compare_fused("fused2w", "large-cell", main, 2, 4, (128, 128), 4096,
+                  seed=2)
 
-    cells, pts, g = _fused_inputs(N, C, H, W, Q, seed=3)
+    cells, pts, g = _fused_inputs(N, C, (H, W), Q, seed=3)
     ops = {
         "fused2w_blend": (lambda: fused2w.fused_blend(cells, pts, main),
                           lambda: fused2w.plain_fused_blend(cells, pts, main)),
@@ -373,7 +415,7 @@ def v1_kernel_phase():
 def points_cotangent_phase():
     """The fused op's points cotangent on the card (order-bumped blend_o
     launches) against the same through the plain versions."""
-    cells, pts, g = _fused_inputs(8, 3, 12, 10, 4099, seed=8)
+    cells, pts, g = _fused_inputs(8, 3, (12, 10), 4099, seed=8)
     grads = {}
     for backend in ("auto", "xla"):
         p = pts.clone().requires_grad_(True)
@@ -466,36 +508,10 @@ def mega_kernel_phase():
 
 # --- fused3w ------------------------------------------------------------------
 
-def compare_3d(name, cfg, n, c, s, q, seed=0):
-    """Both fused3w kernels against their plain versions on the card."""
-    gen = torch.Generator().manual_seed(seed)
-    cells = torch.rand((n, c, s, s, s), generator=gen).cuda()
-    pts = (torch.rand((q, 3), generator=gen) * 2.4 - 1.2).cuda()
-    g = torch.randn((7, c, q), generator=gen).cuda()
-    out = fused3w.fused_blend(cells, pts, cfg)
-    ref = fused3w.plain_fused_blend(cells, pts, cfg)
-    dcells = fused3w.fused_bwd(g, pts, (s, s, s), cfg, n)
-    dref = fused3w.plain_fused_bwd(g, pts, (s, s, s), cfg, n)
-    torch.cuda.synchronize()
-    if out.shape != ref.shape or dcells.shape != dref.shape:
-        raise RuntimeError(f"fused3w {name}: shape mismatch")
-    if not (torch.isfinite(out).all() and torch.isfinite(dcells).all()):
-        raise RuntimeError(f"fused3w {name}: non-finite kernel output")
-    abs_b, rel_b = _rel_err(out, ref)
-    abs_d, rel_d = _rel_err(dcells.reshape(1, -1), dref.reshape(1, -1))
-    print(f"compare fused3w {name} ({n}x{c}x{s}^3, Q={q}): blend max abs err "
-          f"{abs_b:.3e}, rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, rel "
-          f"{rel_d:.3e} (tolerance rel {REL_TOL:g})", flush=True)
-    if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
-        raise RuntimeError(f"fused3w {name}: kernel disagrees with the plain "
-                           "version")
-    return abs_b, abs_d
-
-
 def fused3w_kernel_phase():
     main = SamplerConfig(dim=3)
-    errs = compare_3d("main-path", main, N3, C, S3, Q)
-    small = (6, 3, 7, 4096)
+    errs = compare_fused("fused3w", "main-path", main, N3, C, (S3,) * 3, Q)
+    small = (6, 3, (7,) * 3, 4096)
     for name, kw in [
             ("border", dict(padding_mode="border")),
             ("reflection", dict(padding_mode="reflection")),
@@ -506,12 +522,15 @@ def fused3w_kernel_phase():
             ("reflection-strict-align-false",
              dict(padding_mode="reflection", strict_reference=True,
                   align_corners=False))]:
-        compare_3d(name, SamplerConfig(dim=3, **kw), *small, seed=1)
+        compare_fused("fused3w", name, SamplerConfig(dim=3, **kw), *small,
+                      seed=1)
     for c in (1, 3, 8):
-        compare_3d(f"channels-{c}", main, 6, c, 7, 4096, seed=2)
-    compare_3d("q-4099", main, 6, 3, 7, 4099, seed=3)
+        compare_fused("fused3w", f"channels-{c}", main, 6, c, (7,) * 3,
+                      4096, seed=2)
+    compare_fused("fused3w", "q-4099", main, 6, 3, (7,) * 3, 4099, seed=3)
     # a 4 x 32^3 cell (512 KB) is over the opted-in limit: global atomics
-    compare_3d("large-cell", main, 2, 4, 32, 4096, seed=4)
+    compare_fused("fused3w", "large-cell", main, 2, 4, (32,) * 3, 4096,
+                  seed=4)
 
     gen = torch.Generator().manual_seed(5)
     cells = torch.rand((6, 3, 7, 7, 7), generator=gen).cuda()
@@ -1024,6 +1043,394 @@ def route_sweep_phase():
             torch.cuda.empty_cache()
 
 
+# --- fused v1 (C > 8) and fused2d (small clouds) ------------------------------
+
+# path (a): the wide-feature fused trainers, C = 16 on the reference stacks
+# and point counts; path (b): the small clouds of the JAX fused2d route
+C_WIDE, STEPS_WIDE_3D, STEPS_WIDE_MEGA = 16, 5, 5
+SMALL_CLOUDS = [(N, 200), (N, 1024), (N, 2047), (8, 512)]
+# the variants of both new kernel pairs: (name, config flags, channels)
+FUSED_VARIANTS = [
+    ("zeros", {}, 12), ("border", dict(padding_mode="border"), 12),
+    ("reflection", dict(padding_mode="reflection"), 9),
+    ("linear", dict(kernel="linear"), 9),
+    ("smoothstep", dict(kernel="smoothstep"), 12),
+    ("no-multicell-align-false", dict(multicell=False, align_corners=False),
+     12),
+    ("strict-reflection-align", dict(padding_mode="reflection",
+                                     strict_reference=True), 9)]
+
+
+def fused_v1_kernel_phase():
+    """B6 against its plain version at path (a)'s full-width 2D and 3D
+    inputs, at C in {9, 12, 32, 64}, and in each variant (points to +-1.4,
+    Q off every block size)."""
+    errs = compare_fused("fused", "2D path (a)", SamplerConfig(dim=2), N,
+                         C_WIDE, (H, W), Q, lo=-1.0, hi=1.0)
+    errs3 = compare_fused("fused", "3D path (a)", SamplerConfig(dim=3), N3,
+                          C_WIDE, (S3,) * 3, Q, seed=1, lo=-1.0, hi=1.0)
+    for c in (9, 12, 32, 64):
+        compare_fused("fused", f"channels-{c}", SamplerConfig(dim=2), 8, c,
+                      (12, 10), 4099, seed=2, **WIDE)
+    for c in (9, 32):
+        compare_fused("fused", f"3D channels-{c}", SamplerConfig(dim=3), 6,
+                      c, (7, 8, 9), 4099, seed=3, **WIDE)
+    for dim, spatial in ((2, (12, 10)), (3, (7, 8, 9))):
+        for name, kw, c in FUSED_VARIANTS:
+            compare_fused("fused", f"{dim}D {name}",
+                          SamplerConfig(dim=dim, **kw), 6, c, spatial, 2053,
+                          seed=4, **WIDE)
+    # a bwd channel group of 4 x 32^3 (512 KB) is over the opted-in limit:
+    # the bwd takes global atomics
+    compare_fused("fused", "3D large-cell", SamplerConfig(dim=3), 2, 16,
+                  (32, 32, 32), 4096, seed=5, **WIDE)
+    return {"fused_blend": max(errs[0], errs3[0]),
+            "fused_bwd": max(errs[1], errs3[1])}
+
+
+def fused2d_kernel_phase():
+    """B7 against its plain version at path (b)'s shapes and in the same
+    variants (2D)."""
+    main = SamplerConfig(dim=2)
+    worst = [0.0, 0.0]
+    for n, q in SMALL_CLOUDS:
+        errs = compare_fused("fused2d", "path (b)", main, n, C, (H, W), q,
+                             seed=6, lo=-1.0, hi=1.0)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    for name, kw, c in FUSED_VARIANTS:
+        compare_fused("fused2d", name, SamplerConfig(dim=2, **kw), 8, c,
+                      (12, 10), 1037, seed=7, **WIDE)
+    compare_fused("fused2d", "channels-4-q-100000", main, N, C, (H, W), Q,
+                  seed=8, **WIDE)
+    # a 4 x 64 x 64 cell (64 KB) takes opted-in shared memory
+    compare_fused("fused2d", "opt-in-cell", main, 3, 4, (64, 64), 1500,
+                  seed=9, **WIDE)
+    return {"fused2d_blend": worst[0], "fused2d_bwd": worst[1]}
+
+
+def _device_ms(fn, reps=20):
+    """Device ms of one call of ``fn``: the device time of every kernel,
+    fill and copy of ``reps`` calls (torch.profiler) over ``reps``.  Host
+    overhead, which hides kernels of a few microseconds from CUDA events
+    around a loop, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def _pair(mod, cells, pts, g, cfg):
+    n, _, *spatial = cells.shape
+    return lambda: (mod.fused_blend(cells, pts, cfg),
+                    mod.fused_bwd(g, pts, tuple(spatial), cfg, n))
+
+
+def small_cloud_sweep_phase():
+    """fused2d against fused2w, blend + bwd device ms in turns (fused2w,
+    fused2d, fused2d, fused2w) at the small clouds and around them: the
+    measurement behind route.FUSED2D_MAX_Q / FUSED2D_MAX_PAIRS.  Then the
+    fused op at path (b)'s shapes, forward and backward, through the route
+    the rule gives, against the plain versions."""
+    cfg = SamplerConfig(dim=2)
+    rows = []
+    for n, q in [(N, 200), (N, 1024), (N, 2047), (N, 2731), (N, 3072),
+                 (N, 3584), (N, 4096), (N, Q), (32, 4096), (32, 6144),
+                 (32, 7168), (32, 8192), (32, 16384), (8, 512), (8, 8192),
+                 (8, 16384), (8, 24576), (8, 32768), (8, Q)]:
+        cells, pts, g = _fused_inputs(n, C, (H, W), q, seed=10, lo=-1.0,
+                                     hi=1.0)
+        w1, d1, d2, w2 = (_device_ms(_pair(mod, cells, pts, g, cfg))
+                          for mod in (fused2w, fused2d, fused2d, fused2w))
+        wide, small = (w1 + w2) / 2, (d1 + d2) / 2
+        routed = route.fused_rule(cfg, (n, C, H, W), q)
+        rows.append((n, q, wide, small, routed))
+        print(f"sweep fused2d vs fused2w ({n}x{C}x{H}x{W}, Q={q}): blend + "
+              f"bwd device ms fused2d {small:.4f} (turns {d1:.4f} {d2:.4f}),"
+              f" fused2w {wide:.4f} (turns {w1:.4f} {w2:.4f}); faster: "
+              f"{'fused2d' if small < wide else 'fused2w'}; the rule routes "
+              f"{routed}", flush=True)
+    slower = [(n, q) for n, q, wide, small, routed in rows
+              if routed != ("fused2d" if small < wide else "fused2w")]
+    print(f"sweep: the rule routes {len(slower)} of {len(rows)} points to "
+          f"the slower kernel {slower}", flush=True)
+    _reset_counts()
+    for n, q in SMALL_CLOUDS:
+        cells, pts, g = _fused_inputs(n, C, (H, W), q, seed=11, lo=-1.0,
+                                     hi=1.0)
+        leaf = cells.clone().requires_grad_(True)
+        out = tfused.sample_features_with_derivs(leaf, pts, cfg)
+        (out * g).sum().backward()
+        ref = fused2w.plain_fused_blend(cells, pts, cfg)
+        dref = fused2w.plain_fused_bwd(g, pts, (H, W), cfg, n)
+        abs_b, rel_b = _rel_err(out.detach(), ref)
+        abs_d, rel_d = _rel_err(leaf.grad.reshape(1, -1), dref.reshape(1, -1))
+        print(f"path (b) fused op ({n}x{C}x{H}x{W}, Q={q}) through "
+              f"{route.fused_rule(cfg, (n, C, H, W), q)}: blend rel "
+              f"{rel_b:.3e}, cells grad rel {rel_d:.3e}", flush=True)
+        if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
+            raise RuntimeError("path (b): the routed fused op disagrees with "
+                               "the plain version")
+    launches = _counts()
+    print(f"path (b) launches: {_nonzero(launches)}", flush=True)
+    expected = sum(route.fused_rule(cfg, (n, C, H, W), q) == "fused2d"
+                   for n, q in SMALL_CLOUDS)
+    if (launches["fused2d_blend"] != expected
+            or launches["fused2d_bwd"] != expected
+            or launches["fused2w_blend"] != len(SMALL_CLOUDS) - expected
+            or launches["plain"] != 0):
+        raise RuntimeError(f"path (b) did not follow the rule: {launches}")
+    return launches, rows
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def wide_trainer_phase():
+    """Path (a): the fused trainer at C = 16 in 2D (20 steps) and 3D (5),
+    and --megakernel at C = 16 (5: mega2w takes at most 8 channels, so
+    value_and_grad_mega falls back to autograd of the fused loss), each
+    through the v1 kernels once a step and no other kernel (no plain
+    route); then card vs CPU at a small N."""
+    runs = {}
+    for name, model, steps, kw in [
+            ("2D", pinn.PINNConfig(cell_dim=C_WIDE), STEPS, {}),
+            ("3D", pinn.PINNConfig(dim=3, n_cells=N3, cell_dim=C_WIDE,
+                                   pde="helmholtz"), STEPS_WIDE_3D, {}),
+            ("megakernel", pinn.PINNConfig(cell_dim=C_WIDE), STEPS_WIDE_MEGA,
+             dict(megakernel=True))]:
+        launches, _ = _train_checked(
+            f"wide {name} C={C_WIDE} ({model.n_cells} cells, {Q} points)",
+            TrainConfig(model=model, device="cuda", steps=steps, log_every=1,
+                        seed=0, **kw), steps, ("fused_blend", "fused_bwd"))
+        if launches["fused_blend"] != steps or launches["fused_bwd"] != steps:
+            raise RuntimeError(f"wide {name}: expected one launch of each v1 "
+                               f"kernel a step: {launches}")
+        runs[name] = launches
+    for name, cfg in (("2D", pinn.PINNConfig(n_cells=8, cell_dim=C_WIDE)),
+                      ("3D", pinn.PINNConfig(dim=3, n_cells=6,
+                                             cell_dim=C_WIDE,
+                                             pde="helmholtz"))):
+        with PointGenerator(4096, cfg.dim, seed=12) as gen:
+            pts = torch.from_numpy(gen.batch(0))
+        _compare_losses(f"reference wide {name} C={C_WIDE}: fused v1 on the "
+                        "card vs plain CPU",
+                        _loss_and_grads(pinn.loss_fused, cfg, "cuda", pts, 12),
+                        _loss_and_grads(pinn.loss_fused, cfg, "cpu", pts, 12))
+    return runs["2D"]
+
+
+def plain_route_phase():
+    """The calls no kernel takes compute on the card through the counted
+    plain route, as the JAX package sends them to XLA, and match the CPU:
+    f64 cosine_sampler_2d / _3d (and gradcheck), the f64 fused op, the fused
+    op in strict 2D with align_corners off, and an order-0 blend over a
+    stack of 2^31 elements."""
+    def checked(what, fn, expect_plain=True):
+        _reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = _nonzero(_counts())
+        print(f"plain route: {what}: launches {launches}", flush=True)
+        if expect_plain and (not launches.get("plain")
+                             or set(launches) != {"plain"}):
+            raise RuntimeError(f"{what}: expected the plain route only")
+        return result
+
+    gen = torch.Generator().manual_seed(13)
+    for dim, sampler in ((2, cosine_sampler_2d), (3, cosine_sampler_3d)):
+        spatial = (4, 5) if dim == 2 else (3, 4, 5)
+        x = torch.rand((2, 2, *spatial), generator=gen, dtype=torch.float64)
+        grid = (torch.rand((1, *(1,) * (dim - 1), 5, dim), generator=gen,
+                           dtype=torch.float64) * 1.6 - 0.8)
+        want = sampler(x, grid)
+        got = checked(f"f64 cosine_sampler_{dim}d",
+                      lambda: sampler(x.cuda(), grid.cuda()))
+        err = float((got.cpu() - want).abs().max())
+        print(f"plain route: f64 cosine_sampler_{dim}d card vs CPU max abs "
+              f"err {err:.3e}", flush=True)
+        if err > 1e-12:
+            raise RuntimeError(f"f64 cosine_sampler_{dim}d: card and CPU "
+                               "disagree")
+        xc = x.cuda().requires_grad_(True)
+        gc = grid.cuda().requires_grad_(True)
+        ok = checked(f"gradcheck of f64 cosine_sampler_{dim}d",
+                     lambda: torch.autograd.gradcheck(
+                         lambda a, b: sampler(a, b), (xc, gc)))
+        if not ok:
+            raise RuntimeError(f"gradcheck of cosine_sampler_{dim}d failed")
+
+    for what, cfg, dtype in [
+            ("f64 fused op", SamplerConfig(dim=2), torch.float64),
+            ("f64 fused op 3D", SamplerConfig(dim=3), torch.float64),
+            ("strict 2D fused op with align_corners off",
+             SamplerConfig(dim=2, strict_reference=True, align_corners=False,
+                           padding_mode="reflection"), torch.float32)]:
+        spatial = (12, 10) if cfg.dim == 2 else (7, 8, 9)
+        cells, pts, g = (t.cpu().to(dtype) for t in _fused_inputs(
+            6, 3, spatial, 1000, seed=14))
+
+        def run(device):
+            leaf = cells.to(device, copy=True).requires_grad_(True)
+            out = tfused.sample_features_with_derivs(leaf, pts.to(device),
+                                                     cfg)
+            (out * g.to(device)).sum().backward()
+            return out.detach().cpu(), leaf.grad.cpu()
+
+        want = run("cpu")
+        got = checked(what, lambda: run("cuda"))
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+        tol = 1e-12 if dtype == torch.float64 else REL_TOL
+        print(f"plain route: {what} card vs CPU rel err rows {errs[0]:.3e}, "
+              f"cells grad {errs[1]:.3e} (tolerance {tol:g})", flush=True)
+        if max(errs) > tol:
+            raise RuntimeError(f"{what}: card and CPU disagree")
+
+    # 2 x 4 x 16384^2 = 2^31 elements (8.6 GB): over the kernels' 32-bit
+    # indexing
+    x = torch.rand((2, 4, 16384, 16384), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(15))
+    grid = torch.rand((1, 1, 4096, 2), generator=gen) * 2 - 1
+    got = checked(f"order-0 blend over {x.numel()} elements",
+                  lambda: sample(x, grid.cuda(), SamplerConfig(dim=2)))
+    xh = x.cpu()
+    del x
+    torch.cuda.empty_cache()
+    want = sample(xh, grid, SamplerConfig(dim=2))
+    err = float((got.cpu() - want).abs().max())
+    print(f"plain route: blend over 2^31 elements card vs CPU max abs err "
+          f"{err:.3e}", flush=True)
+    if err > 1e-5:
+        raise RuntimeError("the 2^31-element blend: card and CPU disagree")
+
+
+def tf32_phase():
+    """Exact mode whatever the global matmul flag: under
+    torch.set_float32_matmul_precision("high") (TF32 matmuls, shown on a
+    matmul) the 2D fused loss and the config-5 vol-resident loss and their
+    gradients match the "highest" ones at f32 tolerance.  The control runs
+    "high" with pinn._tf32 forced off, so that the ladder's contractions
+    take TF32 as the unrepaired ladder did: it must disagree, or the
+    comparison would prove nothing.  Then the steps' medians under each
+    setting."""
+    a = torch.randn((512, 512), device="cuda")
+    exact = a @ a
+    with PointGenerator(Q, 2, seed=16) as gen:
+        pts2 = torch.from_numpy(gen.batch(0))
+    pts5 = _trainer_points(Q5, 3)
+    results = {}
+    tf32 = pinn._tf32
+    for run, precision in (("highest", "highest"), ("high", "high"),
+                           ("control", "high")):
+        torch.set_float32_matmul_precision(precision)
+        if run == "control":
+            pinn._tf32 = lambda t: False
+        try:
+            err = float((a @ a - exact).abs().max() / exact.abs().max())
+            results[run] = (
+                err,
+                _loss_and_grads(pinn.loss_fused, pinn.PINNConfig(), "cuda",
+                                pts2, 16),
+                _vol_loss_and_grads(MODEL_5, "cuda", pts5, 17))
+        finally:
+            pinn._tf32 = tf32
+            torch.set_float32_matmul_precision("highest")
+    print(f"TF32: a 512 x 512 matmul under 'high' is off the 'highest' one "
+          f"by {results['high'][0]:.3e} of its largest magnitude", flush=True)
+    if not results["high"][0] > 1e-5:
+        raise RuntimeError("'high' did not switch the matmuls to TF32: the "
+                           "check would prove nothing")
+    for i, what in ((1, "2D fused"), (2, "config-5 vol-resident")):
+        _compare_losses(f"exact mode under 'high' vs 'highest': {what}",
+                        results["high"][i], results["highest"][i])
+        if _losses_agree(f"control, TF32 ladder under 'high' vs 'highest': "
+                         f"{what}", results["control"][i],
+                         results["highest"][i]):
+            raise RuntimeError(f"the TF32 ladder agrees with 'highest' on "
+                               f"the {what} step: the check proves nothing")
+    with PointGenerator(Q, 2, seed=7) as gen:
+        batches = [torch.from_numpy(gen.batch(i)).cuda() for i in range(13)]
+    plan = tfused.make_vol_plan(pts5, (N5, C, S5, S5, S5), MODEL_5.sampler)
+    for precision in ("highest", "high", "high", "highest"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            fused_ms = _median_step_ms(pinn.PINNConfig(), batches, fused=True)
+            vol_ms, peak = _fixed_step_median(_fixed_step(MODEL_5, pts5,
+                                                          "vol", plan))
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        torch.cuda.empty_cache()
+        print(f"step under '{precision}': 2D fused {fused_ms:.4f} ms, "
+              f"config-5 vol-resident {vol_ms:.4f} ms (peak {peak:.3f} GiB)",
+              flush=True)
+
+
+def wide_time_phase():
+    """B6 at path (a) (2D: 96 x 16 x 16^2, Q = 100 000) and B7 at path (b)
+    (96 x 4 x 16^2, Q = 1024): kernel and plain ms in turns (CUDA events),
+    bounds; B6 in 3D (50 x 16 x 16^3) printed beside."""
+    times = {}
+    cases = [("fused", "2D", SamplerConfig(dim=2), N, C_WIDE, (H, W), Q),
+             ("fused", "3D", SamplerConfig(dim=3), N3, C_WIDE, (S3,) * 3, Q),
+             ("fused2d", "2D", SamplerConfig(dim=2), N, C, (H, W), 1024)]
+    for kind, what, cfg, n, c, spatial, q in cases:
+        mod = FUSED_MODS[kind]
+        cells, pts, g = _fused_inputs(n, c, spatial, q, seed=18, lo=-1.0,
+                                     hi=1.0)
+        dim = len(spatial)
+        rows = 1 + 2 * dim
+        # rows x 2^d corners FMAs per (cell, channel, query): 20 in 2D, 56
+        # in 3D; the blend reads cells and points and writes (rows, C, Q),
+        # the bwd the other way round
+        flops = 2 * rows * 2**dim * n * c * q
+        nbytes = 4 * (n * c * math.prod(spatial) + dim * q + rows * c * q)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        ops = {
+            f"{kind}_blend": (lambda: mod.fused_blend(cells, pts, cfg),
+                              lambda: mod.plain_fused_blend(cells, pts, cfg)),
+            f"{kind}_bwd": (lambda: mod.fused_bwd(g, pts, spatial, cfg, n),
+                            lambda: mod.plain_fused_bwd(g, pts, spatial, cfg,
+                                                        n)),
+        }
+        for name, (kernel, plain) in ops.items():
+            ms, plain_ms = _in_turns(kernel, plain, reps=5)
+            dev_ms = _device_ms(kernel)
+            print(f"time {name} {what} ({n}x{c}x{'x'.join(map(str, spatial))},"
+                  f" Q={q}): kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.1%} of it; no library call computes it",
+                  flush=True)
+            if name not in times:
+                times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=None)
+    return times
+
+
+def wide_step_phase():
+    """Median step ms (CUDA events, 3 warm-up, 10 timed) of path (a): the
+    2D and 3D fused steps and the megakernel fallback at C = 16."""
+    for what, cfg, kw in [
+            ("2D fused", pinn.PINNConfig(cell_dim=C_WIDE), {}),
+            ("2D megakernel fallback", pinn.PINNConfig(cell_dim=C_WIDE),
+             dict(megakernel=True)),
+            ("3D fused", pinn.PINNConfig(dim=3, n_cells=N3, cell_dim=C_WIDE,
+                                         pde="helmholtz"), {})]:
+        with PointGenerator(Q, cfg.dim, seed=19) as gen:
+            batches = [torch.from_numpy(gen.batch(i)).cuda()
+                       for i in range(13)]
+        step_kw = kw or dict(fused=True)
+        ms = _median_step_ms(cfg, batches, **step_kw)
+        print(f"step wide C={C_WIDE} {what}: {ms:.4f} ms", flush=True)
+
+
 # --- trainers -----------------------------------------------------------------
 
 def _train_checked(name, cfg, steps, launched, decrease=True):
@@ -1391,14 +1798,21 @@ def _loss_and_grads(loss_fn, cfg, device, pts, seed):
     return float(loss.detach()), {k: v.grad.cpu() for k, v in params.items()}
 
 
-def _compare_losses(what, a, b):
+def _losses_agree(what, a, b):
+    """Print two (loss, grads) readings side by side; whether they agree
+    to LOSS_RTOL and GRAD_TOL."""
     (l_a, g_a), (l_b, g_b) = a, b
     worst = max(float((g_a[k] - g_b[k]).abs().max()
                       / g_b[k].abs().max().clamp_min(1e-30)) for k in g_b)
-    print(f"{what}: loss {l_a:.8g} vs {l_b:.8g}; worst gradient leaf rel "
-          f"err {worst:.3e} (tolerances loss rtol {LOSS_RTOL:g}, leaf "
-          f"{GRAD_TOL:g} of its largest magnitude)", flush=True)
-    if abs(l_a - l_b) > LOSS_RTOL * abs(l_b) or worst > GRAD_TOL:
+    print(f"{what}: loss {l_a:.8g} vs {l_b:.8g} (rel "
+          f"{abs(l_a - l_b) / max(abs(l_b), 1e-30):.3e}); worst gradient "
+          f"leaf rel err {worst:.3e} (tolerances loss rtol {LOSS_RTOL:g}, "
+          f"leaf {GRAD_TOL:g} of its largest magnitude)", flush=True)
+    return abs(l_a - l_b) <= LOSS_RTOL * abs(l_b) and worst <= GRAD_TOL
+
+
+def _compare_losses(what, a, b):
+    if not _losses_agree(what, a, b):
         raise RuntimeError(f"{what}: disagree")
 
 
@@ -1832,6 +2246,14 @@ def main():
                     fused3w_bwd=fused3["fused3w_bwd"],
                     fused3b_blend=vol["fused3b_blend"],
                     fused3b_bwd=vol["fused3b_bwd"])
+    errs.update(fused_v1_kernel_phase())
+    errs.update(fused2d_kernel_phase())
+    launches.update({k: v for k, v in wide_trainer_phase().items()
+                     if k in ("fused_blend", "fused_bwd")})
+    small_launches, _ = small_cloud_sweep_phase()
+    launches.update(fused2d_blend=small_launches["fused2d_blend"],
+                    fused2d_bwd=small_launches["fused2d_bwd"])
+    plain_route_phase()
     nested_vs_fused_phase()
     reference_phase()
     times.update(v1_time_phase())
@@ -1841,6 +2263,9 @@ def main():
     route_phase()
     step_phase()
     nested_vol_step_phase()
+    times.update(wide_time_phase())
+    wide_step_phase()
+    tf32_phase()
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}

@@ -132,6 +132,74 @@ __device__ __forceinline__ void splat_query(float* acc, const CellGeom<D>& g,
   }
 }
 
+// The channel-looped kernels (csrc/fused.cu, csrc/fused2d.cu) take any
+// channel count: grid axis z walks groups of at most kGroupChannels
+// channels, whose rows a thread keeps in registers.
+constexpr int kGroupChannels = 8;
+
+// The groups of c channels: as few as hold `most` each, all of width
+// group_width(c, most) but the last.
+inline int channel_groups(int c, int most = kGroupChannels) {
+  return cdiv(c, most);
+}
+inline int group_width(int c, int most = kGroupChannels) {
+  return cdiv(c, channel_groups(c, most));
+}
+
+// acc[r][j] += row r of channel j < cg of the query at pt, over cells
+// [n0, n1) of n: cell ni's plane j starts at
+// cells + (ni - n0) * cell_stride + j * g.texels.  The channel range is
+// given at run time, so one instance serves every group of a stack and
+// both a global stack and a staged copy in shared memory.
+template <int D, int G>
+__device__ __forceinline__ void blend_query_range(
+    const float* cells, int64_t cell_stride, const CellGeom<D>& g, int n0,
+    int n1, int n, int cg, const float (&pt)[D], const SamplerParams& p,
+    float (&acc)[kRows<D>][G]) {
+  for (int ni = n0; ni < n1; ++ni) {
+    const float* cell = cells + (ni - n0) * cell_stride;
+    for_each_corner<D>(g, pt, ni, n, p,
+                       [&](int idx, const float (&wr)[kRows<D>]) {
+#pragma unroll
+                         for (int j = 0; j < G; ++j) {
+                           if (j < cg) {
+                             const float v = cell[j * g.texels + idx];
+#pragma unroll
+                             for (int r = 0; r < kRows<D>; ++r)
+                               acc[r][j] = fmaf(wr[r], v, acc[r][j]);
+                           }
+                         }
+                       });
+  }
+}
+
+// The transpose of blend_query_range: adds the cotangent gv of channels
+// j < cg into cells [n0, n1) of acc, laid out as blend_query_range reads
+// them; atomically (shared or global memory), since other threads add
+// into the same texels.
+template <int D, int G>
+__device__ __forceinline__ void splat_query_range(
+    float* acc, int64_t cell_stride, const CellGeom<D>& g, int n0, int n1,
+    int n, int cg, const float (&pt)[D], const SamplerParams& p,
+    const float (&gv)[kRows<D>][G]) {
+  for (int ni = n0; ni < n1; ++ni) {
+    float* cell = acc + (ni - n0) * cell_stride;
+    for_each_corner<D>(g, pt, ni, n, p,
+                       [&](int idx, const float (&wr)[kRows<D>]) {
+#pragma unroll
+                         for (int j = 0; j < G; ++j) {
+                           if (j < cg) {
+                             float v = 0.0f;
+#pragma unroll
+                             for (int r = 0; r < kRows<D>; ++r)
+                               v = fmaf(wr[r], gv[r][j], v);
+                             atomicAdd(cell + j * g.texels + idx, v);
+                           }
+                         }
+                       });
+  }
+}
+
 // Calls f(std::integral_constant<int, C>) for the runtime channel count c.
 template <typename F>
 cudaError_t dispatch_channels(int c, F&& f) {

@@ -84,12 +84,31 @@ def init_params(generator: torch.Generator, cfg: PINNConfig, device,
     return {k: v.to(device).requires_grad_(True) for k, v in params.items()}
 
 
+def _tf32(t: torch.Tensor) -> bool:
+    """Whether an f32 matmul on ``t``'s device would run in TF32: on the
+    card, under torch.set_float32_matmul_precision("high") or "medium" (or
+    torch.backends.cuda.matmul.allow_tf32 = True, or its newer
+    fp32_precision = "tf32"); torch's own reading of whichever API set it."""
+    return t.is_cuda and torch.backends.cuda.matmul.allow_tf32
+
+
+def _contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.einsum(eq, a, b), exact f32 whatever the global matmul
+    precision: where TF32 would serve an f32 matmul (``_tf32``), the
+    contraction runs in f64 and is rounded back, and so does its autograd
+    backward, whose matmuls see f64 tensors.  TF32 moves the residual far
+    past the f32 tolerance; the JAX package's ladder avoids the TPU's bf16
+    matmul passes the same way, by not letting the setting reach it."""
+    if _tf32(b):
+        return torch.einsum(eq, a.double(), b.double()).to(b.dtype)
+    return torch.einsum(eq, a, b)
+
+
 def _mlp(params, feats):
-    """(Q, C) features -> (Q,) u.  Plain matmuls: on the card TF32 must be
-    off (torch.backends.cuda.matmul.allow_tf32, False by default) or the
-    residual moves by far more than the f32 tolerance."""
-    h = torch.tanh(feats @ params["w1"] + params["b1"])
-    return (h @ params["w2"] + params["b2"])[..., 0]
+    """(Q, C) features -> (Q,) u, exact f32 (see _contract)."""
+    h = torch.tanh(_contract("qc,ch->qh", feats, params["w1"])
+                   + params["b1"])
+    return _contract("qh,hk->qk", h, params["w2"])[..., 0] + params["b2"]
 
 
 def field(params, pts, cfg: PINNConfig):
@@ -162,24 +181,25 @@ def _mlp_derivs(params, feats, dim):
     with pre = W1^T f + b1 and h = tanh(pre),
         u_x  = w2 . (tanh'(pre) * W1^T f_x)
         u_xx = w2 . (tanh''(pre) * (W1^T f_x)^2 + tanh'(pre) * W1^T f_xx)
-    where tanh' = 1 - h^2 and tanh'' = -2 h tanh'.
+    where tanh' = 1 - h^2 and tanh'' = -2 h tanh'.  Exact f32 whatever
+    the global matmul precision (see _contract).
     """
     w1 = params["w1"]                      # (C, hidden)
     w2 = params["w2"][:, 0]                # (hidden,)
 
     def lin(z):                            # (C, Q) -> (hidden, Q)
-        return torch.einsum("ch,cq->hq", w1, z)
+        return _contract("ch,cq->hq", w1, z)
 
     h = torch.tanh(lin(feats[0]) + params["b1"][:, None])
     d1 = 1.0 - h * h
     d2 = -2.0 * h * d1
-    u = torch.einsum("h,hq->q", w2, h) + params["b2"][0]
+    u = _contract("h,hq->q", w2, h) + params["b2"][0]
     u_d, u_dd = [], []
     for ax in range(dim):
         a = lin(feats[1 + ax])
         b = lin(feats[1 + dim + ax])
-        u_d.append(torch.einsum("h,hq->q", w2, d1 * a))
-        u_dd.append(torch.einsum("h,hq->q", w2, d2 * a * a + d1 * b))
+        u_d.append(_contract("h,hq->q", w2, d1 * a))
+        u_dd.append(_contract("h,hq->q", w2, d2 * a * a + d1 * b))
     return u, u_d, u_dd
 
 

@@ -27,6 +27,10 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build"
 
+# the shared memory a block may opt in to on the H100 (232 448 bytes); the
+# C entry points check it against the device's own limit
+BLOCK_SMEM_BYTES = 227 * 1024
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -99,12 +103,14 @@ def nvcc_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.fused2w_blend, lib.fused2w_bwd):
+    for fn in (lib.fused2w_blend, lib.fused2w_bwd, lib.fused2d_blend,
+               lib.fused2d_bwd, lib.fused_v1_blend2, lib.fused_v1_bwd2):
         # 3 data pointers; n, c, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
-    for fn in (lib.fused3w_blend, lib.fused3w_bwd):
+    for fn in (lib.fused3w_blend, lib.fused3w_bwd, lib.fused_v1_blend3,
+               lib.fused_v1_bwd3):
         # 3 data pointers; n, c, d, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]

@@ -38,14 +38,15 @@ import torch
 from .. import generic
 from ..config import SamplerConfig, effective_align
 from .blend_splat import _check_shapes, _check_tensors, launch_pairs
+from .build import BLOCK_SMEM_BYTES
 from .fused2w import cuda_device
 
 __all__ = ["blend", "geometry", "plain_blend_slab", "plain_splat_slab",
            "splat", "supports"]
 
-# the shared memory a block may opt in to on the H100 (232 448 bytes); the
-# C entry points check it against the device's own limit
-SMEM_BYTES = 227 * 1024
+# the shared memory a slab may take (a module attribute, so that tests can
+# shrink it)
+SMEM_BYTES = BLOCK_SMEM_BYTES
 
 
 def geometry(c: int, spatial, halo: int) -> Optional[Tuple[int, int]]:

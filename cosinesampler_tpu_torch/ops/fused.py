@@ -7,9 +7,15 @@ Counterpart of the JAX package's ops/fused.py:
 
 summed over the multicell ensemble, with derivatives with respect to the
 normalized coordinates.  The op is one ``torch.autograd.Function``: its
-forward is the fused blend kernel and its backward the fused transpose
-kernel (ops/cuda/fused2w.py in 2D, ops/cuda/fused3w.py in 3D), or their
-plain versions for CPU tensors and under ``backend="xla"``.
+forward is a fused blend kernel and its backward the matching transpose
+kernel, on the route ops/cuda/route.py ``fused_rule`` gives the call, in
+the JAX package's order: the plain version on the card for what no kernel
+takes (f64, strict reference in 2D with align_corners off, tensors over
+32-bit indexing); fused2d (ops/cuda/fused2d.py) for small 2D clouds and
+fused2w (ops/cuda/fused2w.py) for the others, fused3w
+(ops/cuda/fused3w.py) in 3D, up to 8 channels; the channel-looped v1
+kernels (ops/cuda/fused.py) above.  The wrappers take their plain versions
+for CPU tensors; ``backend="xla"`` takes them everywhere.
 
 ``make_fused_mega`` is the hook of the one-launch train-step gradient
 (ops/cuda/mega2w.py) that models/pinn.py's megakernel step calls.
@@ -34,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from .config import SamplerConfig
-from .cuda import fused2w, fused3b, fused3w, mega2w
+from .cuda import fused as fused_v1
+from .cuda import fused2d, fused2w, fused3b, fused3w, mega2w, route
 from .cuda.fused2w import all_orders, plain_fused_blend, plain_fused_bwd
 from .sampler import BlendO, bump_orders
 
@@ -43,8 +50,16 @@ __all__ = ["make_fused_mega", "make_fused_vol", "make_sample_plan",
            "sample_features_padded", "sample_features_with_derivs",
            "trim_plan"]
 
-# the kernel wrappers of each dim
-_KERNELS = {2: fused2w, 3: fused3w}
+# the kernel wrappers of each route of route.fused_rule but "plain"
+_KERNELS = {"fused2w": fused2w, "fused2d": fused2d, "fused3w": fused3w,
+            "fused": fused_v1}
+
+
+def _route(cfg: SamplerConfig, cells_shape, first, points) -> str:
+    """route.pick_fused for one call; "xla" under ``backend="xla"``."""
+    if cfg.backend == "xla":
+        return "xla"
+    return route.pick_fused(cfg, tuple(cells_shape), first, points)
 
 
 def _points_cotangent(cells, points, g, cfg: SamplerConfig):
@@ -71,23 +86,31 @@ class _FusedSample(torch.autograd.Function):
     def forward(ctx, cells, points, cfg: SamplerConfig):
         ctx.save_for_backward(cells, points)
         ctx.cfg = cfg
-        if cfg.backend == "xla":
+        # the bwd takes the blend's route
+        ctx.route = _route(cfg, cells.shape, cells, points)
+        if ctx.route == "xla":
             return plain_fused_blend(cells, points, cfg)
-        return _KERNELS[cfg.dim].fused_blend(cells, points, cfg)
+        if ctx.route == "plain":
+            return route.run_plain(plain_fused_blend, cells, points, cfg)
+        return _KERNELS[ctx.route].fused_blend(cells, points, cfg)
 
     @staticmethod
     def backward(ctx, g):
         cells, points = ctx.saved_tensors
         cfg = ctx.cfg
         n, _, *spatial = cells.shape
+        spatial = tuple(spatial)
         g = g.contiguous()
         dcells = dpoints = None
         if ctx.needs_input_grad[0]:
-            if cfg.backend == "xla":
-                dcells = plain_fused_bwd(g, points, tuple(spatial), cfg, n)
+            if ctx.route == "xla":
+                dcells = plain_fused_bwd(g, points, spatial, cfg, n)
+            elif ctx.route == "plain":
+                dcells = route.run_plain(plain_fused_bwd, g, points, spatial,
+                                         cfg, n)
             else:
-                dcells = _KERNELS[cfg.dim].fused_bwd(g, points,
-                                                     tuple(spatial), cfg, n)
+                dcells = _KERNELS[ctx.route].fused_bwd(g, points, spatial,
+                                                       cfg, n)
             dcells = dcells.to(cells.dtype)
         if ctx.needs_input_grad[1]:
             dpoints = _points_cotangent(cells, points, g, cfg)
