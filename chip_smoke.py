@@ -25,13 +25,22 @@ autograd fallback) go through the channel-looped v1 kernels (fused_blend /
 fused_bwd), held to their plain versions at C in {9, 12, 16, 32, 64};
 the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs,
 timed against fused2w (the sweep behind the fused op's rule) and routed at
-their shapes.  The calls no kernel takes (f64, strict 2D with
-align_corners off, 2^31 elements) must take the counted plain route and
-match the CPU, and exact mode must give the same losses under
+their shapes.  In 3D the small- and large-cloud kernels (fused3d_blend /
+fused3d_bwd, fused3s_blend / fused3s_bwd) are held to their plain
+versions, timed against fused3w and fused3b (the sweep behind the 3D
+rule), and the 3D fused trainer runs through them with fresh points: 50 x
+4 x 16^3 at 1024 points (fused3d), 16 x 4 x 32^3 at 4096 (the rule's
+fused3w) and config 5's 16 x 4 x 128^3 at 100 000 (fused3s), 3 steps
+each.  fused3b's channel groups are held to its plain versions at C = 16
+on config 5's volume, and the vol-resident trainer runs there at C = 16
+(16 x 16 x 128^3, 5 steps) against the query-ordered v1 trainer.  The
+calls no kernel takes (f64, strict 2D with align_corners off, 2^31
+elements) must take the counted plain route and match the CPU, and
+exact mode must give the same losses under
 torch.set_float32_matmul_precision("high").  It checks from the launch
 counters that each path went through its kernels and no other, compares
 the megakernel losses with the fused ones, the vol-resident losses with
-the fused3w trainer's, the routed nested 128^3 losses with the blend_o
+the query-ordered trainer's, the routed nested 128^3 losses with the blend_o
 route's, the nested loss with the fused one and the card with the CPU,
 and times kernels, library calls and steps against their plain versions,
 the bricked kernels against fused3w at config 5, and the sampler's routes
@@ -64,8 +73,9 @@ from cosinesampler_tpu_torch.ops.api import (cosine_sampler_2d,
 from cosinesampler_tpu_torch.ops.config import SamplerConfig, effective_align
 from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
 from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2d,
-                                              fused2w, fused3b, fused3w,
-                                              mega2w, percell, route, slab)
+                                              fused2w, fused3b, fused3d,
+                                              fused3s, fused3w, mega2w,
+                                              percell, route, slab)
 from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
@@ -112,6 +122,10 @@ SOURCES = {
     "fused_bwd": "cosinesampler_tpu_torch/csrc/fused.cu",
     "fused2d_blend": "cosinesampler_tpu_torch/csrc/fused2d.cu",
     "fused2d_bwd": "cosinesampler_tpu_torch/csrc/fused2d.cu",
+    "fused3d_blend": "cosinesampler_tpu_torch/csrc/fused3d.cu",
+    "fused3d_bwd": "cosinesampler_tpu_torch/csrc/fused3d.cu",
+    "fused3s_blend": "cosinesampler_tpu_torch/csrc/fused3s.cu",
+    "fused3s_bwd": "cosinesampler_tpu_torch/csrc/fused3s.cu",
 }
 REPLACES = {
     "fused2w_blend": "cosinesampler_tpu/ops/pallas/fused2w.py:276",
@@ -131,6 +145,10 @@ REPLACES = {
     "fused_bwd": "cosinesampler_tpu/ops/pallas/fused.py:193",
     "fused2d_blend": "cosinesampler_tpu/ops/pallas/fused2d.py:74",
     "fused2d_bwd": "cosinesampler_tpu/ops/pallas/fused2d.py:154",
+    "fused3d_blend": "cosinesampler_tpu/ops/pallas/fused3d.py:77",
+    "fused3d_bwd": "cosinesampler_tpu/ops/pallas/fused3d.py:158",
+    "fused3s_blend": "cosinesampler_tpu/ops/pallas/fused3s.py:110",
+    "fused3s_bwd": "cosinesampler_tpu/ops/pallas/fused3s.py:197",
 }
 # each kernel's launch counter
 COUNTERS = {
@@ -144,6 +162,8 @@ COUNTERS = {
     "slab_blend": slab.blend, "slab_splat": slab.splat,
     "fused_blend": fused_v1.fused_blend, "fused_bwd": fused_v1.fused_bwd,
     "fused2d_blend": fused2d.fused_blend, "fused2d_bwd": fused2d.fused_bwd,
+    "fused3d_blend": fused3d.fused_blend, "fused3d_bwd": fused3d.fused_bwd,
+    "fused3s_blend": fused3s.fused_blend, "fused3s_bwd": fused3s.fused_bwd,
     # the plain route of the calls no kernel takes (ops/cuda/route.py): no
     # training path may take it
     "plain": route.run_plain,
@@ -221,7 +241,7 @@ def _in_turns(kernel, plain, reps=10):
 # --- fused2w ----------------------------------------------------------------
 
 FUSED_MODS = {"fused2w": fused2w, "fused3w": fused3w, "fused": fused_v1,
-              "fused2d": fused2d}
+              "fused2d": fused2d, "fused3d": fused3d, "fused3s": fused3s}
 # points to +-1.4: corners out of range on every side
 WIDE = dict(lo=-1.4, hi=1.4)
 
@@ -239,11 +259,12 @@ def _fused_inputs(n, c, spatial, q, seed, lo=-1.2, hi=1.2):
 
 
 def compare_fused(kind, name, cfg, n, c, spatial, q, seed=0, lo=-1.2,
-                  hi=1.2):
+                  hi=1.2, pts=None):
     """The blend and bwd of ``kind`` (a key of FUSED_MODS) against their
-    plain versions on the card; points in [lo, hi]."""
+    plain versions on the card; points in [lo, hi], or ``pts`` (Q, d)."""
     mod = FUSED_MODS[kind]
-    cells, pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    cells, rand_pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    pts = rand_pts if pts is None else pts.cuda()
     out = mod.fused_blend(cells, pts, cfg)
     ref = mod.plain_fused_blend(cells, pts, cfg)
     dcells = mod.fused_bwd(g, pts, spatial, cfg, n)
@@ -1108,28 +1129,40 @@ def fused2d_kernel_phase():
     return {"fused2d_blend": worst[0], "fused2d_bwd": worst[1]}
 
 
-def _device_ms(fn, reps=20):
+def _device_ms(fn, reps=20, windows=1):
     """Device ms of one call of ``fn``: the device time of every kernel,
-    fill and copy of ``reps`` calls (torch.profiler) over ``reps``.  Host
-    overhead, which hides kernels of a few microseconds from CUDA events
-    around a loop, is left out."""
+    fill and copy of ``reps`` calls (torch.profiler) over ``reps``, the
+    largest of ``windows`` such readings (a window that loses events reads
+    low, never high).  Host overhead, which hides kernels of a few
+    microseconds from CUDA events around a loop, is left out."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    readings = []
+    for _ in range(windows):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+        readings.append(sum(e.self_device_time_total for e in events) / 1e3
+                        / reps)
+    return max(readings)
 
 
 def _pair(mod, cells, pts, g, cfg):
+    """A blend and its transpose as the fused op runs them (fused3s: one
+    z sort for both)."""
     n, _, *spatial = cells.shape
-    return lambda: (mod.fused_blend(cells, pts, cfg),
-                    mod.fused_bwd(g, pts, tuple(spatial), cfg, n))
+
+    def run():
+        extra = ((fused3s.zsort(pts, spatial[0], cfg),) if mod is fused3s
+                 else ())
+        mod.fused_blend(cells, pts, cfg, *extra)
+        mod.fused_bwd(g, pts, tuple(spatial), cfg, n, *extra)
+    return run
 
 
 def small_cloud_sweep_phase():
@@ -1225,6 +1258,425 @@ def wide_trainer_phase():
                         _loss_and_grads(pinn.loss_fused, cfg, "cuda", pts, 12),
                         _loss_and_grads(pinn.loss_fused, cfg, "cpu", pts, 12))
     return runs["2D"]
+
+
+# --- fused3d / fused3s (small and mid 3D clouds), fused3b at C > 8 ----------
+
+# path (c): the 3D fused trainer at the reference's width (50 x 4 x 16^3,
+# hidden 16, Helmholtz) with a small fresh cloud, the mid volume of the
+# JAX fused3s dispatch test's regime (16 x 4 x 32^3, 8.4 MB), and config
+# 5's volume with the reference's 3D point count drawn fresh each step
+Q_SMALL3, N_MID, S_MID, Q_MID, STEPS_SMALL3 = 1024, 16, 32, 4096, 3
+# the variants of both kernel pairs: (name, config flags, channels);
+# fused3s takes zeros and border only
+FUSED3_VARIANTS = [
+    ("zeros", {}, 4), ("border", dict(padding_mode="border"), 3),
+    ("reflection", dict(padding_mode="reflection"), 4),
+    ("linear", dict(kernel="linear"), 3),
+    ("smoothstep", dict(kernel="smoothstep"), 4),
+    ("no-multicell", dict(multicell=False), 4),
+    ("align-false", dict(align_corners=False), 3),
+    ("border-no-multicell-align-false",
+     dict(padding_mode="border", multicell=False, align_corners=False), 4),
+    ("strict-reflection-align-false",
+     dict(padding_mode="reflection", strict_reference=True,
+          align_corners=False), 3)]
+
+
+def _tick_points(q, s, seed):
+    """(Q, 3) points on the texel ticks of an S^3 cell (align_corners and
+    multicell: texel k sits at -1 + 2k / (S - 2)): queries exactly on slab
+    boundaries."""
+    gen = torch.Generator().manual_seed(seed)
+    ticks = torch.linspace(-1.0, 1.0, s - 1)
+    return ticks[torch.randint(0, s - 1, (q, 3), generator=gen)]
+
+
+def fused3ds_kernel_phase():
+    """B8 and B9 against their plain versions: fused3d at path (c)'s stack
+    (50 x 4 x 16^3, Q = 200, 1024, 2047) and an opted-in 8 x 16^3 channel
+    group; fused3s at path (c)'s large volume (16 x 4 x 128^3, Q =
+    100 000), where its launches come from, the mid volume (16 x 4 x
+    32^3, Q = 4096), JAX's 2 x 2 x 32^3 at 2048 and 16 x 4 x 64^3 at
+    16384; both in each variant each takes, at C in {1, 3, 8, 12} (two
+    channel groups), points to +-1.4 and on the texel ticks."""
+    main = SamplerConfig(dim=3)
+    worst = {}
+
+    def track(kind, errs):
+        for part, err in zip(("blend", "bwd"), errs):
+            key = f"{kind}_{part}"
+            worst[key] = max(worst.get(key, 0.0), err)
+
+    for q in (200, Q_SMALL3, 2047):
+        track("fused3d", compare_fused("fused3d", "path (c)", main, N3, C,
+                                       (S3,) * 3, q, seed=20, lo=-1.0,
+                                       hi=1.0))
+    for n, c, s, q in ((N5, C, S5, Q), (N_MID, C, S_MID, Q_MID),
+                       (2, 2, 32, 2048), (16, C, 64, 16384)):
+        track("fused3s", compare_fused("fused3s", "path (c)", main, n, c,
+                                       (s,) * 3, q, seed=21, lo=-1.0,
+                                       hi=1.0))
+    compare_fused("fused3d", "opt-in 8x16^3 group", main, 8, 8, (S3,) * 3,
+                  1500, seed=22, **WIDE)
+    for kind in ("fused3d", "fused3s"):
+        for name, kw, c in FUSED3_VARIANTS:
+            cfg = SamplerConfig(dim=3, **kw)
+            if FUSED_MODS[kind].supports(cfg, (6, c, 7, 8, 9)):
+                compare_fused(kind, name, cfg, 6, c, (7, 8, 9), 2053,
+                              seed=23, **WIDE)
+        for c in (1, 3, 8, 12):
+            compare_fused(kind, f"channels-{c}", main, 6, c, (7, 8, 9), 2053,
+                          seed=24, **WIDE)
+        compare_fused(kind, "texel-ticks", main, 5, 3, (6,) * 3, 1000,
+                      seed=25, pts=_tick_points(1000, 6, 25))
+    return worst
+
+
+def fused3b_wide_kernel_phase():
+    """fused3b's channel groups against the plain vol versions: config 5's
+    volume and points at C = 16 (16 x 16 x 128^3, 2.1 GB; two groups of
+    8), and C in {9, 12, 16} in variants."""
+    main = SamplerConfig(dim=3)
+    compare_3b(f"config-5 C={C_WIDE}", main, N5, C_WIDE, (S5,) * 3, Q5,
+               pts=_trainer_points(Q5, 3))
+    torch.cuda.empty_cache()
+    for c in (9, 12, 16):
+        compare_3b(f"channels-{c}", main, 6, c, (9, 9, 9), 4099, seed=2,
+                   lo=-1.4, hi=1.4)
+    compare_3b("reflection channels-12",
+               SamplerConfig(dim=3, padding_mode="reflection"), 6, 12,
+               (9, 9, 9), 4099, seed=3)
+    compare_3b("border align-false channels-9",
+               SamplerConfig(dim=3, padding_mode="border",
+                             align_corners=False), 6, 9, (9, 9, 9), 4099,
+               seed=4)
+
+
+MODEL_5W = pinn.PINNConfig(dim=3, n_cells=N5, cell_dim=C_WIDE, cell_size=S5,
+                           pde="helmholtz")
+
+
+def vol_wide_trainer_phase():
+    """The vol-resident trainer at C = 16 on config 5's volume and points
+    (16 x 16 x 128^3, 1 000 000 points): one fused3b_blend and one
+    fused3b_bwd launch a step and nothing else; its losses against the
+    query-ordered fused trainer's (the v1 pair at C = 16) on the same
+    fixed points, the first at LOSS_RTOL and each within GRAD_TOL; the
+    loss and leaves of one step against loss_fused's on the card; card vs
+    CPU at 5 x 12 x 6^3, Q = 120."""
+    launches, losses = _train_checked(
+        f"vol-resident C={C_WIDE} {N5}x{C_WIDE}x{S5}^3, {Q5} points",
+        TrainConfig(model=MODEL_5W, device="cuda", batch_points=Q5,
+                    steps=STEPS_VOL, log_every=1, seed=0, vol_resident=True),
+        STEPS_VOL, ("fused3b_blend", "fused3b_bwd"))
+    if (launches["fused3b_blend"] != STEPS_VOL
+            or launches["fused3b_bwd"] != STEPS_VOL):
+        raise RuntimeError(f"expected {STEPS_VOL} launches of each fused3b "
+                           "kernel")
+    _reset_counts()
+    ref = _fixed_point_losses(MODEL_5W, Q5, STEPS_VOL)
+    ref_launches = _counts()
+    if (ref_launches["fused_blend"] != STEPS_VOL
+            or ref_launches["fused3b_blend"] != 0):
+        raise RuntimeError(f"the query-ordered C={C_WIDE} trainer took "
+                           f"another route: {_nonzero(ref_launches)}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"vol-resident C={C_WIDE} vs query-ordered (v1) trainer losses on "
+          f"the same fixed points: {' '.join(f'{v:.8g}' for v in ref)} (v1);"
+          f" worst rel diff {max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError(f"vol-resident and v1 trainers disagree at "
+                           f"C={C_WIDE}")
+    torch.cuda.empty_cache()
+    pts = _trainer_points(Q5, 3)
+    _compare_losses(f"vol-resident C={C_WIDE} vs loss_fused (v1) on the card "
+                    f"({N5}x{C_WIDE}x{S5}^3, Q={Q5})",
+                    _vol_loss_and_grads(MODEL_5W, "cuda", pts, 0),
+                    _loss_and_grads(pinn.loss_fused, MODEL_5W, "cuda", pts,
+                                    0))
+    torch.cuda.empty_cache()
+    cfg = pinn.PINNConfig(dim=3, n_cells=5, cell_dim=12, cell_size=6,
+                          pde="helmholtz")
+    with PointGenerator(120, 3, seed=7) as gen:
+        small = torch.from_numpy(gen.batch(0))
+    _compare_losses("reference vol-resident C=12: fused3b on the card vs "
+                    "plain CPU (5x12x6^3, Q=120)",
+                    _vol_loss_and_grads(cfg, "cuda", small, 7),
+                    _vol_loss_and_grads(cfg, "cpu", small, 7))
+    return launches
+
+
+def planned_wide_phase():
+    """The planned op's route at C = 16, measured: fused3b over the plan
+    (the cells relaid on every call, as the planned op does) against the
+    v1 pair in query order, blend + bwd in turns, at 50 x 16 x 16^3 with
+    100 000 fixed points and at 16 x 16 x 128^3 with 1 000 000 (2.1 GB of
+    cells); then the fixed-point steps in turns at the first."""
+    cfg = SamplerConfig(dim=3)
+    for n, s, q in ((N3, S3, Q), (N5, S5, Q5)):
+        spatial = (s,) * 3
+        pts = _trainer_points(q, 3, seed=26)
+        cells = torch.rand((n, C_WIDE, *spatial), generator=_cuda_gen(26),
+                           device="cuda")
+        plan = tfused.make_vol_plan(pts, cells.shape, cfg)
+        g_q = torch.randn((7, C_WIDE, q), generator=_cuda_gen(27),
+                          device="cuda")
+        g_p = g_q.new_zeros((7, C_WIDE, plan[1].shape[0]))
+        g_p[:, :, plan[0]] = g_q
+
+        def planned():
+            vol = fused3b.cells_to_vol(cells)
+            fused3b.fused3b_blend_vol(vol, plan, cfg)
+            fused3b.vol_to_cells(fused3b.fused3b_bwd_vol(g_p, plan, spatial,
+                                                         cfg, n))
+
+        def v1():
+            fused_v1.fused_blend(cells, pts, cfg)
+            fused_v1.fused_bwd(g_q, pts, spatial, cfg, n)
+
+        p_ms, v_ms = _in_turns(planned, v1, reps=3)
+        routed = tfused.make_sample_plan(pts, cells.shape, cfg) is not None
+        print(f"planned route at C={C_WIDE} ({n}x{C_WIDE}x{s}^3, "
+              f"{4 * cells.numel() / 1e6:.1f} MB, Q={q}): fused3b with the "
+              f"relayout, blend + bwd {p_ms:.4f} ms; v1 blend + bwd "
+              f"{v_ms:.4f} ms; make_sample_plan routes it to "
+              f"{'fused3b' if routed else 'v1'}", flush=True)
+        if not routed:
+            raise RuntimeError("make_sample_plan gave no plan at C > 8")
+        del cells, plan, g_q, g_p
+        torch.cuda.empty_cache()
+    model = pinn.PINNConfig(dim=3, n_cells=N3, cell_dim=C_WIDE,
+                            pde="helmholtz")
+    _fixed_step_turns(f"fixed points {N3}x{C_WIDE}x{S3}^3, Q={Q},", model,
+                      _trainer_points(Q, 3, seed=26),
+                      ("planned", "unplanned"))
+
+
+def _fused3b_with_plan(cells, pts, g, cfg):
+    """fused3b blend + bwd with its plan and the relayouts built inside
+    the call, as a caller without a fixed point set would pay them."""
+    n, c, *spatial = cells.shape
+
+    def run():
+        plan = tfused.make_vol_plan(pts, cells.shape, cfg)
+        fused3b.fused3b_blend_vol(fused3b.cells_to_vol(cells), plan, cfg)
+        g_p = g.new_zeros((7, c, plan[1].shape[0]))
+        g_p[:, :, plan[0]] = g
+        fused3b.vol_to_cells(fused3b.fused3b_bwd_vol(g_p, plan,
+                                                     tuple(spatial), cfg, n))
+    return run
+
+
+# (cells, channels, cell size, points) of the 3D small-cloud sweep: the
+# stacks and clouds of path (c) and of the JAX dispatch tests, the two
+# sides of fused3d's bound (6144 / 8192 points at 50 and 8 cells), and
+# fresh points on stacks over the L2 on the two sides of each of
+# fused3s's bounds (points, stack bytes, channels, (cell, channel) planes)
+SWEEP_3D = ([(N3, C, S3, q) for q in (120, 200, 1024, 2047, 2048, 4096,
+                                      6144, 8192, 16384, Q)]
+            + [(8, C, S3, q) for q in (6144, 8192)]
+            + [(2, 2, 32, 2048)]
+            + [(16, C, 32, q) for q in (2048, 4096, 9000, 32768, Q)]
+            + [(16, C, 64, q) for q in (2048, 16384, 81920, Q)]
+            + [(8, C, 80, Q)]
+            + [(16, c, 96, Q) for c in (2, 3, C)]
+            + [(N5, C, S5, q) for q in (65536, 81920, Q, Q5)]
+            + [(n, C, S5, Q) for n in (4, 6)])
+
+
+def small_cloud_3d_sweep_phase(points=SWEEP_3D):
+    """fused3d, fused3s and fused3w (the routes of the fused op at C <= 8
+    in 3D) and fused3b with its plan built in the call, blend + bwd device
+    ms (torch.profiler, 10 calls a window) at each (N, C, S, Q) of
+    ``points``, the paths in turns (each, then the same reversed), the
+    larger turn kept (a window that loses events reads low), inputs drawn
+    on the card: the measurement behind route.FUSED3D_MAX_Q and the
+    FUSED3S_* bounds."""
+    cfg = SamplerConfig(dim=3)
+    rows = []
+    for n, c, s, q in points:
+        shape = (n, c, s, s, s)
+        gen = _cuda_gen(28)
+        cells = torch.rand(shape, generator=gen, device="cuda")
+        pts = torch.rand((q, 3), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((7, c, q), generator=gen, device="cuda")
+        paths = {"fused3d": fused3d.supports(cfg, shape),
+                 "fused3s": fused3s.supports(cfg, shape),
+                 "fused3w": True,
+                 "fused3b+plan": fused3b.supports(cfg, shape, q)}
+        runs = {k: (_fused3b_with_plan(cells, pts, g, cfg)
+                    if k == "fused3b+plan"
+                    else _pair(FUSED_MODS[k], cells, pts, g, cfg))
+                for k, ok in paths.items() if ok}
+        turns = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            turns[k].append(_device_ms(runs[k], reps=10))
+        ms = {k: max(v) for k, v in turns.items()}
+        routed = route.fused_rule(cfg, shape, q)
+        fastest = min((k for k in ms if k != "fused3b+plan"), key=ms.get)
+        rows.append((n, c, s, q, ms, routed, fastest))
+        print(f"sweep 3D ({n}x{c}x{s}^3, {4 * cells.numel() / 1e6:.1f} MB, "
+              f"Q={q}): blend + bwd device ms "
+              + ", ".join(f"{k} {v:.4f} (turns {turns[k][0]:.4f} "
+                          f"{turns[k][1]:.4f})" for k, v in ms.items())
+              + f"; fastest routable {fastest}; the rule routes {routed}",
+              flush=True)
+        del cells, pts, g, runs
+        torch.cuda.empty_cache()
+    slower = [(n, c, s, q) for n, c, s, q, _, routed, fastest in rows
+              if routed != fastest]
+    print(f"sweep 3D: the rule routes {len(slower)} of {len(rows)} points to "
+          f"a slower kernel {slower}", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def _fused_routed(name):
+    """Every fused op call routed to ``name`` while the block runs
+    (route.pick_fused replaced, then restored)."""
+    pick = route.pick_fused
+    route.pick_fused = lambda *args: name
+    try:
+        yield
+    finally:
+        route.pick_fused = pick
+
+
+def small_cloud_3d_trainer_phase():
+    """Path (c): the 3D fused trainer at 50 x 4 x 16^3 with 1024 fresh
+    points a step, at the mid volume 16 x 4 x 32^3 with 4096 and on config
+    5's 16 x 4 x 128^3 with 100 000, each through the kernels the rule
+    gives (one blend and one bwd a step, no other kernel, no plain
+    route).  For the first two, the losses against the same run on the
+    CPU (the first at LOSS_RTOL, each within GRAD_TOL) and one step's loss
+    and leaves card vs CPU; for the large volume, whose kernels are held
+    to their plain versions at this shape in fused3ds_kernel_phase, one
+    step's loss and leaves against the same step through fused3w on the
+    card."""
+    total = {}
+    for name, model, q in [
+            ("small cloud", MODEL_3D, Q_SMALL3),
+            ("mid volume", pinn.PINNConfig(dim=3, n_cells=N_MID,
+                                           cell_size=S_MID, pde="helmholtz"),
+             Q_MID),
+            ("large volume", MODEL_5, Q)]:
+        shape = (model.n_cells, model.cell_dim, *(model.cell_size,) * 3)
+        kind = route.fused_rule(model.sampler, shape, q)
+        launched = (f"{kind}_blend", f"{kind}_bwd")
+        what = (f"3D {name} {'x'.join(map(str, shape[:2]))}x"
+                f"{model.cell_size}^3, {q} points, through {kind}")
+        train_cfg = dict(model=model, batch_points=q, steps=STEPS_SMALL3,
+                         log_every=1, seed=0)
+        launches, losses = _train_checked(
+            what, TrainConfig(device="cuda", **train_cfg), STEPS_SMALL3,
+            launched, decrease=False)
+        if any(launches[k] != STEPS_SMALL3 for k in launched):
+            raise RuntimeError(f"{what}: expected one launch of each kernel "
+                               f"a step: {_nonzero(launches)}")
+        if model is not MODEL_5:
+            _, cpu = train(TrainConfig(device="cpu", **train_cfg))
+            rel = [abs(a - m["loss"]) / abs(m["loss"])
+                   for a, m in zip(losses, cpu)]
+            print(f"{what}: card vs CPU trainer losses, worst rel diff "
+                  f"{max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+            if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+                raise RuntimeError(f"{what}: card and CPU trainers disagree")
+        with PointGenerator(q, 3, seed=29) as gen:
+            pts = torch.from_numpy(gen.batch(0))
+        got = _loss_and_grads(pinn.loss_fused, model, "cuda", pts, 29)
+        if model is MODEL_5:
+            with _fused_routed("fused3w"):
+                _compare_losses(f"{what}: vs fused3w on the card", got,
+                                _loss_and_grads(pinn.loss_fused, model,
+                                                "cuda", pts, 29))
+        else:
+            _compare_losses(f"{what}: card vs plain CPU", got,
+                            _loss_and_grads(pinn.loss_fused, model, "cpu",
+                                            pts, 29))
+        for k in launched:
+            total[k] = total.get(k, 0) + launches[k]
+    if not any(total.get(k, 0) for k in ("fused3d_blend", "fused3s_blend")):
+        raise RuntimeError(f"path (c) launched neither fused3d nor fused3s: "
+                           f"{total}")
+    return total
+
+
+def fused3ds_time_phase():
+    """fused3d at path (c)'s small cloud (50 x 4 x 16^3, Q = 1024) and
+    fused3s at its large volume (16 x 4 x 128^3, Q = 100 000): kernel and
+    plain ms in turns (CUDA events; fused3s's each include a z sort),
+    device ms (torch.profiler), bounds, and the z sort alone; fused3b at
+    C = 16 on config 5 beside its bound."""
+    times = {}
+    cfg = SamplerConfig(dim=3)
+    for kind, n, s, q in (("fused3d", N3, S3, Q_SMALL3),
+                          ("fused3s", N5, S5, Q)):
+        mod = FUSED_MODS[kind]
+        spatial = (s,) * 3
+        cells, pts, g = _fused_inputs(n, C, spatial, q, seed=30, lo=-1.0,
+                                     hi=1.0)
+        # 7 rows x 8 corners x C FMAs per (cell, query); the blend reads
+        # the distinct cell values its corners touch and the points and
+        # writes (7, C, Q); the bwd reads the cotangent and the points and
+        # writes the whole cells cotangent
+        flops = 2 * 7 * 8 * n * C * q
+        touched = _touched_values(cells, pts.reshape(1, 1, 1, q, 3), cfg)
+        ops = {
+            f"{kind}_blend": (lambda: mod.fused_blend(cells, pts, cfg),
+                              lambda: mod.plain_fused_blend(cells, pts, cfg),
+                              4 * (touched + 3 * q + 7 * C * q)),
+            f"{kind}_bwd": (lambda: mod.fused_bwd(g, pts, spatial, cfg, n),
+                            lambda: mod.plain_fused_bwd(g, pts, spatial, cfg,
+                                                        n),
+                            4 * (7 * C * q + 3 * q + n * C * s ** 3)),
+        }
+        for name, (kernel, plain, nbytes) in ops.items():
+            bound_ms, bound_by = _bound(nbytes, flops)
+            ms, plain_ms = _in_turns(kernel, plain, reps=5)
+            dev_ms = _device_ms(kernel)
+            times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None,
+                               device_ms=dev_ms)
+            print(f"time {name} ({n}x{C}x{s}^3, Q={q}): kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+                  f"it; no library call computes it", flush=True)
+        if kind == "fused3s":
+            sort_ms = _device_ms(lambda: fused3s.zsort(pts, s, cfg))
+            print(f"time fused3s's z sort alone (Q={q}): device {sort_ms:.4f}"
+                  f" ms", flush=True)
+        del cells, pts, g
+        torch.cuda.empty_cache()
+    spatial = (S5,) * 3
+    pts = _trainer_points(Q5, 3)
+    cells = torch.rand((N5, C_WIDE, *spatial), generator=_cuda_gen(31),
+                       device="cuda")
+    vol = fused3b.cells_to_vol(cells)
+    del cells
+    plan = tfused.make_vol_plan(pts, (N5, C_WIDE, *spatial), cfg)
+    qp = plan[1].shape[0]
+    g_p = torch.randn((7, C_WIDE, qp), generator=_cuda_gen(32),
+                      device="cuda")
+    flops = 2 * 7 * 8 * C_WIDE * N5 * Q5
+    vol_bytes = 4 * N5 * C_WIDE * S5 ** 3
+    plan_bytes = 4 * (3 * Q5 + qp + plan[4].numel())
+    for name, fn, nbytes in [
+            ("fused3b_blend", lambda: fused3b.fused3b_blend_vol(vol, plan,
+                                                                 cfg),
+             vol_bytes + plan_bytes + 4 * 7 * C_WIDE * qp),
+            ("fused3b_bwd", lambda: fused3b.fused3b_bwd_vol(
+                g_p, plan, spatial, cfg, N5),
+             4 * 7 * C_WIDE * Q5 + plan_bytes + vol_bytes)]:
+        ms = _time_ms(fn, 5)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        print(f"time {name} at config 5, C={C_WIDE} ({N5}x{C_WIDE}x{S5}^3, "
+              f"Q={Q5}): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of it", flush=True)
+    del vol, g_p
+    torch.cuda.empty_cache()
+    _fixed_step_turns(f"config 5 C={C_WIDE}", MODEL_5W, pts, ("vol",), plan)
+    return times
 
 
 def plain_route_phase():
@@ -1514,7 +1966,9 @@ def nested_3d_phase():
 
 def fused_3d_phase():
     """The default (fused) 3D trainer: fused3w_blend / fused3w_bwd once a
-    step each."""
+    step each (the rule's route at 100 000 points)."""
+    if route.fused_rule(MODEL_3D.sampler, (N3, C, S3, S3, S3), Q) != "fused3w":
+        raise RuntimeError("the 3D main path should route to fused3w")
     launches, _ = _train_checked(
         f"fused 3D {N3}x{C}x{S3}^3, {Q} points",
         TrainConfig(model=MODEL_3D, device="cuda", steps=STEPS_3D,
@@ -1558,9 +2012,9 @@ def _vol_loss_and_grads(cfg, device, pts, seed):
 def vol_trainer_phase():
     """The vol-resident trainer at BASELINE config 5: one fused3b_blend and
     one fused3b_bwd launch a step and no other kernel; its losses are the
-    query-ordered fused3w trainer's on the same fixed points, the first at
-    rtol LOSS_RTOL and each within GRAD_TOL relative.  Then card vs CPU
-    at 5 x 3 x 6^3, Q = 120."""
+    query-ordered fused trainer's on the same fixed points (through the
+    rule's route there, fused3s), the first at rtol LOSS_RTOL and each
+    within GRAD_TOL relative.  Then card vs CPU at 5 x 3 x 6^3, Q = 120."""
     launches, losses = _train_checked(
         f"vol-resident {N5}x{C}x{S5}^3, {Q5} points",
         TrainConfig(model=MODEL_5, device="cuda", batch_points=Q5,
@@ -1573,17 +2027,18 @@ def vol_trainer_phase():
     _reset_counts()
     ref = _fixed_point_losses(MODEL_5, Q5, STEPS_VOL)
     ref_launches = _counts()
-    if (ref_launches["fused3w_blend"] != STEPS_VOL
+    kind = route.fused_rule(MODEL_5.sampler, (N5, C, S5, S5, S5), Q5)
+    if (ref_launches[f"{kind}_blend"] != STEPS_VOL
             or ref_launches["fused3b_blend"] != 0):
-        raise RuntimeError(f"the fused3w trainer took another route: "
-                           f"{ref_launches}")
+        raise RuntimeError(f"the query-ordered trainer took another route "
+                           f"than {kind}: {_nonzero(ref_launches)}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
-    print(f"vol-resident vs fused3w trainer losses on the same fixed points: "
-          f"{' '.join(f'{v:.8g}' for v in ref)} (fused3w); worst rel diff "
-          f"{max(rel):.3e}, first {rel[0]:.3e}; the (D, H, W, N, C) volume "
-          f"has no pad slots", flush=True)
+    print(f"vol-resident vs query-ordered ({kind}) trainer losses on the same "
+          f"fixed points: {' '.join(f'{v:.8g}' for v in ref)} ({kind}); "
+          f"worst rel diff {max(rel):.3e}, first {rel[0]:.3e}; the "
+          f"(D, H, W, N, C) volume has no pad slots", flush=True)
     if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
-        raise RuntimeError("vol-resident and fused3w trainers disagree")
+        raise RuntimeError(f"vol-resident and {kind} trainers disagree")
     cfg = pinn.PINNConfig(dim=3, n_cells=5, cell_dim=3, cell_size=6,
                           pde="helmholtz")
     with PointGenerator(120, 3, seed=7) as gen:
@@ -1739,21 +2194,23 @@ def sparse_and_2d_phase():
 
 def nested_vol_step_phase():
     """Median ms of the nested 128^3 train step (fresh points, CUDA events,
-    1 warm-up and 3 timed steps) with every call routed to percell,
-    blend_o / splat_o and slab, in turns."""
+    1 warm-up and 3 timed steps) with every call routed to percell and to
+    blend_o / splat_o, in turns, and one timed step routed to slab (some
+    1.5 s a step)."""
     with PointGenerator(QN, 3, seed=31) as gen:
         batches = [torch.from_numpy(gen.batch(i)).cuda() for i in range(4)]
-    kinds = ("percell", "blend_o", "slab")
+    kinds = ("percell", "blend_o")
     runs = []
-    for kind in kinds + kinds[::-1]:
+    for kind, steps in [(k, batches) for k in kinds + kinds[::-1]] + [
+            ("slab", batches[:2])]:
         with _routed(kind):
             params = pinn.init_params(torch.Generator().manual_seed(0),
                                       MODEL_NV, "cuda")
             step = pinn.make_train_step(
                 MODEL_NV, torch.optim.Adam(params.values(), lr=1e-3))
-            step(params, batches[0])
+            step(params, steps[0])
             times = []
-            for pts in batches[1:]:
+            for pts in steps[1:]:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -1764,10 +2221,11 @@ def nested_vol_step_phase():
         runs.append((kind, statistics.median(times)))
         del params, step
         torch.cuda.empty_cache()
-    for kind in kinds:
+    for kind in kinds + ("slab",):
         ms = [m for k, m in runs if k == kind]
-        print(f"step nested 128^3 routed to {kind}: {sum(ms) / 2:.2f} ms "
-              f"(turns {ms[0]:.2f} {ms[1]:.2f})", flush=True)
+        print(f"step nested 128^3 routed to {kind}: "
+              f"{sum(ms) / len(ms):.2f} ms (turns "
+              f"{' '.join(f'{m:.2f}' for m in ms)})", flush=True)
 
 
 def launch_breakdown_phase():
@@ -1851,7 +2309,8 @@ def reference_phase():
     cfg3 = pinn.PINNConfig(dim=3, n_cells=8, cell_size=S3, pde="helmholtz")
     with PointGenerator(4096, 3, seed=6) as gen:
         pts3 = torch.from_numpy(gen.batch(0))
-    _compare_losses("reference fused 3D: fused3w on the card vs plain CPU",
+    kind = route.fused_rule(cfg3.sampler, (8, C, S3, S3, S3), 4096)
+    _compare_losses(f"reference fused 3D: {kind} on the card vs plain CPU",
                     _loss_and_grads(pinn.loss_fused, cfg3, "cuda", pts3, 6),
                     _loss_and_grads(pinn.loss_fused, cfg3, "cpu", pts3, 6))
 
@@ -2062,15 +2521,15 @@ def fused3b_time_phase():
     del cells, vol, g_p, g_q
     torch.cuda.empty_cache()
 
-    _fixed_step_turns("config 5", MODEL_5, pts, ("vol", "planned", "fused3w"),
-                      plan)
+    _fixed_step_turns("config 5", MODEL_5, pts,
+                      ("vol", "planned", "unplanned"), plan)
     return times
 
 
 def _fixed_step(model, pts, kind, plan=None):
     """One fixed-point train step of ``kind``: "vol" (vol-resident, on
     ``plan``), "planned" (make_sample_plan's plan, per-call relayout) or
-    "fused3w" (query order, no plan)."""
+    "unplanned" (query order, no plan: the fused op's route)."""
     params = pinn.init_params(_cuda_gen(0), model, "cuda")
     step_plan = None
     if kind == "vol":
@@ -2116,10 +2575,13 @@ def _fixed_step_turns(what, model, pts, kinds, plan=None):
         runs.append((kind, *_fixed_step_median(run)))
         del run
         torch.cuda.empty_cache()
+    shape = (model.n_cells, model.cell_dim, *(model.cell_size,) * model.dim)
     for kind in kinds:
         ms = [m for k, m, _ in runs if k == kind]
         peak = max(p for k, _, p in runs if k == kind)
-        print(f"step {what} {kind}: {sum(ms) / 2:.4f} ms (turns "
+        label = (kind if kind in ("vol", "planned") else f"{kind} "
+                 f"({route.fused_rule(model.sampler, shape, pts.shape[0])})")
+        print(f"step {what} {label}: {sum(ms) / 2:.4f} ms (turns "
               f"{ms[0]:.4f} {ms[1]:.4f}); peak device memory {peak:.3f} GiB",
               flush=True)
 
@@ -2167,7 +2629,8 @@ def route_phase():
             _fixed_step_turns(
                 f"fixed points {n}x{C}x{s}^3, Q={q},",
                 pinn.PINNConfig(dim=3, n_cells=n, cell_size=s,
-                                pde="helmholtz"), pts, ("planned", "fused3w"))
+                                pde="helmholtz"), pts,
+                ("planned", "unplanned"))
 
 
 def _median_step_ms(cfg, batches, **step_kw):
@@ -2217,25 +2680,36 @@ def step_phase():
                 (MODEL_3D, dict(fused=True)), batches3)
 
 
+def _timed(fn, *args):
+    """``fn(*args)``, its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
+    t0 = time.perf_counter()
     card = device_phase()
-    build_phase()
-    errs, times = kernel_phase()
-    errs.update(v1_kernel_phase())
-    points_cotangent_phase()
-    errs["mega2w"] = mega_kernel_phase()
-    errs.update(fused3w_kernel_phase())
-    errs.update(fused3b_kernel_phase())
-    errs.update(pc_slab_kernel_phase())
-    launches, fused_losses = fused_trainer_phase()
-    mega = mega_trainer_phase(fused_losses)
-    nested = nested_trainer_phase()
-    launch_breakdown_phase()
-    nested_3d_phase()
-    fused3 = fused_3d_phase()
-    vol = vol_trainer_phase()
-    nested_vol = nested_vol_trainer_phase()
-    per_cell = [per_cell_chain_phase(), *sparse_and_2d_phase().values()]
+    _timed(build_phase)
+    errs, times = _timed(kernel_phase)
+    errs.update(_timed(v1_kernel_phase))
+    _timed(points_cotangent_phase)
+    errs["mega2w"] = _timed(mega_kernel_phase)
+    errs.update(_timed(fused3w_kernel_phase))
+    errs.update(_timed(fused3b_kernel_phase))
+    errs.update(_timed(pc_slab_kernel_phase))
+    launches, fused_losses = _timed(fused_trainer_phase)
+    mega = _timed(mega_trainer_phase, fused_losses)
+    nested = _timed(nested_trainer_phase)
+    _timed(launch_breakdown_phase)
+    _timed(nested_3d_phase)
+    fused3 = _timed(fused_3d_phase)
+    vol = _timed(vol_trainer_phase)
+    nested_vol = _timed(nested_vol_trainer_phase)
+    per_cell = [_timed(per_cell_chain_phase),
+                *_timed(sparse_and_2d_phase).values()]
     launches.update({k: nested_vol[k] for k in ("percell_blend",
                                                 "percell_splat")})
     launches.update({k: sum(run.get(k, 0) for run in per_cell)
@@ -2246,30 +2720,45 @@ def main():
                     fused3w_bwd=fused3["fused3w_bwd"],
                     fused3b_blend=vol["fused3b_blend"],
                     fused3b_bwd=vol["fused3b_bwd"])
-    errs.update(fused_v1_kernel_phase())
-    errs.update(fused2d_kernel_phase())
-    launches.update({k: v for k, v in wide_trainer_phase().items()
+    errs.update(_timed(fused_v1_kernel_phase))
+    errs.update(_timed(fused2d_kernel_phase))
+    launches.update({k: v for k, v in _timed(wide_trainer_phase).items()
                      if k in ("fused_blend", "fused_bwd")})
-    small_launches, _ = small_cloud_sweep_phase()
+    small_launches, _ = _timed(small_cloud_sweep_phase)
     launches.update(fused2d_blend=small_launches["fused2d_blend"],
                     fused2d_bwd=small_launches["fused2d_bwd"])
-    plain_route_phase()
-    nested_vs_fused_phase()
-    reference_phase()
-    times.update(v1_time_phase())
-    times.update(mega_fused3w_time_phase())
-    times.update(fused3b_time_phase())
-    times.update(pc_slab_time_phase())
-    route_phase()
-    step_phase()
-    nested_vol_step_phase()
-    times.update(wide_time_phase())
-    wide_step_phase()
-    tf32_phase()
+    errs.update(_timed(fused3ds_kernel_phase))
+    _timed(fused3b_wide_kernel_phase)
+    _timed(vol_wide_trainer_phase)
+    _timed(planned_wide_phase)
+    _timed(small_cloud_3d_sweep_phase)
+    path_c = _timed(small_cloud_3d_trainer_phase)
+    launches.update({k: path_c.get(k, 0) for k in (
+        "fused3d_blend", "fused3d_bwd", "fused3s_blend", "fused3s_bwd")})
+    _timed(plain_route_phase)
+    _timed(nested_vs_fused_phase)
+    _timed(reference_phase)
+    times.update(_timed(v1_time_phase))
+    times.update(_timed(mega_fused3w_time_phase))
+    times.update(_timed(fused3b_time_phase))
+    times.update(_timed(pc_slab_time_phase))
+    _timed(route_phase)
+    _timed(step_phase)
+    _timed(nested_vol_step_phase)
+    times.update(_timed(wide_time_phase))
+    times.update(_timed(fused3ds_time_phase))
+    _timed(wide_step_phase)
+    _timed(tf32_phase)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}
                for name in REPLACES]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise RuntimeError(f"a kernel of the main paths never launched: "
+                           f"{idle}")
+    print(f"chip_smoke.py: all phases in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

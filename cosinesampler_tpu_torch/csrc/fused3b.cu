@@ -17,7 +17,8 @@
 //   bwd:   g (7, C, QP) f32 -> dvol (D, H, W, N, C), the transpose; slots
 //          with occ == 0 add nothing.  dvol must be zeroed.
 // All three padding modes and interpolants, multicell on and off, both
-// align_corners; a corner out of bounds reads zero and is never written.
+// align_corners, any C; a corner out of bounds reads zero and is never
+// written.
 //
 // What bounds them on the H100 SXM (its data sheet's peaks at the 700 W
 // power limit: 67 TFLOP/s f32, 3.35 TB/s), and the design:
@@ -33,6 +34,12 @@
 // * The layout keeps one texel's N * C values together, so a query reads
 //   a cell's C channels at a corner as one 16-byte load at C = 4 (and adds
 //   them back with one vector atomic in the bwd).
+// * Channels: grid axis y walks channel groups of at most 8
+//   (fused_rows.cuh channel_groups / group_width, as csrc/fused.cu), whose
+//   rows a thread keeps in registers; one group, the whole stack, up to 8
+//   channels.  A group of a multiple of 4 channels in a stack of a
+//   multiple of 4 starts 16-byte aligned and keeps the vector loads and
+//   atomics (C = 16: two groups of 8).
 // * blend: one CUDA block per plan block, one thread per slot, looping
 //   over the N cells with the per-query corner walk of fused_rows.cuh in
 //   its FMA order (the slot's rows equal fused3w_blend's for the same
@@ -58,105 +65,130 @@ namespace {
 // the plan's q_block: one CUDA block of this many threads per plan block
 constexpr int kQBlock = 128;
 
-// v[k] = src[k], k < C; 16-byte loads when C is a multiple of 4 (the
-// offset (texel * N + cell) * C is then 16-byte aligned).
-template <int C>
+// v[k] = src[k], k < cg (cg <= G); 16-byte loads when the group is
+// full and G and the stack's channel count are multiples of 4 (the offset
+// (texel * N + cell) * C + c0 is then 16-byte aligned).
+template <int G>
 __device__ __forceinline__ void load_channels(const float* __restrict__ src,
-                                              float (&v)[C]) {
-  if constexpr (C % 4 == 0) {
+                                              bool vec, int cg,
+                                              float (&v)[G]) {
+  if constexpr (G % 4 == 0) {
+    if (vec) {
 #pragma unroll
-    for (int k = 0; k < C; k += 4) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(src + k));
-      v[k] = q.x;
-      v[k + 1] = q.y;
-      v[k + 2] = q.z;
-      v[k + 3] = q.w;
+      for (int k = 0; k < G; k += 4) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src + k));
+        v[k] = q.x;
+        v[k + 1] = q.y;
+        v[k + 2] = q.z;
+        v[k + 3] = q.w;
+      }
+      return;
     }
-  } else {
-#pragma unroll
-    for (int k = 0; k < C; ++k) v[k] = __ldg(src + k);
   }
+#pragma unroll
+  for (int k = 0; k < G; ++k) v[k] = k < cg ? __ldg(src + k) : 0.0f;
 }
 
-// dst[k] += v[k], k < C, atomically; vector atomics when C is a multiple
-// of 4.
-template <int C>
-__device__ __forceinline__ void add_channels(float* dst, const float (&v)[C]) {
-  if constexpr (C % 4 == 0) {
+// dst[k] += v[k], k < cg, atomically; vector atomics where load_channels
+// loads vectors.
+template <int G>
+__device__ __forceinline__ void add_channels(float* dst, bool vec, int cg,
+                                             const float (&v)[G]) {
+  if constexpr (G % 4 == 0) {
+    if (vec) {
 #pragma unroll
-    for (int k = 0; k < C; k += 4)
-      atomicAdd(reinterpret_cast<float4*>(dst + k),
-                make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < C; ++k) atomicAdd(dst + k, v[k]);
+      for (int k = 0; k < G; k += 4)
+        atomicAdd(reinterpret_cast<float4*>(dst + k),
+                  make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+      return;
+    }
   }
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    if (k < cg) atomicAdd(dst + k, v[k]);
 }
 
-template <int C>
+// Block (bx, by): plan block bx, channels [by * G, by * G + cg) of c.
+// ONE: c == G, one group (C <= 8), whose channel count, width and vector
+// loads are compile-time constants.
+template <int G, bool ONE>
 __global__ void __launch_bounds__(kQBlock)
     blend_kernel(const float* __restrict__ vol, const float* __restrict__ pts,
                  const float* __restrict__ occ, const int* __restrict__ hasv,
-                 float* __restrict__ out, int n, csm::CellGeom<3> g, int qp,
-                 csm::SamplerParams p) {
+                 float* __restrict__ out, int n, int c, csm::CellGeom<3> g,
+                 int qp, csm::SamplerParams p) {
   constexpr int R = csm::kRows<3>;
   const int slot = blockIdx.x * kQBlock + threadIdx.x;
-  float acc[R][C];
+  const int cs = ONE ? G : c;
+  const int c0 = ONE ? 0 : blockIdx.y * G;
+  const int cg = ONE ? G : min(G, c - c0);
+  const bool vec = ONE ? G % 4 == 0 : cg == G && c % 4 == 0;
+  float acc[R][G];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
+    for (int j = 0; j < G; ++j) acc[r][j] = 0.0f;
   if (hasv[blockIdx.x] != 0 && occ[slot] != 0.0f) {
     const float pt[3] = {pts[3 * slot], pts[3 * slot + 1], pts[3 * slot + 2]};
     for (int ni = 0; ni < n; ++ni) {
       csm::for_each_corner<3>(
           g, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-            float v[C];
-            load_channels<C>(vol + (static_cast<int64_t>(idx) * n + ni) * C,
-                             v);
+            float v[G];
+            load_channels<G>(
+                vol + (static_cast<int64_t>(idx) * n + ni) * cs + c0, vec, cg,
+                v);
 #pragma unroll
-            for (int c = 0; c < C; ++c)
+            for (int j = 0; j < G; ++j)
 #pragma unroll
               for (int r = 0; r < R; ++r)
-                acc[r][c] = fmaf(wr[r], v[c], acc[r][c]);
+                acc[r][j] = fmaf(wr[r], v[j], acc[r][j]);
           });
     }
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      out[static_cast<int64_t>(r * C + c) * qp + slot] = acc[r][c];
+    for (int j = 0; j < G; ++j)
+      if (j < cg)
+        out[static_cast<int64_t>(r * cs + c0 + j) * qp + slot] = acc[r][j];
 }
 
-template <int C>
+template <int G, bool ONE>
 __global__ void __launch_bounds__(kQBlock)
     bwd_kernel(const float* __restrict__ g, const float* __restrict__ pts,
                const float* __restrict__ occ, const int* __restrict__ hasv,
-               float* __restrict__ dvol, int n, csm::CellGeom<3> geom, int qp,
-               csm::SamplerParams p) {
+               float* __restrict__ dvol, int n, int c, csm::CellGeom<3> geom,
+               int qp, csm::SamplerParams p) {
   constexpr int R = csm::kRows<3>;
   const int slot = blockIdx.x * kQBlock + threadIdx.x;
   if (hasv[blockIdx.x] == 0 || occ[slot] == 0.0f) return;
-  float gv[R][C];
+  const int cs = ONE ? G : c;
+  const int c0 = ONE ? 0 : blockIdx.y * G;
+  const int cg = ONE ? G : min(G, c - c0);
+  const bool vec = ONE ? G % 4 == 0 : cg == G && c % 4 == 0;
+  float gv[R][G];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      gv[r][c] = __ldg(g + static_cast<int64_t>(r * C + c) * qp + slot);
+    for (int j = 0; j < G; ++j)
+      gv[r][j] =
+          j < cg ? __ldg(g + static_cast<int64_t>(r * cs + c0 + j) * qp + slot)
+                 : 0.0f;
   const float pt[3] = {pts[3 * slot], pts[3 * slot + 1], pts[3 * slot + 2]};
   for (int ni = 0; ni < n; ++ni) {
     csm::for_each_corner<3>(
         geom, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-          float v[C];
+          float v[G];
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
+          for (int j = 0; j < G; ++j) {
             float s = 0.0f;
 #pragma unroll
-            for (int r = 0; r < R; ++r) s = fmaf(wr[r], gv[r][c], s);
-            v[c] = s;
+            for (int r = 0; r < R; ++r) s = fmaf(wr[r], gv[r][j], s);
+            v[j] = s;
           }
-          add_channels<C>(dvol + (static_cast<int64_t>(idx) * n + ni) * C, v);
+          add_channels<G>(
+              dvol + (static_cast<int64_t>(idx) * n + ni) * cs + c0, vec, cg,
+              v);
         });
   }
 }
@@ -171,16 +203,18 @@ int fused3b_blend(const void* vol, const void* pts, const void* occ,
                   int multicell, int strict, float off_step, float off_stop,
                   void* stream) {
   if (qp % kQBlock != 0) return cudaErrorInvalidValue;
+  if (qp == 0 || c == 0) return cudaGetLastError();
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    constexpr int C = decltype(cc)::value;
-    if (qp == 0) return cudaGetLastError();
-    blend_kernel<C><<<qp / kQBlock, kQBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(qp / kQBlock, csm::channel_groups(c));
+  return csm::dispatch_channels(csm::group_width(c), [&](auto gw) {
+    constexpr int G = decltype(gw)::value;
+    auto* kernel_fn = c == G ? &blend_kernel<G, true>
+                             : &blend_kernel<G, false>;
+    kernel_fn<<<grid, kQBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(vol), static_cast<const float*>(pts),
         static_cast<const float*>(occ), static_cast<const int*>(hasv),
-        static_cast<float*>(out), n, csm::cell_geom3(d, h, w), qp, p);
+        static_cast<float*>(out), n, c, csm::cell_geom3(d, h, w), qp, p);
     return cudaGetLastError();
   });
 }
@@ -192,16 +226,18 @@ int fused3b_bwd(const void* g, const void* pts, const void* occ,
                 int multicell, int strict, float off_step, float off_stop,
                 void* stream) {
   if (qp % kQBlock != 0) return cudaErrorInvalidValue;
+  if (qp == 0 || n == 0 || c == 0) return cudaGetLastError();
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    constexpr int C = decltype(cc)::value;
-    if (qp == 0 || n == 0) return cudaGetLastError();
-    bwd_kernel<C><<<qp / kQBlock, kQBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(qp / kQBlock, csm::channel_groups(c));
+  return csm::dispatch_channels(csm::group_width(c), [&](auto gw) {
+    constexpr int G = decltype(gw)::value;
+    auto* kernel_fn = c == G ? &bwd_kernel<G, true>
+                             : &bwd_kernel<G, false>;
+    kernel_fn<<<grid, kQBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(g), static_cast<const float*>(pts),
         static_cast<const float*>(occ), static_cast<const int*>(hasv),
-        static_cast<float*>(dvol), n, csm::cell_geom3(d, h, w), qp, p);
+        static_cast<float*>(dvol), n, c, csm::cell_geom3(d, h, w), qp, p);
     return cudaGetLastError();
   });
 }

@@ -252,8 +252,8 @@ def _fused_vol_for(cfg: PINNConfig, n_queries: int):
         raise ValueError(
             "vol_resident training requires a config and shape that the "
             "bricked 3D kernels take (ops/cuda/fused3b.py supports: 3D, at "
-            "most 8 channels, at least 2 queries per bin, not "
-            "backend='xla'); this one does not")
+            "least 2 queries per bin, not backend='xla'); this one does "
+            "not")
     return ops
 
 

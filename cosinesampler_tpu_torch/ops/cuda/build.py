@@ -109,11 +109,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
-    for fn in (lib.fused3w_blend, lib.fused3w_bwd, lib.fused_v1_blend3,
-               lib.fused_v1_bwd3):
+    for fn in (lib.fused3w_blend, lib.fused3w_bwd, lib.fused3d_blend,
+               lib.fused3d_bwd, lib.fused_v1_blend3, lib.fused_v1_bwd3):
         # 3 data pointers; n, c, d, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
+        fn.restype = i32
+    for fn in (lib.fused3s_blend, lib.fused3s_bwd):
+        # cells or g, points, perm, table, out; n, c, d, h, w, q, table
+        # blocks, kernel, padding, align, multicell, strict; the offset
+        # lattice's step and stop; the stream
+        fn.argtypes = [ptr] * 5 + [i32] * 12 + [f32, f32, ptr]
         fn.restype = i32
     for fn in (lib.fused3b_blend, lib.fused3b_bwd):
         # vol or g, slot points, occ, hasv, out; n, c, d, h, w, qp, kernel,

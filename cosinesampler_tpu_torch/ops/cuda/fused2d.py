@@ -12,11 +12,12 @@ PERF.md section 4).
   ``plain_fused_bwd``, the same function; they are the oracle the kernels
   are held to.
 * ``fused_blend`` / ``fused_bwd`` wrap the hand-written CUDA kernels in
-  csrc/fused2d.cu, which serve each block's queries from a chunk of cells
-  staged in shared memory.  A tensor on the CPU takes the plain version; a
-  CUDA tensor launches the kernel on the current stream, or raises for
-  what the kernel does not take (``supports``).  Each wrapper counts its
-  launches in its ``launches`` attribute.
+  csrc/fused2d.cu (their body is csrc/staged_cells.cuh), which serve each
+  block's queries from a chunk of cells staged in shared memory.  A
+  tensor on the CPU takes the plain version; a CUDA tensor launches the
+  kernel on the current stream, or raises for what the kernel does not
+  take (``supports``).  Each wrapper counts its launches in its
+  ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -31,21 +32,26 @@ from .build import BLOCK_SMEM_BYTES
 from .fused2w import (kernel_blend, kernel_bwd, plain_fused_blend,
                       plain_fused_bwd)
 
-__all__ = ["fused_blend", "fused_bwd", "plain_fused_blend", "plain_fused_bwd",
-           "supports"]
+__all__ = ["fused_blend", "fused_bwd", "group_width", "plain_fused_blend",
+           "plain_fused_bwd", "supports"]
+
+
+def group_width(c: int, most: int = 8) -> int:
+    """The width of the channel groups the channel-looped kernels walk:
+    csrc/fused_rows.cuh ``group_width`` (kGroupChannels = 8), as few equal
+    groups as hold ``most`` channels each."""
+    groups = max(1, -(-c // most))
+    return -(-c // groups)
 
 
 def supports(cfg: SamplerConfig, cells_shape) -> bool:
     """2D cells whose channel group of one cell fits a block's shared
-    memory.  The groups mirror csrc/fused_rows.cuh ``channel_groups`` /
-    ``group_width`` (kGroupChannels = 8), the rule's one statement, which
-    csrc/fused2d.cu ``make_plan`` checks against the device's limit."""
+    memory, the rule csrc/staged_cells.cuh ``make_plan`` checks against the
+    device's limit."""
     if cfg.dim != 2 or len(cells_shape) != 4:
         return False
-    c = cells_shape[1]
-    groups = max(1, -(-c // 8))
-    width = -(-c // groups)
-    return 4 * width * math.prod(cells_shape[2:]) <= BLOCK_SMEM_BYTES
+    return (4 * group_width(cells_shape[1]) * math.prod(cells_shape[2:])
+            <= BLOCK_SMEM_BYTES)
 
 
 def _check(cfg: SamplerConfig, cells_shape) -> None:

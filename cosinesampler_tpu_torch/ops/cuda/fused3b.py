@@ -56,9 +56,6 @@ GY = 2
 # fewest queries per bin the route takes (fused3b._MIN_Q_PER_BIN): below
 # it the padding blocks outnumber the real ones
 MIN_Q_PER_BIN = 2
-# channel counts the kernels are instantiated for (csrc/fused_rows.cuh
-# dispatch_channels)
-MAX_CHANNELS = 8
 
 
 def _geom(d: int, h: int, gy: int):
@@ -72,14 +69,13 @@ def _geom(d: int, h: int, gy: int):
 
 def supports(cfg: SamplerConfig, cells_shape, n_queries=None) -> bool:
     """Whether the bricked kernels take this config and (N, C, D, H, W)
-    shape: 3D, any padding, at most MAX_CHANNELS channels, and at least
+    shape: 3D, any padding, any channel count (csrc/fused3b.cu walks
+    channel groups of at most 8 on a grid axis), and at least
     MIN_Q_PER_BIN queries per bin.  The TPU kernel's VMEM and lane gates
     do not apply on the card."""
     if cfg.dim != 3 or len(cells_shape) != 5:
         return False
-    _, c, d, h, _ = cells_shape
-    if c > MAX_CHANNELS:
-        return False
+    _, _, d, h, _ = cells_shape
     nbins = _geom(d, h, GY)[2]
     return n_queries is None or n_queries >= MIN_Q_PER_BIN * nbins
 
@@ -225,10 +221,6 @@ def _launch(entry: str, first: torch.Tensor, plan, out: torch.Tensor,
                          f"volume; got dim {cfg.dim}, {tuple(vol_shape)}")
     d, h, w, n, c = vol_shape
     lib = load_kernels()
-    if c > lib.fused2w_max_channels():
-        raise NotImplementedError(
-            f"the CUDA kernels take at most {lib.fused2w_max_channels()} "
-            f"channels, got {c}")
     if math.prod(vol_shape) >= 2**31:
         raise ValueError("volume too large for the kernels' 32-bit indexing")
     with torch.cuda.device(out.device):

@@ -20,11 +20,12 @@ to XLA: f64 tensors, and tensors whose element counts pass the kernels'
 32-bit indexing.  ``sampler_rule`` makes that decision for the public
 sampler and ``fused_rule`` for the fused op (ops/fused.py), after the JAX
 package's ``_fused_blend`` / ``_fused_bwd`` order: plain; fused2d or
-fused2w in 2D and fused3w in 3D up to ``FUSED_MAX_CHANNELS`` channels; the
-channel-looped v1 kernels (B6, ops/cuda/fused.py) above.  Both are pure
-functions of facts known before any launch (device type, dtypes, element
-counts, channels, config), and ``pick`` / ``pick_fused`` apply them to a
-call's tensors: no route switches after a failed build or launch.
+fused2w in 2D and fused3d, fused3s or fused3w in 3D up to
+``FUSED_MAX_CHANNELS`` channels; the channel-looped v1 kernels (B6,
+ops/cuda/fused.py) above.  Both are pure functions of facts known before
+any launch (device type, dtypes, element counts, channels, config), and
+``pick`` / ``pick_fused`` apply them to a call's tensors: no route
+switches after a failed build or launch.
 ``run_plain`` runs the plain route and counts its calls in
 ``run_plain.launches``.
 
@@ -41,7 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import SamplerConfig
-from . import blend_splat, fused2d, percell, slab
+from . import blend_splat, fused2d, fused3d, fused3s, percell, slab
 from .build import BLOCK_SMEM_BYTES
 
 __all__ = ["GridPlans", "blend", "fused_rule", "pick", "pick_fused", "rule",
@@ -71,6 +72,26 @@ FUSED_MAX_CHANNELS = 8
 # it lost by 27%: the pair bound stops below both.
 FUSED2D_MAX_Q = 3584
 FUSED2D_MAX_PAIRS = 1 << 17
+# in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q queries where a
+# cell's channel group fits shared memory (fused3d.supports); fused3s, in
+# zeros and border padding, at FUSED3S_MIN_Q queries or more over a stack
+# of FUSED3S_MIN_STACK_BYTES or more with FUSED3S_MIN_CHANNELS channels
+# and FUSED3S_MIN_PLANES (cell, channel) planes or more; fused3w
+# otherwise: each the last point where the kernel won in chip_smoke.py's
+# sweep (PERF.md section 4).  fused3d won at 6144 points at 8 and 50
+# cells; at 8192 it lost at 8 cells and tied at 50.  fused3s (at 16 x 4
+# x S^3 unless named) won at 81 920 points on 96^3 and 128^3 and lost at
+# 65 536; won at 100 000 on 64^3 (67 MB, by 2%; it loses there at 81 920,
+# the one point the rule sends to the slower kernel) and lost on 8 x 4 x
+# 80^3 (65.5 MB); won on 16 x 3 x 96^3 and lost on 16 x 2 x 96^3; won on
+# 6 x 4 x 128^3 and lost on 4 x 4 x 128^3.  Its sort costs ~0.15 ms at
+# 100 000 points, which a stack that L2 holds or a thin one (few cells or
+# channels a query) does not pay back.
+FUSED3D_MAX_Q = 6144
+FUSED3S_MIN_Q = 81_920
+FUSED3S_MIN_STACK_BYTES = 16 * 4 * 64**3 * 4
+FUSED3S_MIN_CHANNELS = 3
+FUSED3S_MIN_PLANES = 24
 
 
 def rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
@@ -148,8 +169,13 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     dtype of its tensors: ``"plain"`` for CUDA calls no fused kernel takes
     (a dtype other than f32; strict reference in 2D with align_corners off,
     whose rows mix alignments; a tensor over the 32-bit indexing); else
-    ``"fused"`` (the v1 kernels) above FUSED_MAX_CHANNELS channels,
-    ``"fused3w"`` in 3D, and in 2D ``"fused2d"`` up to FUSED2D_MAX_Q
+    ``"fused"`` (the v1 kernels) above FUSED_MAX_CHANNELS channels; in 3D
+    ``"fused3d"`` up to FUSED3D_MAX_Q queries where its chunks fit shared
+    memory (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
+    more over stacks of FUSED3S_MIN_STACK_BYTES or more,
+    FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
+    planes or more, in zeros and border padding (fused3s.supports),
+    ``"fused3w"`` otherwise; in 2D ``"fused2d"`` up to FUSED2D_MAX_Q
     queries or FUSED2D_MAX_PAIRS (cell, query) pairs where its chunks fit
     shared memory (fused2d.supports), ``"fused2w"`` otherwise.  Off the
     card the same kernel routes apply, whose wrappers take the plain
@@ -165,6 +191,14 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     if c > FUSED_MAX_CHANNELS:
         return "fused"
     if dim == 3:
+        if (n_queries <= FUSED3D_MAX_Q
+                and fused3d.supports(cfg, cells_shape)):
+            return "fused3d"
+        if (n_queries >= FUSED3S_MIN_Q
+                and 4 * n * c * math.prod(spatial) >= FUSED3S_MIN_STACK_BYTES
+                and c >= FUSED3S_MIN_CHANNELS and n * c >= FUSED3S_MIN_PLANES
+                and fused3s.supports(cfg, cells_shape)):
+            return "fused3s"
         return "fused3w"
     small = (n_queries <= FUSED2D_MAX_Q
              or n * n_queries <= FUSED2D_MAX_PAIRS)

@@ -12,10 +12,12 @@ kernel, on the route ops/cuda/route.py ``fused_rule`` gives the call, in
 the JAX package's order: the plain version on the card for what no kernel
 takes (f64, strict reference in 2D with align_corners off, tensors over
 32-bit indexing); fused2d (ops/cuda/fused2d.py) for small 2D clouds and
-fused2w (ops/cuda/fused2w.py) for the others, fused3w
-(ops/cuda/fused3w.py) in 3D, up to 8 channels; the channel-looped v1
-kernels (ops/cuda/fused.py) above.  The wrappers take their plain versions
-for CPU tensors; ``backend="xla"`` takes them everywhere.
+fused2w (ops/cuda/fused2w.py) for the others; in 3D fused3d
+(ops/cuda/fused3d.py) for small clouds, fused3s (ops/cuda/fused3s.py)
+for many points over large stacks and fused3w (ops/cuda/fused3w.py) for
+the others, up to 8 channels; the channel-looped v1 kernels
+(ops/cuda/fused.py) above.  The wrappers take their plain versions for
+CPU tensors; ``backend="xla"`` takes them everywhere.
 
 ``make_fused_mega`` is the hook of the one-launch train-step gradient
 (ops/cuda/mega2w.py) that models/pinn.py's megakernel step calls.
@@ -41,7 +43,8 @@ import torch
 
 from .config import SamplerConfig
 from .cuda import fused as fused_v1
-from .cuda import fused2d, fused2w, fused3b, fused3w, mega2w, route
+from .cuda import (fused2d, fused2w, fused3b, fused3d, fused3s, fused3w,
+                   mega2w, route)
 from .cuda.fused2w import all_orders, plain_fused_blend, plain_fused_bwd
 from .sampler import BlendO, bump_orders
 
@@ -52,7 +55,7 @@ __all__ = ["make_fused_mega", "make_fused_vol", "make_sample_plan",
 
 # the kernel wrappers of each route of route.fused_rule but "plain"
 _KERNELS = {"fused2w": fused2w, "fused2d": fused2d, "fused3w": fused3w,
-            "fused": fused_v1}
+            "fused3d": fused3d, "fused3s": fused3s, "fused": fused_v1}
 
 
 def _route(cfg: SamplerConfig, cells_shape, first, points) -> str:
@@ -88,11 +91,16 @@ class _FusedSample(torch.autograd.Function):
         ctx.cfg = cfg
         # the bwd takes the blend's route
         ctx.route = _route(cfg, cells.shape, cells, points)
+        ctx.extra = ()
         if ctx.route == "xla":
             return plain_fused_blend(cells, points, cfg)
         if ctx.route == "plain":
             return route.run_plain(plain_fused_blend, cells, points, cfg)
-        return _KERNELS[ctx.route].fused_blend(cells, points, cfg)
+        if ctx.route == "fused3s" and points.is_cuda:
+            # one z sort serves the blend and its transpose
+            ctx.extra = (fused3s.zsort(points, cells.shape[2], cfg),)
+        return _KERNELS[ctx.route].fused_blend(cells, points, cfg,
+                                               *ctx.extra)
 
     @staticmethod
     def backward(ctx, g):
@@ -110,7 +118,7 @@ class _FusedSample(torch.autograd.Function):
                                          cfg, n)
             else:
                 dcells = _KERNELS[ctx.route].fused_bwd(g, points, spatial,
-                                                       cfg, n)
+                                                       cfg, n, *ctx.extra)
             dcells = dcells.to(cells.dtype)
         if ctx.needs_input_grad[1]:
             dpoints = _points_cotangent(cells, points, g, cfg)
@@ -175,9 +183,8 @@ def _check_plan(plan, points):
 def make_fused_vol(cfg: SamplerConfig, n_cells: int, channels: int,
                    in_spatial: Tuple[int, ...], n_queries: int):
     """The kernel-layout (vol-resident) fused op, or None where the bricked
-    kernels do not take the config and shape (fused3b.supports: 2D, more
-    than 8 channels, fewer than 2 queries per bin) or under
-    ``backend="xla"``.
+    kernels do not take the config and shape (fused3b.supports: 2D, fewer
+    than 2 queries per bin) or under ``backend="xla"``.
 
     Returns ``(fused_vol, to_vol, from_vol)``: ``to_vol`` / ``from_vol``
     convert between the (N, C, D, H, W) cells and the (D, H, W, N, C)
@@ -242,8 +249,9 @@ def make_sample_plan(points, cells_shape, cfg: SamplerConfig):
     Every 3D shape the bricked kernels take gets its brick plan
     (make_vol_plan); with it, sample_features_padded samples through
     fused3b, whose sorted gathers beat the query-ordered fused3w at every
-    size measured (PERF.md section 4).  Every other shape gets None and
-    the unplanned kernels, which gather in query order.
+    size measured, and the v1 pair at C = 16 (PERF.md section 4).  Every
+    other shape gets None and the unplanned kernels, which gather in
+    query order.
     """
     _check_points(points, cfg)
     n, c = cells_shape[:2]

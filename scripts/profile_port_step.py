@@ -6,6 +6,7 @@
                                         [--profile]
     python scripts/profile_port_step.py --nested-vol [percell|blend_o|slab]
                                         [--points Q] [--profile]
+    python scripts/profile_port_step.py --fused3b [--reps R]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
@@ -14,12 +15,15 @@ autograd with ``--nested`` or as the one-launch megakernel gradient with
 ``--megakernel``, on points already on the card.  ``--config5`` runs
 BASELINE config 5 (16 x 4 x 128^3, 1 000 000 fixed points, Helmholtz):
 the vol-resident step (``vol``), the planned step with its per-call
-relayout (``planned``) or the query-ordered fused3w step (``fused``), and
-prints the step's peak device memory.  ``--nested-vol`` runs the nested
+relayout (``planned``) or the query-ordered step through the fused op's
+route (``fused``: fused3s at this volume and point count), and prints the
+step's peak device memory.  ``--nested-vol`` runs the nested
 3D trainer's step on config 5's volume (16 x 4 x 128^3, Helmholtz) with
 ``--points`` fresh points a step (100 000 by default), every sampler call
 through the route ops/cuda/route.py gives it or, when named, through
-that route.  Prints the
+that route.  ``--fused3b`` times fused3b's blend and bwd kernels alone
+on config 5's volume and points (4 channels, the kernel layout), each the
+median of ``--reps`` calls (CUDA events) after 3 warm-up calls.  Prints the
 card's name and power limit, the median step time (CUDA events, 3 warm-up
 steps) and the kernel launches per step.  ``--profile`` adds a
 torch.profiler window of 5 steps: device time per step, the device's busy
@@ -63,6 +67,14 @@ try:    # and those from before the fused3b kernels these
                      fused3b_bwd=fused3b.fused3b_bwd_vol)
 except ImportError:
     pass
+try:    # and those from before the fused3d / fused3s kernels these
+    from cosinesampler_tpu_torch.ops.cuda import fused3d, fused3s
+    _COUNTERS.update(fused3d_blend=fused3d.fused_blend,
+                     fused3d_bwd=fused3d.fused_bwd,
+                     fused3s_blend=fused3s.fused_blend,
+                     fused3s_bwd=fused3s.fused_bwd)
+except ImportError:
+    pass
 try:    # and those from before the percell / slab kernels these
     from cosinesampler_tpu_torch.ops.cuda import percell, route, slab
     _COUNTERS.update(percell_blend=percell.blend, percell_splat=percell.splat,
@@ -93,6 +105,42 @@ def _config5_step(kind):
     return lambda p: step(params, p, plan), pts
 
 
+def _fused3b_kernels(card, reps):
+    """Median ms of fused3b_blend_vol and fused3b_bwd_vol at config 5."""
+    cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=128, pde="helmholtz")
+    shape = (cfg.n_cells, cfg.cell_dim, *(cfg.cell_size,) * 3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vol = fused3b.cells_to_vol(torch.rand(shape, generator=gen,
+                                          device="cuda"))
+    with PointGenerator(1_000_000, 3, seed=7) as pgen:
+        pts = torch.from_numpy(pgen.batch(0)).cuda()
+    plan = tfused.make_vol_plan(pts, shape, cfg.sampler)
+    g_p = torch.randn((7, shape[1], plan[1].shape[0]), generator=gen,
+                      device="cuda")
+    ops = {"blend": lambda: fused3b.fused3b_blend_vol(vol, plan, cfg.sampler),
+           "bwd": lambda: fused3b.fused3b_bwd_vol(g_p, plan, shape[2:],
+                                                  cfg.sampler, shape[0])}
+    medians = {}
+    for name, fn in ops.items():
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        medians[name] = statistics.median(times)
+    print(f"{card}; fused3b kernels at config 5 "
+          f"({'x'.join(map(str, shape))}, 1000000 points), median of {reps}:"
+          f" blend {medians['blend']:.4f} ms, bwd {medians['bwd']:.4f} ms",
+          flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nested", action="store_true",
@@ -108,6 +156,10 @@ def main(argv=None):
                          "the route rule or the route named")
     ap.add_argument("--points", type=int, default=100_000,
                     help="points a step of --nested-vol")
+    ap.add_argument("--fused3b", action="store_true",
+                    help="time fused3b's kernels alone at config 5")
+    ap.add_argument("--reps", type=int, default=20,
+                    help="timed calls of each --fused3b kernel")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -117,6 +169,8 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if args.fused3b:
+        return _fused3b_kernels(card, args.reps)
     if args.config5:
         run, pts = _config5_step(args.config5)
         batches = [pts] * (3 + args.steps)

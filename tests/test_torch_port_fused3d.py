@@ -19,7 +19,7 @@ from cosinesampler_tpu_torch.models import pinn as tpinn
 from cosinesampler_tpu_torch.models import train as ttrain
 from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
-from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w
+from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w, route
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
 
 N, C, S, Q = 3, 2, (6, 7, 5), 200   # (D, H, W) = S
@@ -73,7 +73,10 @@ def test_fused3w_plain_matches_jax_f64(kw):
 
 def test_fused_op_3d_dispatches_to_fused3w_wrappers(monkeypatch):
     """sample_features_with_derivs in 3D goes through the fused3w wrappers
-    (forward and cells transpose), not the 2D ones."""
+    (forward and cells transpose), not the 2D ones, where the rule routes
+    the call to fused3w: its small-cloud bound (route.FUSED3D_MAX_Q, which
+    would take these 200 points to fused3d) is set to 0 here."""
+    monkeypatch.setattr(route, "FUSED3D_MAX_Q", 0)
     cells, pts, g = (a.astype(np.float32) for a in _data(1))
     seen = []
     for mod in (fused2w, fused3w):

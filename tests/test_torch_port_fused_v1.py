@@ -182,9 +182,10 @@ def test_wide_trainer_two_steps_on_cpu():
 def test_fused_rule_follows_the_jax_order():
     """route.fused_rule as a pure function of shapes, dtypes and device
     type: plain for what no CUDA kernel takes, the v1 kernels above 8
-    channels, fused3w in 3D, fused2d for small 2D clouds whose channel
-    group fits shared memory, fused2w otherwise; off the card the same
-    kernel routes."""
+    channels, the 3D kernels in 3D (fused3d for these small clouds;
+    tests/test_torch_port_fused3ds.py holds the 3D branch), fused2d for
+    small 2D clouds whose channel group fits shared memory, fused2w
+    otherwise; off the card the same kernel routes."""
     cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
     max_q, pairs = route.FUSED2D_MAX_Q, route.FUSED2D_MAX_PAIRS
     rule = route.fused_rule
@@ -204,7 +205,7 @@ def test_fused_rule_follows_the_jax_order():
     assert rule(cfg2, (96, 4, 16, 16), max_q + 1) == "fused2w"
     assert rule(cfg2, (8, 4, 16, 16), pairs // 8) == "fused2d"
     assert rule(cfg2, (8, 4, 16, 16), pairs // 8 + 1) == "fused2w"
-    assert rule(cfg3, (50, 4, 16, 16, 16), 100) == "fused3w"
+    assert rule(cfg3, (50, 4, 16, 16, 16), 100) == "fused3d"
     for shape in ((96, 16, 16, 16), (96, 9, 16, 16), (50, 16, 16, 16, 16)):
         cfg = cfg2 if len(shape) == 4 else cfg3
         assert rule(cfg, shape, 100_000) == "fused"
@@ -223,7 +224,7 @@ def test_fused_rule_follows_the_jax_order():
         assert rule(*args) == "plain", what
     # strict 3D with align off takes the kernels (no mixed rows in 3D)
     assert rule(TConfig(dim=3, strict_reference=True, align_corners=False),
-                (8, 4, 8, 8, 8), 100, "cuda", F32) == "fused3w"
+                (8, 4, 8, 8, 8), 100, "cuda", F32) == "fused3d"
     # off the card the wrappers decide: the CPU takes the plain versions
     assert rule(cfg2, (96, 4, 16, 16), 100_000, "cpu", F64) == "fused2w"
     assert rule(cfg3, (8, 16, 8, 8, 8), 100, "cpu", F64) == "fused"

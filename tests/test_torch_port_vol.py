@@ -146,18 +146,21 @@ def test_fused3b_cpu_wrappers_take_plain_and_never_fall_back():
 
 
 def test_supports_and_route_rule():
-    """fused3b takes 3D stacks of at most 8 channels with 2 queries per
+    """fused3b takes 3D stacks of any channel count with 2 queries per
     bin; make_sample_plan gives every 3D shape it takes a brick plan (the
-    16^3 3D main path's cells, 4 x 24^3, config 5) and no plan with too
-    few points per bin."""
+    16^3 3D main path's cells, 4 x 24^3, config 5, and at C = 16, where
+    fused3b measured faster than the v1 pair: PERF.md section 4) and no
+    plan with too few points per bin."""
     cfg = TConfig(dim=3)
     assert fused3b.supports(cfg, (16, 4, 128, 128, 128), 1_000_000)
     assert not fused3b.supports(cfg, (16, 4, 128, 128, 128), 16_899)
-    assert not fused3b.supports(cfg, (16, 9, 8, 8, 8), 10_000)
+    # the channel-group grid axis: no channel cap, as the JAX fused3b
+    assert fused3b.supports(cfg, (16, 9, 8, 8, 8), 10_000)
+    assert fused3b.supports(cfg, (16, 16, 128, 128, 128), 1_000_000)
     assert not fused3b.supports(TConfig(dim=2), (16, 4, 8, 8), 10_000)
     pts = torch.from_numpy(_points(7, 20_000, -1, 1).astype(np.float32))
     for shape in ((50, 4, 16, 16, 16), (16, 4, 24, 24, 24),
-                  (16, 4, 48, 48, 48)):
+                  (16, 4, 48, 48, 48), (50, 16, 16, 16, 16)):
         assert tfused.make_sample_plan(pts, shape, cfg) is not None
     assert tfused.make_sample_plan(pts[:100], (50, 4, 16, 16, 16),
                                    cfg) is None
@@ -324,6 +327,40 @@ def test_train_vol_resident_on_cpu(capsys):
                         "--cell-size", "6", "--vol-resident"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [m["step"] for m in lines] == [2] and np.isfinite(lines[0]["loss"])
+
+
+def test_vol_resident_at_c16_matches_jax_fused_loss():
+    """The vol-resident loss and gradient at C = 16 (two channel groups of
+    fused3b on the card; the plain vol ops here) against
+    jax.value_and_grad of the JAX package's fused loss on its XLA route,
+    same weights and points: loss rtol 1e-5, every leaf rtol 1e-4.  Then
+    two vol-resident trainer steps at C = 16 on the CPU."""
+    kw = {**VKW, "cell_dim": 16}
+    tcfg = tpinn.PINNConfig(**kw)
+    np_params = {k: v.detach().numpy() for k, v in tpinn.init_params(
+        torch.Generator().manual_seed(12), tcfg, "cpu").items()}
+    pts = _points(12, VQ, -1.0, 1.0).astype(np.float32)
+    want_loss, want = jax.jit(jax.value_and_grad(jpinn.loss_fused),
+                              static_argnums=2)(
+        {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(pts),
+        jpinn.PINNConfig(backend="xla", **kw))
+    tp = torch.from_numpy(pts)
+    plan = tfused.make_vol_plan(tp, np_params["cells"].shape, tcfg.sampler)
+    params = tpinn.params_to_vol(params_from_numpy(np_params, "cpu"), tcfg,
+                                 VQ)
+    loss = tpinn.loss_fused_slots_vol(params, tp, tcfg, plan)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    grads = {k: v.grad for k, v in params.items()}
+    grads["cells"] = fused3b.vol_to_cells(grads["cells"])
+    for k in want:
+        _close(grads[k].numpy(), want[k], 1e-4)
+    cfg = ttrain.TrainConfig(model=tcfg, device="cpu", steps=2,
+                             batch_points=VQ, log_every=1, vol_resident=True)
+    trained, metrics = ttrain.train(cfg)
+    assert trained["cells"].shape == (5, 16, 6, 6, 6)
+    assert all(np.isfinite(m["loss"]) for m in metrics)
 
 
 @pytest.mark.parametrize("model,fused", [
