@@ -13,16 +13,24 @@ order) for 10 steps through blend_o / splat_o, the 3D Helmholtz trainer
 (50 x 4 x 16^3) for 3 steps nested and 3 steps fused through
 fused3w_blend / fused3w_bwd, the vol-resident trainer of BASELINE config 5
 (16 x 4 x 128^3, 1 000 000 points) for 5 steps through fused3b_blend /
-fused3b_bwd, and the nested 3D trainer on config 5's volume (100 000
+fused3b_bwd (and 3 steps with the ghost route on, through
+fused3b_bwd_ghost: private super-bricks and their fold, held to its
+plain versions and timed against fused3b_bwd at rb 1, 2, 4 and 8 and at
+16 channels), and the nested 3D trainer on config 5's volume (100 000
 points) for 3 steps through the route ops/cuda/route.py gives it
 (percell_blend / percell_splat); the per-cell surface of 4 x 4 x 128^3
 cells (per-cell 16^3 grids), its sparse case, a 4 x 4 x 1024^2 2D
 volume and a stack of 1024 x 4 x 16^3 cells (slab_blend / slab_splat) go
 through their routes too, and percell and slab are held to their plain
 versions at all those shapes.  At 16 feature channels the 2D trainer (20
-steps), the 3D trainer (5) and the megakernel trainer (5, through its
-autograd fallback) go through the channel-looped v1 kernels (fused_blend /
-fused_bwd), held to their plain versions at C in {9, 12, 16, 32, 64};
+steps) and the 3D trainer (5) go through the routed channel-looped v1
+kernels (fused_blend / fused_bwd), held to their plain versions at C in
+{9, 12, 16, 32, 64}, and the megakernel trainer (5) through mega2w's
+channel groups; fused2w's and fused3w's channel groups and the wide
+mega2w are held to their plain versions at 9 to 124 channels and timed
+against the v1 pair (the sweep behind the fused op's rule above 8
+channels); the nested trainers' blends and splats a step are counted
+(no kernel for a cotangent nothing reads);
 the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs,
 timed against fused2w (the sweep behind the fused op's rule) and routed at
 their shapes.  In 3D the small- and large-cloud kernels (fused3d_blend /
@@ -33,7 +41,7 @@ rule), and the 3D fused trainer runs through them with fresh points: 50 x
 fused3w) and config 5's 16 x 4 x 128^3 at 100 000 (fused3s), 3 steps
 each.  fused3b's channel groups are held to its plain versions at C = 16
 on config 5's volume, and the vol-resident trainer runs there at C = 16
-(16 x 16 x 128^3, 5 steps) against the query-ordered v1 trainer.  The
+(16 x 16 x 128^3, 3 steps) against the query-ordered v1 trainer.  The
 calls no kernel takes (f64, strict 2D with align_corners off, 2^31
 elements) must take the counted plain route and match the CPU, and
 exact mode must give the same losses under
@@ -114,6 +122,7 @@ SOURCES = {
     "fused3w_bwd": "cosinesampler_tpu_torch/csrc/fused3w.cu",
     "fused3b_blend": "cosinesampler_tpu_torch/csrc/fused3b.cu",
     "fused3b_bwd": "cosinesampler_tpu_torch/csrc/fused3b.cu",
+    "fused3b_bwd_ghost": "cosinesampler_tpu_torch/csrc/fused3b_ghost.cu",
     "percell_blend": "cosinesampler_tpu_torch/csrc/percell.cu",
     "percell_splat": "cosinesampler_tpu_torch/csrc/percell.cu",
     "slab_blend": "cosinesampler_tpu_torch/csrc/slab.cu",
@@ -137,6 +146,7 @@ REPLACES = {
     "fused3w_bwd": "cosinesampler_tpu/ops/pallas/fused3w.py:396",
     "fused3b_blend": "cosinesampler_tpu/ops/pallas/fused3b.py:481",
     "fused3b_bwd": "cosinesampler_tpu/ops/pallas/fused3b.py:831",
+    "fused3b_bwd_ghost": "cosinesampler_tpu/ops/pallas/fused3b.py:908",
     "percell_blend": "cosinesampler_tpu/ops/pallas/percell.py:238",
     "percell_splat": "cosinesampler_tpu/ops/pallas/percell.py:368",
     "slab_blend": "cosinesampler_tpu/ops/pallas/slab.py:146",
@@ -158,6 +168,7 @@ COUNTERS = {
     "fused3w_blend": fused3w.fused_blend, "fused3w_bwd": fused3w.fused_bwd,
     "fused3b_blend": fused3b.fused3b_blend_vol,
     "fused3b_bwd": fused3b.fused3b_bwd_vol,
+    "fused3b_bwd_ghost": fused3b.fused3b_bwd_ghost_vol,
     "percell_blend": percell.blend, "percell_splat": percell.splat,
     "slab_blend": slab.blend, "slab_splat": slab.splat,
     "fused_blend": fused_v1.fused_blend, "fused_bwd": fused_v1.fused_bwd,
@@ -1228,10 +1239,10 @@ def _nonzero(launches):
 
 def wide_trainer_phase():
     """Path (a): the fused trainer at C = 16 in 2D (20 steps) and 3D (5),
-    and --megakernel at C = 16 (5: mega2w takes at most 8 channels, so
-    value_and_grad_mega falls back to autograd of the fused loss), each
-    through the v1 kernels once a step and no other kernel (no plain
-    route); then card vs CPU at a small N."""
+    each through the kernels route.fused_rule gives it (the v1 pair at
+    100 000 points) once a step, and --megakernel at C = 16 (5) through one
+    mega2w launch a step, and no other kernel (no plain route); then card
+    vs CPU at a small N."""
     runs = {}
     for name, model, steps, kw in [
             ("2D", pinn.PINNConfig(cell_dim=C_WIDE), STEPS, {}),
@@ -1239,13 +1250,16 @@ def wide_trainer_phase():
                                    pde="helmholtz"), STEPS_WIDE_3D, {}),
             ("megakernel", pinn.PINNConfig(cell_dim=C_WIDE), STEPS_WIDE_MEGA,
              dict(megakernel=True))]:
+        shape = (model.n_cells, C_WIDE, *(model.cell_size,) * model.dim)
+        kind = route.fused_rule(model.sampler, shape, Q)
+        expected = (("mega2w",) if kw else (f"{kind}_blend", f"{kind}_bwd"))
         launches, _ = _train_checked(
             f"wide {name} C={C_WIDE} ({model.n_cells} cells, {Q} points)",
             TrainConfig(model=model, device="cuda", steps=steps, log_every=1,
-                        seed=0, **kw), steps, ("fused_blend", "fused_bwd"))
-        if launches["fused_blend"] != steps or launches["fused_bwd"] != steps:
-            raise RuntimeError(f"wide {name}: expected one launch of each v1 "
-                               f"kernel a step: {launches}")
+                        seed=0, **kw), steps, expected)
+        if any(launches[k] != steps for k in expected):
+            raise RuntimeError(f"wide {name}: expected one launch of each of "
+                               f"{expected} a step: {_nonzero(launches)}")
         runs[name] = launches
     for name, cfg in (("2D", pinn.PINNConfig(n_cells=8, cell_dim=C_WIDE)),
                       ("3D", pinn.PINNConfig(dim=3, n_cells=6,
@@ -1257,7 +1271,7 @@ def wide_trainer_phase():
                         "card vs plain CPU",
                         _loss_and_grads(pinn.loss_fused, cfg, "cuda", pts, 12),
                         _loss_and_grads(pinn.loss_fused, cfg, "cpu", pts, 12))
-    return runs["2D"]
+    return runs
 
 
 # --- fused3d / fused3s (small and mid 3D clouds), fused3b at C > 8 ----------
@@ -1355,11 +1369,12 @@ def fused3b_wide_kernel_phase():
 
 MODEL_5W = pinn.PINNConfig(dim=3, n_cells=N5, cell_dim=C_WIDE, cell_size=S5,
                            pde="helmholtz")
+STEPS_VOL_WIDE = 3
 
 
 def vol_wide_trainer_phase():
     """The vol-resident trainer at C = 16 on config 5's volume and points
-    (16 x 16 x 128^3, 1 000 000 points): one fused3b_blend and one
+    (16 x 16 x 128^3, 1 000 000 points), 3 steps: one fused3b_blend and one
     fused3b_bwd launch a step and nothing else; its losses against the
     query-ordered fused trainer's (the v1 pair at C = 16) on the same
     fixed points, the first at LOSS_RTOL and each within GRAD_TOL; the
@@ -1368,16 +1383,17 @@ def vol_wide_trainer_phase():
     launches, losses = _train_checked(
         f"vol-resident C={C_WIDE} {N5}x{C_WIDE}x{S5}^3, {Q5} points",
         TrainConfig(model=MODEL_5W, device="cuda", batch_points=Q5,
-                    steps=STEPS_VOL, log_every=1, seed=0, vol_resident=True),
-        STEPS_VOL, ("fused3b_blend", "fused3b_bwd"))
-    if (launches["fused3b_blend"] != STEPS_VOL
-            or launches["fused3b_bwd"] != STEPS_VOL):
-        raise RuntimeError(f"expected {STEPS_VOL} launches of each fused3b "
-                           "kernel")
+                    steps=STEPS_VOL_WIDE, log_every=1, seed=0,
+                    vol_resident=True),
+        STEPS_VOL_WIDE, ("fused3b_blend", "fused3b_bwd"))
+    if (launches["fused3b_blend"] != STEPS_VOL_WIDE
+            or launches["fused3b_bwd"] != STEPS_VOL_WIDE):
+        raise RuntimeError(f"expected {STEPS_VOL_WIDE} launches of each "
+                           "fused3b kernel")
     _reset_counts()
-    ref = _fixed_point_losses(MODEL_5W, Q5, STEPS_VOL)
+    ref = _fixed_point_losses(MODEL_5W, Q5, STEPS_VOL_WIDE)
     ref_launches = _counts()
-    if (ref_launches["fused_blend"] != STEPS_VOL
+    if (ref_launches["fused_blend"] != STEPS_VOL_WIDE
             or ref_launches["fused3b_blend"] != 0):
         raise RuntimeError(f"the query-ordered C={C_WIDE} trainer took "
                            f"another route: {_nonzero(ref_launches)}")
@@ -1473,12 +1489,11 @@ def _fused3b_with_plan(cells, pts, g, cfg):
 # sides of fused3d's bound (6144 / 8192 points at 50 and 8 cells), and
 # fresh points on stacks over the L2 on the two sides of each of
 # fused3s's bounds (points, stack bytes, channels, (cell, channel) planes)
-SWEEP_3D = ([(N3, C, S3, q) for q in (120, 200, 1024, 2047, 2048, 4096,
-                                      6144, 8192, 16384, Q)]
+SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 6144, 8192, Q)]
             + [(8, C, S3, q) for q in (6144, 8192)]
             + [(2, 2, 32, 2048)]
-            + [(16, C, 32, q) for q in (2048, 4096, 9000, 32768, Q)]
-            + [(16, C, 64, q) for q in (2048, 16384, 81920, Q)]
+            + [(16, C, 32, q) for q in (2048, 9000, Q)]
+            + [(16, C, 64, q) for q in (16384, 81920, Q)]
             + [(8, C, 80, Q)]
             + [(16, c, 96, Q) for c in (2, 3, C)]
             + [(N5, C, S5, q) for q in (65536, 81920, Q, Q5)]
@@ -1488,7 +1503,7 @@ SWEEP_3D = ([(N3, C, S3, q) for q in (120, 200, 1024, 2047, 2048, 4096,
 def small_cloud_3d_sweep_phase(points=SWEEP_3D):
     """fused3d, fused3s and fused3w (the routes of the fused op at C <= 8
     in 3D) and fused3b with its plan built in the call, blend + bwd device
-    ms (torch.profiler, 10 calls a window) at each (N, C, S, Q) of
+    ms (torch.profiler, 6 calls a window) at each (N, C, S, Q) of
     ``points``, the paths in turns (each, then the same reversed), the
     larger turn kept (a window that loses events reads low), inputs drawn
     on the card: the measurement behind route.FUSED3D_MAX_Q and the
@@ -1511,7 +1526,7 @@ def small_cloud_3d_sweep_phase(points=SWEEP_3D):
                 for k, ok in paths.items() if ok}
         turns = {k: [] for k in runs}
         for k in list(runs) + list(runs)[::-1]:
-            turns[k].append(_device_ms(runs[k], reps=10))
+            turns[k].append(_device_ms(runs[k], reps=6))
         ms = {k: max(v) for k, v in turns.items()}
         routed = route.fused_rule(cfg, shape, q)
         fastest = min((k for k in ms if k != "fused3b+plan"), key=ms.get)
@@ -1832,7 +1847,10 @@ def wide_time_phase():
     times = {}
     cases = [("fused", "2D", SamplerConfig(dim=2), N, C_WIDE, (H, W), Q),
              ("fused", "3D", SamplerConfig(dim=3), N3, C_WIDE, (S3,) * 3, Q),
-             ("fused2d", "2D", SamplerConfig(dim=2), N, C, (H, W), 1024)]
+             ("fused2d", "2D", SamplerConfig(dim=2), N, C, (H, W), 1024),
+             ("fused2w", "2D", SamplerConfig(dim=2), N, C_WIDE, (H, W), Q),
+             ("fused3w", "3D", SamplerConfig(dim=3), N3, C_WIDE, (S3,) * 3,
+              Q)]
     for kind, what, cfg, n, c, spatial, q in cases:
         mod = FUSED_MODS[kind]
         cells, pts, g = _fused_inputs(n, c, spatial, q, seed=18, lo=-1.0,
@@ -1853,25 +1871,48 @@ def wide_time_phase():
                                                         n)),
         }
         for name, (kernel, plain) in ops.items():
-            ms, plain_ms = _in_turns(kernel, plain, reps=5)
+            ms, plain_ms = _in_turns(kernel, plain,
+                                     reps=5 if kind in ("fused", "fused2d")
+                                     else 2)
             dev_ms = _device_ms(kernel)
             print(f"time {name} {what} ({n}x{c}x{'x'.join(map(str, spatial))},"
                   f" Q={q}): kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"{bound_ms / ms:.1%} of it; no library call computes it",
                   flush=True)
-            if name not in times:
+            if name not in times and kind in ("fused", "fused2d"):
                 times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=None)
+    # mega2w at C = 16, its work counted as mega_fused3w_time_phase counts
+    # it at C = 4
+    gen = torch.Generator().manual_seed(20)
+    cells = torch.rand((N, C_WIDE, H, W), generator=gen).cuda()
+    pts = (torch.rand((Q, 2), generator=gen) * 2.2 - 1.1).cuda()
+    mlp = _mlp(C_WIDE, HIDDEN, gen)
+    main = SamplerConfig(dim=2)
+    def kernel():
+        return mega2w.mega2w_step(cells, *mlp, pts, main, "allen_cahn")
+    ms, plain_ms = _in_turns(
+        kernel, lambda: mega2w.plain_mega2w_step(cells, *mlp, pts, main,
+                                                 "allen_cahn"), reps=5)
+    bound_ms, bound_by = _bound(
+        4 * (2 * N * C_WIDE * H * W + 2 * Q + 2 * (C_WIDE + 2) * HIDDEN + 3),
+        2 * (2 * 5 * 4 * C_WIDE * N * Q)
+        + 2 * Q * HIDDEN * (20 * C_WIDE + 40))
+    print(f"time mega2w 2D ({N}x{C_WIDE}x{H}x{W}, Q={Q}, hidden {HIDDEN}): "
+          f"kernel {ms:.4f} ms (device {_device_ms(kernel):.4f}), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of it; no library call computes it",
+          flush=True)
     return times
 
 
 def wide_step_phase():
     """Median step ms (CUDA events, 3 warm-up, 10 timed) of path (a): the
-    2D and 3D fused steps and the megakernel fallback at C = 16."""
+    2D and 3D fused steps and the megakernel step (mega2w) at C = 16."""
     for what, cfg, kw in [
             ("2D fused", pinn.PINNConfig(cell_dim=C_WIDE), {}),
-            ("2D megakernel fallback", pinn.PINNConfig(cell_dim=C_WIDE),
+            ("2D megakernel", pinn.PINNConfig(cell_dim=C_WIDE),
              dict(megakernel=True)),
             ("3D fused", pinn.PINNConfig(dim=3, n_cells=N3, cell_dim=C_WIDE,
                                          pde="helmholtz"), {})]:
@@ -1881,6 +1922,321 @@ def wide_step_phase():
         step_kw = kw or dict(fused=True)
         ms = _median_step_ms(cfg, batches, **step_kw)
         print(f"step wide C={C_WIDE} {what}: {ms:.4f} ms", flush=True)
+
+
+# --- channel groups above 8 channels, fused3b's ghost path --------------------
+
+# the channel counts of the rule's sweep above 8 channels
+WIDE_CHANNELS = (12, 16)
+# (dim, N, S, Q): the sweep's stacks and point counts at each of them
+WIDE_SWEEP = ([(2, N, H, q) for q in (1024, 16384, Q)]
+              + [(3, N3, S3, q) for q in (1024, 2048, 4096, 8192, 16384, Q)]
+              + [(3, N5, S5, q) for q in (4096, 8192, Q)])
+
+
+def wide_kernel_phase():
+    """fused2w's and fused3w's channel groups and the wide mega2w against
+    their plain versions: path (a)'s shapes at C = 12 and 16 (96 x C x
+    16^2, 50 x C x 16^3, Q = 100 000), C in {9, 32} and the v1 variants at
+    C = 12 at small shapes, a channel group over the opted-in shared
+    memory (global atomics); mega2w at 96 x 16 x 16^2 and at C up to
+    JAX's 124 and in variants."""
+    m2, m3 = SamplerConfig(dim=2), SamplerConfig(dim=3)
+    for c in WIDE_CHANNELS:
+        compare_fused("fused2w", f"C={c} path (a)", m2, N, c, (H, W), Q)
+        compare_fused("fused3w", f"C={c} 3D path (a)", m3, N3, c, (S3,) * 3,
+                      Q, seed=1)
+    for dim, spatial in ((2, (12, 10)), (3, (7, 8, 9))):
+        for c in (9, 32):
+            compare_fused(f"fused{dim}w", f"channels-{c}",
+                          SamplerConfig(dim=dim), 6, c, spatial, 4099,
+                          seed=2, **WIDE)
+        for name, kw, _ in FUSED_VARIANTS:
+            compare_fused(f"fused{dim}w", f"C=12 {name}",
+                          SamplerConfig(dim=dim, **kw), 6, 12, spatial, 2053,
+                          seed=4, **WIDE)
+    compare_fused("fused2w", "C=16 large-cell", m2, 2, 16, (128, 128), 4096,
+                  seed=5)
+    compare_fused("fused3w", "C=16 large-cell", m3, 2, 16, (32,) * 3, 4096,
+                  seed=5)
+    compare_mega(f"C={C_WIDE} path (a)", m2, N, C_WIDE, H, W, Q)
+    for c in (9, 12, 32, 124):
+        compare_mega(f"channels-{c}", m2, 8, c, 12, 10, 4099, seed=2)
+    for name, kw, extra in [
+            ("helmholtz-hidden-32", {}, dict(pde="helmholtz", hidden=32)),
+            ("reflection-hidden-8", dict(padding_mode="reflection"),
+             dict(hidden=8)),
+            ("align-false-q-1000", dict(align_corners=False), {})]:
+        compare_mega(f"C=16 {name}", SamplerConfig(dim=2, **kw), 8, 16, 12,
+                     10, 1000 if "q-1000" in name else 4099, seed=3, **extra)
+    compare_mega("C=16 large-cell", m2, 2, 16, 128, 128, 4096, seed=5)
+
+
+def wide_route_sweep_phase():
+    """Above 8 channels, fused2w's / fused3w's channel groups against the
+    v1 pair, blend + bwd device ms (torch.profiler, 10 calls a window,
+    v1, groups, groups, v1, the larger turn kept) at C = 12 and 16 over
+    WIDE_SWEEP, inputs drawn on the card: the measurement behind
+    route.FUSED3W_WIDE_MAX_Q.  Prints how many points the rule sends to
+    the slower of the two."""
+    rows = []
+    for c in WIDE_CHANNELS:
+        for dim, n, s, q in WIDE_SWEEP:
+            cfg = SamplerConfig(dim=dim)
+            shape = (n, c, *(s,) * dim)
+            gen = _cuda_gen(29)
+            cells = torch.rand(shape, generator=gen, device="cuda")
+            pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+            g = torch.randn((1 + 2 * dim, c, q), generator=gen,
+                            device="cuda")
+            groups = f"fused{dim}w"
+            runs = {"fused": _pair(fused_v1, cells, pts, g, cfg),
+                    groups: _pair(FUSED_MODS[groups], cells, pts, g, cfg)}
+            turns = {k: [] for k in runs}
+            for k in ("fused", groups, groups, "fused"):
+                turns[k].append(_device_ms(runs[k], reps=10))
+            ms = {k: max(v) for k, v in turns.items()}
+            routed = route.fused_rule(cfg, shape, q)
+            fastest = min(ms, key=ms.get)
+            rows.append((shape, q, routed, fastest))
+            print(f"sweep C>8 {dim}D ({'x'.join(map(str, shape))}, Q={q}): "
+                  f"blend + bwd device ms v1 {ms['fused']:.4f} (turns "
+                  f"{turns['fused'][0]:.4f} {turns['fused'][1]:.4f}), "
+                  f"{groups} groups {ms[groups]:.4f} (turns "
+                  f"{turns[groups][0]:.4f} {turns[groups][1]:.4f}); "
+                  f"fastest {fastest}; the rule routes {routed}", flush=True)
+            del cells, pts, g, runs
+            torch.cuda.empty_cache()
+    slower = [(shape, q) for shape, q, routed, fastest in rows
+              if routed != fastest]
+    print(f"sweep C>8: the rule routes {len(slower)} of {len(rows)} points "
+          f"to the slower kernel {slower}", flush=True)
+
+
+@contextlib.contextmanager
+def _ghost_setting(name, value):
+    """fused3b's module setting ``name`` (GHOST_ROUTE, GHOST_BUDGET_BYTES)
+    set to ``value`` while the block runs, then restored."""
+    old = getattr(fused3b, name)
+    setattr(fused3b, name, value)
+    try:
+        yield
+    finally:
+        setattr(fused3b, name, old)
+
+
+def compare_ghost(name, cfg, n, c, spatial, q, seed=0, lo=-1.2, hi=1.2,
+                  pts=None, rb=fused3b.GHOST_RB):
+    """The ghost pair (kernel and fold) against plain_fused3b_bwd_vol and
+    plain_fused3b_bwd_ghost_vol on the card, the volume as one row; two
+    runs' max difference (not bit-deterministic: the bricks' shared
+    atomics).  Returns (max abs error, run-to-run difference)."""
+    _, _, pts, plan = _vol_case(n, c, spatial, q, seed, lo, hi, cfg, pts)
+    g_p = torch.randn((7, c, plan[1].shape[0]), generator=_cuda_gen(seed + 1),
+                      device="cuda")
+    got = fused3b.fused3b_bwd_ghost_vol(g_p, plan, spatial, cfg, n, rb)
+    again = fused3b.fused3b_bwd_ghost_vol(g_p, plan, spatial, cfg, n, rb)
+    ref = fused3b.plain_fused3b_bwd_vol(g_p, plan, spatial, cfg, n)
+    ref_ghost = fused3b.plain_fused3b_bwd_ghost_vol(g_p, plan, spatial, cfg,
+                                                    n, rb)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"ghost {name}: wrong shape or non-finite output")
+    abs_e, rel = _rel_err(got.reshape(1, -1), ref.reshape(1, -1))
+    _, rel_g = _rel_err(got.reshape(1, -1), ref_ghost.reshape(1, -1))
+    det = float((got - again).abs().max())
+    print(f"compare fused3b_bwd_ghost {name} ({n}x{c}x"
+          f"{'x'.join(map(str, spatial))}, Q={q}, rb={rb}): max abs err "
+          f"{abs_e:.3e}, rel {rel:.3e} vs plain_fused3b_bwd_vol, rel "
+          f"{rel_g:.3e} vs plain_fused3b_bwd_ghost_vol (tolerance rel "
+          f"{REL_TOL:g}); two runs differ by at most {det:.3e}", flush=True)
+    if not (rel <= REL_TOL and rel_g <= REL_TOL):
+        raise RuntimeError(f"ghost {name}: kernel disagrees with the plain "
+                           "versions")
+    return abs_e, det
+
+
+def fused3b_ghost_kernel_phase():
+    """fused3b's ghost path at config 5 (the vol-resident trainer's
+    1 000 000 points and plan) and in variants (the three padding modes at
+    rb 1 and 8, 9 and 16 channels, a non-cubic volume); at C = 16 on
+    config 5's volume the bricks are over GHOST_BUDGET_BYTES and
+    fused3b_bwd_vol(ghost=True) takes fused3b_bwd (counted), as JAX's
+    budget sends it to its serialized kernel."""
+    main = SamplerConfig(dim=3)
+    err, det = compare_ghost("config-5", main, N5, C, (S5,) * 3, Q5,
+                             pts=_trainer_points(Q5, 3))
+    for padding in ("zeros", "border", "reflection"):
+        for rb in (1, 8):
+            compare_ghost(padding, SamplerConfig(dim=3, padding_mode=padding),
+                          6, 3, (9, 9, 9), 4099, seed=2, rb=rb, lo=-1.4,
+                          hi=1.4)
+    compare_ghost("channels-16", main, 6, 16, (9, 9, 9), 4099, seed=3)
+    compare_ghost("non-cubic-channels-9", main, 6, 9, (20, 28, 36), 8192,
+                  seed=4)
+    shape = fused3b.vol_layout(N5, C_WIDE, (S5,) * 3)
+    if fused3b.ghost_fits(main, shape):
+        raise RuntimeError("config 5 at C = 16 should be over the ghost "
+                           "budget")
+    _, vol, pts, plan = _vol_case(N5, C_WIDE, (S5,) * 3, Q5, 6, cfg=main,
+                                  pts=_trainer_points(Q5, 3))
+    del vol
+    g_p = torch.randn((7, C_WIDE, plan[1].shape[0]), generator=_cuda_gen(7),
+                      device="cuda")
+    _reset_counts()
+    got = fused3b.fused3b_bwd_vol(g_p, plan, (S5,) * 3, main, N5, ghost=True)
+    counts = _counts()
+    print(f"ghost at config 5 with C = {C_WIDE}: "
+          f"{fused3b.GHOST_RB}-bin bricks over the {fused3b.GHOST_BUDGET_BYTES}"
+          f"-byte budget; fused3b_bwd_vol(ghost=True) launched "
+          f"{_nonzero(counts)}", flush=True)
+    if counts["fused3b_bwd"] != 1 or counts["fused3b_bwd_ghost"] != 0:
+        raise RuntimeError("over the budget the ghost route must take "
+                           "fused3b_bwd")
+    del got, g_p, plan
+    torch.cuda.empty_cache()
+    return {"fused3b_bwd_ghost": err}, det
+
+
+def ghost_time_phase():
+    """The ghost pair at config 5 (1 000 000 points) against fused3b_bwd in
+    turns (fused3b_bwd, ghost, ghost, fused3b_bwd) at rb 1, 2, 4 and 8 (the
+    measurement behind fused3b.GHOST_RB), with its plan, bricks and fold
+    timed apart; at 16 channels with the budget lifted for the
+    measurement; the plain version's time; the bound of fused3b_bwd's
+    work (the same function)."""
+    cfg = SamplerConfig(dim=3)
+    spatial = (S5,) * 3
+    pts = _trainer_points(Q5, 3)
+    times = {}
+    for c in (C, C_WIDE):
+        plan = tfused.make_vol_plan(pts, (N5, c, *spatial), cfg)
+        qp = plan[1].shape[0]
+        g_p = torch.randn((7, c, qp), generator=_cuda_gen(17), device="cuda")
+        plan_bytes = 4 * (3 * Q5 + qp + plan[4].numel())
+        bound_ms, bound_by = _bound(
+            4 * 7 * c * Q5 + plan_bytes + 4 * N5 * c * S5 ** 3,
+            2 * 7 * 8 * c * N5 * Q5)
+        for rb in ((1, 2, 4, 8) if c == C else (fused3b.GHOST_RB,)):
+            def serial():
+                return fused3b.fused3b_bwd_vol(g_p, plan, spatial, cfg, N5,
+                                               ghost=False)
+
+            def ghost():
+                return fused3b.fused3b_bwd_ghost_vol(g_p, plan, spatial, cfg,
+                                                     N5, rb)
+            with _ghost_setting("GHOST_BUDGET_BYTES", 1 << 40):
+                gplan = fused3b.ghost_plan(plan, spatial, rb)
+                bricks = fused3b.ghost_bricks(g_p, plan, gplan, spatial, cfg,
+                                              N5, rb)
+                s1, g1, g2, s2 = (_time_ms(f, 5) for f in (serial, ghost,
+                                                           ghost, serial))
+                plan_ms = _time_ms(
+                    lambda: fused3b.ghost_plan(plan, spatial, rb), 5)
+                bricks_ms = _time_ms(
+                    lambda: fused3b.ghost_bricks(g_p, plan, gplan, spatial,
+                                                 cfg, N5, rb), 5)
+                fold_ms = _time_ms(
+                    lambda: fused3b.fold_bricks(bricks, gplan[3], spatial,
+                                                cfg, rb), 5)
+            ms = (g1 + g2) / 2
+            print(f"time fused3b_bwd_ghost at config 5 ({N5}x{c}x{S5}^3, "
+                  f"Q={Q5}, rb={rb}, bricks "
+                  f"{4 * bricks.numel() / 1e9:.3f} GB): {ms:.4f} ms (turns "
+                  f"{g1:.4f} {g2:.4f}; ghost_plan {plan_ms:.4f}, bricks "
+                  f"{bricks_ms:.4f}, fold {fold_ms:.4f}) vs fused3b_bwd "
+                  f"{(s1 + s2) / 2:.4f} ms (turns {s1:.4f} {s2:.4f}); bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+                  "it", flush=True)
+            del bricks
+            torch.cuda.empty_cache()
+            if c == C and rb == fused3b.GHOST_RB:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused3b.plain_fused3b_bwd_ghost_vol(g_p, plan, spatial, cfg,
+                                                    N5, rb)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                times["fused3b_bwd_ghost"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None, bricks_ms=bricks_ms,
+                    fold_ms=fold_ms, fused3b_bwd_ms=(s1 + s2) / 2)
+        del g_p, plan
+        torch.cuda.empty_cache()
+    return times
+
+
+def ghost_trainer_phase():
+    """The vol-resident trainer at config 5 with the ghost route on
+    (fused3b.GHOST_ROUTE), 3 steps: one fused3b_blend and one
+    fused3b_bwd_ghost launch a step and no other kernel, its losses those
+    of vol_trainer_phase's first steps (the first at rtol LOSS_RTOL, each
+    within GRAD_TOL)."""
+    steps = 3
+    with _ghost_setting("GHOST_ROUTE", True):
+        launches, losses = _train_checked(
+            f"vol-resident {N5}x{C}x{S5}^3, {Q5} points, ghost route",
+            TrainConfig(model=MODEL_5, device="cuda", batch_points=Q5,
+                        steps=steps, log_every=1, seed=0, vol_resident=True),
+            steps, ("fused3b_blend", "fused3b_bwd_ghost"), decrease=False)
+    if launches["fused3b_bwd_ghost"] != steps:
+        raise RuntimeError(f"expected {steps} ghost launches")
+    ref = vol_trainer_phase.losses[:steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"ghost vs fused3b_bwd vol-resident trainer losses: worst rel diff "
+          f"{max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError("the ghost and fused3b_bwd trainers disagree")
+    return launches
+
+
+def _profiled_steps(cfg, batches):
+    """(median step ms, device ms a step, device operations a step) of the
+    nested step over ``batches``: 1 warm-up step, the rest timed with CUDA
+    events, then profiled (torch.profiler)."""
+    params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    step = pinn.make_train_step(cfg, torch.optim.Adam(params.values(),
+                                                      lr=1e-3))
+    step(params, batches[0])
+    times = []
+    for pts in batches[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(params, pts)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for pts in batches[1:]:
+            step(params, pts)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    n = len(batches) - 1
+    return (statistics.median(times),
+            sum(e.self_device_time_total for e in events) / 1e3 / n,
+            sum(e.count for e in events) / n)
+
+
+def nested_ops_phase():
+    """The nested 2D step (96 x 4 x 16^2, 100 000 points) and the nested
+    128^3 step (100 000 points, the rule's route): median ms and device
+    operations a step."""
+    for what, cfg, q, dim, count in [
+            ("2D", pinn.PINNConfig(), Q, 2, 6),
+            ("128^3", MODEL_NV, QN, 3, 3)]:
+        with PointGenerator(q, dim, seed=33) as gen:
+            batches = [torch.from_numpy(gen.batch(i)).cuda()
+                       for i in range(count)]
+        ms, dev_ms, ops = _profiled_steps(cfg, batches)
+        print(f"step nested {what}: median {ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms and {ops:.0f} device operations a step",
+              flush=True)
+        del batches
+        torch.cuda.empty_cache()
 
 
 # --- trainers -----------------------------------------------------------------
@@ -1943,13 +2299,35 @@ def mega_trainer_phase(fused_losses):
     return launches
 
 
+# blend_o / splat_o launches of one nested step, 2D and 3D (pinned on the
+# CPU by tests/test_torch_port_cotangents.py), and before the unread
+# cotangents were skipped
+NESTED_LAUNCHES = {2: (9, 9), 3: (40, 40)}
+NESTED_LAUNCHES_BEFORE = {2: (27, 13), 3: (160, 53)}
+
+
+def _check_nested_launches(what, dim, blends, splats):
+    want = NESTED_LAUNCHES[dim]
+    print(f"{what}: {blends:g} blends and {splats:g} splats a step "
+          f"(expected {want[0]} and {want[1]}; {NESTED_LAUNCHES_BEFORE[dim]} "
+          f"when every cotangent was computed)", flush=True)
+    if (blends, splats) != want:
+        raise RuntimeError(f"{what}: a step launched {blends:g} blends and "
+                           f"{splats:g} splats, not {want}")
+
+
 def nested_trainer_phase():
-    """The nested-autograd trainer (fused=False) at full width."""
-    return _train_checked(
+    """The nested-autograd trainer (fused=False) at full width, with its
+    blend_o / splat_o launches a step checked."""
+    launches = _train_checked(
         f"nested {N}x{C}x{H}x{W}, {Q} points",
         TrainConfig(device="cuda", fused=False, steps=NESTED_STEPS,
                      log_every=1, seed=0), NESTED_STEPS,
         ("blend_o", "splat_o"))[0]
+    _check_nested_launches("nested 2D trainer", 2,
+                           launches["blend_o"] / NESTED_STEPS,
+                           launches["splat_o"] / NESTED_STEPS)
+    return launches
 
 
 MODEL_3D = pinn.PINNConfig(dim=3, n_cells=N3, cell_size=S3, pde="helmholtz")
@@ -2039,6 +2417,7 @@ def vol_trainer_phase():
           f"(D, H, W, N, C) volume has no pad slots", flush=True)
     if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
         raise RuntimeError(f"vol-resident and {kind} trainers disagree")
+    vol_trainer_phase.losses = losses
     cfg = pinn.PINNConfig(dim=3, n_cells=5, cell_dim=3, cell_size=6,
                           pde="helmholtz")
     with PointGenerator(120, 3, seed=7) as gen:
@@ -2102,6 +2481,10 @@ def nested_vol_trainer_phase():
         decrease=False)
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
+    blend, splat = _expected(MODEL_NV.sampler, (N5, C, *(S5,) * 3), N5 * QN)
+    _check_nested_launches("nested 128^3 trainer", 3,
+                           launches[blend] / STEPS_NESTED_VOL,
+                           launches[splat] / STEPS_NESTED_VOL)
     with _routed("blend_o"):
         ref_launches, ref = _train_checked(
             f"nested 3D {N5}x{C}x{S5}^3, {QN} points, routed to blend_o",
@@ -2229,9 +2612,11 @@ def nested_vol_step_phase():
 
 
 def launch_breakdown_phase():
-    """One nested step's launches, split at loss.backward(): the splats
-    before it go to the cells from autograd.grad(..., points) calls and are
-    dropped (needs_input_grad is fixed at forward time)."""
+    """One nested step's launches, split at the backward to the params (as
+    the train step runs it): the loss (u and the two autograd.grad calls
+    to the points) launches blends only, no splat to the cells, whose
+    cotangent those calls drop; the backward launches no blend for the
+    points' cotangent, which nothing reads."""
     cfg = pinn.PINNConfig()
     params = pinn.init_params(torch.Generator().manual_seed(0), cfg, "cuda")
     with PointGenerator(Q, 2, seed=9) as gen:
@@ -2240,12 +2625,15 @@ def launch_breakdown_phase():
     loss = pinn.loss(params, pts, cfg)
     fwd = _counts()
     _reset_counts()
-    loss.backward()
+    loss.backward(inputs=list(params.values()))
     bwd = _counts()
     print(f"launches of one nested step: loss (u and the two autograd.grad "
-          f"calls) blend_o {fwd['blend_o']}, splat_o {fwd['splat_o']} (all "
-          f"dropped); loss.backward() blend_o {bwd['blend_o']}, splat_o "
+          f"calls) blend_o {fwd['blend_o']}, splat_o {fwd['splat_o']}; "
+          f"backward to the params blend_o {bwd['blend_o']}, splat_o "
           f"{bwd['splat_o']}", flush=True)
+    if (fwd["splat_o"], bwd["blend_o"]) != (0, 0):
+        raise RuntimeError("a nested step launched a kernel for a cotangent "
+                           "nothing reads")
 
 
 def _loss_and_grads(loss_fn, cfg, device, pts, seed):
@@ -2699,6 +3087,8 @@ def main():
     errs["mega2w"] = _timed(mega_kernel_phase)
     errs.update(_timed(fused3w_kernel_phase))
     errs.update(_timed(fused3b_kernel_phase))
+    ghost_errs, ghost_det = _timed(fused3b_ghost_kernel_phase)
+    errs.update(ghost_errs)
     errs.update(_timed(pc_slab_kernel_phase))
     launches, fused_losses = _timed(fused_trainer_phase)
     mega = _timed(mega_trainer_phase, fused_losses)
@@ -2707,6 +3097,7 @@ def main():
     _timed(nested_3d_phase)
     fused3 = _timed(fused_3d_phase)
     vol = _timed(vol_trainer_phase)
+    ghost = _timed(ghost_trainer_phase)
     nested_vol = _timed(nested_vol_trainer_phase)
     per_cell = [_timed(per_cell_chain_phase),
                 *_timed(sparse_and_2d_phase).values()]
@@ -2719,11 +3110,14 @@ def main():
                     fused3w_blend=fused3["fused3w_blend"],
                     fused3w_bwd=fused3["fused3w_bwd"],
                     fused3b_blend=vol["fused3b_blend"],
-                    fused3b_bwd=vol["fused3b_bwd"])
+                    fused3b_bwd=vol["fused3b_bwd"],
+                    fused3b_bwd_ghost=ghost["fused3b_bwd_ghost"])
     errs.update(_timed(fused_v1_kernel_phase))
     errs.update(_timed(fused2d_kernel_phase))
-    launches.update({k: v for k, v in _timed(wide_trainer_phase).items()
-                     if k in ("fused_blend", "fused_bwd")})
+    _timed(wide_kernel_phase)
+    wide = _timed(wide_trainer_phase)
+    launches.update(fused_blend=wide["2D"]["fused_blend"],
+                    fused_bwd=wide["2D"]["fused_bwd"])
     small_launches, _ = _timed(small_cloud_sweep_phase)
     launches.update(fused2d_blend=small_launches["fused2d_blend"],
                     fused2d_bwd=small_launches["fused2d_bwd"])
@@ -2732,6 +3126,7 @@ def main():
     _timed(vol_wide_trainer_phase)
     _timed(planned_wide_phase)
     _timed(small_cloud_3d_sweep_phase)
+    _timed(wide_route_sweep_phase)
     path_c = _timed(small_cloud_3d_trainer_phase)
     launches.update({k: path_c.get(k, 0) for k in (
         "fused3d_blend", "fused3d_bwd", "fused3s_blend", "fused3s_bwd")})
@@ -2741,10 +3136,12 @@ def main():
     times.update(_timed(v1_time_phase))
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))
+    times.update(_timed(ghost_time_phase))
     times.update(_timed(pc_slab_time_phase))
     _timed(route_phase)
     _timed(step_phase)
     _timed(nested_vol_step_phase)
+    _timed(nested_ops_phase)
     times.update(_timed(wide_time_phase))
     times.update(_timed(fused3ds_time_phase))
     _timed(wide_step_phase)
@@ -2753,6 +3150,9 @@ def main():
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}
                for name in REPLACES]
+    print(f"fused3b_bwd_ghost: two runs on the same inputs at config 5 "
+          f"differ by at most {ghost_det:.3e} (the fold sums in a fixed "
+          f"order; the bricks' shared-memory atomics do not)", flush=True)
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise RuntimeError(f"a kernel of the main paths never launched: "

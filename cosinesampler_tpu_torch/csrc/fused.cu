@@ -1,7 +1,7 @@
 // The v1 fused value/jacobian/diagonal-Hessian blend and its transpose to
 // the cells, in 2D and 3D and at any channel count, for NVIDIA Hopper
-// (sm_90a): the fused op's route above the 8 channels fused2w / fused3w
-// are instantiated for.
+// (sm_90a): a route of the fused op above 8 channels, beside fused2w /
+// fused3w's channel groups (ops/cuda/route.py fused_rule).
 //
 // fused_v1_blend2 / fused_v1_blend3 replace the TPU kernel
 //   ops/pallas/fused.py::_fused_blend_kernel of the JAX package

@@ -37,6 +37,11 @@
 //   of the queries into it with shared-memory atomics, and flushes the
 //   chunk once with global atomicAdd.  Grids whose single cell does not fit
 //   in the card's opted-in shared memory take global atomics directly.
+// * Channels: up to 8 a thread keeps all 5*C rows in registers; above it
+//   a grid axis walks channel groups, of at most 8 in the blend (C = 16:
+//   two of 8) and of at most 4 in the bwd, each redoing the per-(query,
+//   cell) coordinate math (fused_rows.cuh dispatch_groups), so any C
+//   takes these kernels as JAX's fused2w takes any C within VMEM.
 // * The TPU backward was deterministic (a sequential read-modify-write
 //   chain).  This one is not: f32 atomics add in an order that changes from
 //   run to run, so results agree with the plain version to rounding, not
@@ -61,19 +66,18 @@ csm::CellGeom<2> geom2(int h, int w) {
 
 extern "C" {
 
-// Maximum channel count the fused and mega2w kernels are instantiated for.
-int fused2w_max_channels() { return csm::kMaxChannels; }
-
 int fused2w_blend(const void* cells, const void* points, void* out, int n,
                   int c, int h, int w, int q, int kernel, int padding,
                   int align, int multicell, int strict, float off_step,
                   float off_stop, void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    return csm::fused::launch_blend<2, decltype(cc)::value>(
+  return csm::fused::dispatch_groups<csm::fused::kBlendGroup>(
+      c, [&](auto gw, auto one) {
+    return csm::fused::launch_blend<2, decltype(gw)::value,
+                                     decltype(one)::value>(
         static_cast<const float*>(cells), static_cast<const float*>(points),
-        static_cast<float*>(out), n, geom2(h, w), q, p,
+        static_cast<float*>(out), n, c, geom2(h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -85,10 +89,12 @@ int fused2w_bwd(const void* g, const void* points, void* dcells, int n,
                 void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    return csm::fused::launch_bwd<2, decltype(cc)::value>(
+  return csm::fused::dispatch_groups<csm::fused::kBwdGroup>(
+      c, [&](auto gw, auto one) {
+    return csm::fused::launch_bwd<2, decltype(gw)::value,
+                                     decltype(one)::value>(
         static_cast<const float*>(g), static_cast<const float*>(points),
-        static_cast<float*>(dcells), n, geom2(h, w), q, p,
+        static_cast<float*>(dcells), n, c, geom2(h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }

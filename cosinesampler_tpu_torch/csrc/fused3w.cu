@@ -32,6 +32,9 @@
 //   card's limit (227 KB on the H100: 3 cells per chunk) and runs 512
 //   threads, one block per SM.  A cell above the limit (4 x 32^3) takes
 //   global atomics directly.  f32 atomics: not deterministic.
+// * Channels: above 8, channel groups on a grid axis, of at most 8 in the
+//   blend and 4 in the bwd, as fused2w (csrc/fused2w.cu); the bwd's
+//   chunks hold one group's planes.
 // The kernels are the D = 3 instances of csrc/fused_rows.cuh.
 #include <cuda_runtime.h>
 
@@ -45,10 +48,12 @@ int fused3w_blend(const void* cells, const void* points, void* out, int n,
                   float off_stop, void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    return csm::fused::launch_blend<3, decltype(cc)::value>(
+  return csm::fused::dispatch_groups<csm::fused::kBlendGroup>(
+      c, [&](auto gw, auto one) {
+    return csm::fused::launch_blend<3, decltype(gw)::value,
+                                     decltype(one)::value>(
         static_cast<const float*>(cells), static_cast<const float*>(points),
-        static_cast<float*>(out), n, csm::cell_geom3(d, h, w), q, p,
+        static_cast<float*>(out), n, c, csm::cell_geom3(d, h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -60,10 +65,12 @@ int fused3w_bwd(const void* g, const void* points, void* dcells, int n,
                 float off_stop, void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::dispatch_channels(c, [&](auto cc) {
-    return csm::fused::launch_bwd<3, decltype(cc)::value>(
+  return csm::fused::dispatch_groups<csm::fused::kBwdGroup>(
+      c, [&](auto gw, auto one) {
+    return csm::fused::launch_bwd<3, decltype(gw)::value,
+                                     decltype(one)::value>(
         static_cast<const float*>(g), static_cast<const float*>(points),
-        static_cast<float*>(dcells), n, csm::cell_geom3(d, h, w), q, p,
+        static_cast<float*>(dcells), n, c, csm::cell_geom3(d, h, w), q, p,
         static_cast<cudaStream_t>(stream));
   });
 }

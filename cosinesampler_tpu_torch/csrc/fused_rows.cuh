@@ -19,7 +19,9 @@
 
 namespace csm {
 
-// Channel counts the fused kernels are instantiated for.
+// The most channels whose rows a fused or mega2w thread keeps in
+// registers at once: a stack of more channels is walked in groups of at
+// most this many (fused::dispatch_groups).
 constexpr int kMaxChannels = 8;
 
 template <int D>
@@ -41,14 +43,16 @@ inline CellGeom<3> cell_geom3(int d, int h, int w) {
   return g;
 }
 
-// Calls f(flat texel index, wr) for every in-bounds corner of the query
-// at pt in cell ni, wr[r] being the corner's weight in row r.  Corners run
-// with axis 0 fastest; a corner out of bounds (zeros padding) is dropped.
+// Calls f(ci, flat texel index, wr) for every in-bounds corner of the
+// query at pt in cell ni, ci[i] being the corner's index on grid axis i and
+// wr[r] its weight in row r.  Corners run with axis 0 fastest; a corner out
+// of bounds (zeros padding) is dropped.
 template <int D, typename F>
-__device__ __forceinline__ void for_each_corner(const CellGeom<D>& g,
-                                                const float (&pt)[D], int ni,
-                                                int n, const SamplerParams& p,
-                                                F&& f) {
+__device__ __forceinline__ void for_each_corner_axes(const CellGeom<D>& g,
+                                                     const float (&pt)[D],
+                                                     int ni, int n,
+                                                     const SamplerParams& p,
+                                                     F&& f) {
   const float off = cell_offset(ni, n, p);
   AxisTable a[D];
 #pragma unroll
@@ -56,12 +60,13 @@ __device__ __forceinline__ void for_each_corner(const CellGeom<D>& g,
 #pragma unroll
   for (int k = 0; k < (1 << D); ++k) {
     int idx = 0, stride = 1;
+    int ci[D];
     bool ok = true;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      const int ci = a[i].i0 + ((k >> i) & 1);
-      ok = ok && ci >= 0 && ci < g.size[i];
-      idx += ci * stride;
+      ci[i] = a[i].i0 + ((k >> i) & 1);
+      ok = ok && ci[i] >= 0 && ci[i] < g.size[i];
+      idx += ci[i] * stride;
       stride *= g.size[i];
     }
     if (!ok) continue;
@@ -77,8 +82,21 @@ __device__ __forceinline__ void for_each_corner(const CellGeom<D>& g,
       }
       wr[r] = w;
     }
-    f(idx, wr);
+    f(ci, idx, wr);
   }
+}
+
+// for_each_corner_axes calling f(flat texel index, wr).
+template <int D, typename F>
+__device__ __forceinline__ void for_each_corner(const CellGeom<D>& g,
+                                                const float (&pt)[D], int ni,
+                                                int n, const SamplerParams& p,
+                                                F&& f) {
+  for_each_corner_axes<D>(
+      g, pt, ni, n, p,
+      [&](const int (&)[D], int idx, const float (&wr)[kRows<D>]) {
+        f(idx, wr);
+      });
 }
 
 // acc[r][c] = row r, channel c of the query at pt, summed over all n cells.
@@ -225,41 +243,79 @@ constexpr int kBlendThreads = 128;
 constexpr int kBwdThreadsSmall = 256;
 constexpr int kBwdThreadsLarge = 512;
 
-// One thread per query: its 1 + 2D rows over all n cells, in registers.
-template <int D, int C>
+// Channels: up to kMaxChannels a thread keeps all C channels' rows in
+// registers (ONE: the whole stack is one group, C == G, as compile-time
+// constants).  Above it a grid axis walks channel groups, each redoing the
+// per-(query, cell) coordinate math: the blend's of at most kBlendGroup
+// channels (C = 12: two of 6; C = 16: two of 8), the bwd's of at most
+// kBwdGroup (C = 16: four of 4), whose cotangent registers and
+// shared-memory chunks are half as wide.  Groups of 4 took fused2w_bwd
+// at 96 x 16 x 16^2 from 3.56 to 2.61 ms and fused3w's blend + bwd at
+// 16 x 16 x 128^3 below the v1 pair's, but fused3w_bwd at 50 x 16 x 16^3
+// from 3.69 to 4.51 ms (PERF.md section 4; route.py routes by it).
+constexpr int kBlendGroup = kMaxChannels;
+constexpr int kBwdGroup = 4;
+
+// One thread per query: its 1 + 2D rows over all n cells, in registers,
+// for channels [by * G, by * G + cg) of c.
+template <int D, int G, bool ONE>
 __global__ void __launch_bounds__(kBlendThreads)
     blend_kernel(const float* __restrict__ cells,
                  const float* __restrict__ points, float* __restrict__ out,
-                 int n, CellGeom<D> g, int q, SamplerParams p) {
+                 int n, int c, CellGeom<D> g, int q, SamplerParams p) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= q) return;
   float pt[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-  float acc[kRows<D>][C];
-  blend_query<D, C>(cells, g, n, pt, p, acc);
+  float acc[kRows<D>][G];
+  if constexpr (ONE) {
+    blend_query<D, G>(cells, g, n, pt, p, acc);
 #pragma unroll
-  for (int r = 0; r < kRows<D>; ++r)
+    for (int r = 0; r < kRows<D>; ++r)
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      out[static_cast<int64_t>(r * C + c) * q + qi] = acc[r][c];
+      for (int j = 0; j < G; ++j)
+        out[static_cast<int64_t>(r * G + j) * q + qi] = acc[r][j];
+  } else {
+    const int c0 = blockIdx.y * G;
+    const int cg = min(G, c - c0);
+#pragma unroll
+    for (int r = 0; r < kRows<D>; ++r)
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[r][j] = 0.0f;
+    blend_query_range<D, G>(cells + static_cast<int64_t>(c0) * g.texels,
+                            static_cast<int64_t>(c) * g.texels, g, 0, n, n,
+                            cg, pt, p, acc);
+#pragma unroll
+    for (int r = 0; r < kRows<D>; ++r)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (j < cg)
+          out[static_cast<int64_t>(r * c + c0 + j) * q + qi] = acc[r][j];
+  }
 }
 
-// Block (bx, by) accumulates queries [bx * q_per_block, ...) into cells
-// [by * cells_per_chunk, ...).  SMEM: in shared memory, flushed once at the
-// end; otherwise straight into dcells.  dcells must be zeroed.
-template <int D, int C, bool SMEM>
+// Block (bx, by, bz) accumulates queries [bx * q_per_block, ...) into cells
+// [by * cells_per_chunk, ...), channels [bz * G, bz * G + cg).  SMEM: in
+// shared memory, flushed once at the end; otherwise straight into dcells.
+// dcells must be zeroed.
+template <int D, int G, bool ONE, bool SMEM>
 __global__ void __launch_bounds__(kBwdThreadsLarge)
     bwd_kernel(const float* __restrict__ g, const float* __restrict__ points,
-               float* __restrict__ dcells, int n, CellGeom<D> geom, int q,
-               int cells_per_chunk, int q_per_block, SamplerParams p) {
+               float* __restrict__ dcells, int n, int c, CellGeom<D> geom,
+               int q, int cells_per_chunk, int q_per_block,
+               SamplerParams p) {
   extern __shared__ float sacc[];
-  const int cell_elems = C * geom.texels;
+  const int c0 = ONE ? 0 : blockIdx.z * G;
+  const int cg = ONE ? G : min(G, c - c0);
+  const int cs = ONE ? G : c;
+  const int64_t cell_stride = static_cast<int64_t>(cs) * geom.texels;
+  const int group_elems = cg * geom.texels;
   const int n0 = blockIdx.y * cells_per_chunk;
   const int n1 = min(n, n0 + cells_per_chunk);
-  const int chunk_elems = (n1 - n0) * cell_elems;
-  float* chunk_out = dcells + static_cast<int64_t>(n0) * cell_elems;
-  float* acc = SMEM ? sacc : chunk_out;
+  const int chunk_elems = (n1 - n0) * group_elems;
+  float* chunk_out = dcells + n0 * cell_stride +
+                     static_cast<int64_t>(c0) * geom.texels;
   if (SMEM) {
     for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) sacc[e] = 0.0f;
     __syncthreads();
@@ -268,49 +324,68 @@ __global__ void __launch_bounds__(kBwdThreadsLarge)
   const int q0 = blockIdx.x * q_per_block;
   const int q1 = min(q, q0 + q_per_block);
   for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
-    float gv[kRows<D>][C];
+    float gv[kRows<D>][G];
 #pragma unroll
     for (int r = 0; r < kRows<D>; ++r)
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        gv[r][c] = __ldg(g + static_cast<int64_t>(r * C + c) * q + qi);
+      for (int j = 0; j < G; ++j)
+        gv[r][j] = j < cg ? __ldg(g + static_cast<int64_t>(r * cs + c0 + j) *
+                                          q + qi)
+                          : 0.0f;
     float pt[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-    splat_query<D, C>(acc, geom, n0, n1, n, pt, p, gv);
+    if constexpr (ONE) {
+      splat_query<D, G>(SMEM ? sacc : chunk_out, geom, n0, n1, n, pt, p, gv);
+    } else if (SMEM) {
+      splat_query_range<D, G>(sacc, group_elems, geom, n0, n1, n, cg, pt, p,
+                              gv);
+    } else {
+      splat_query_range<D, G>(chunk_out, cell_stride, geom, n0, n1, n, cg,
+                              pt, p, gv);
+    }
   }
 
   if (SMEM) {
     __syncthreads();
     for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) {
       const float v = sacc[e];
-      if (v != 0.0f) atomicAdd(chunk_out + e, v);
+      if (v == 0.0f) continue;
+      if constexpr (ONE) {
+        atomicAdd(chunk_out + e, v);
+      } else {
+        const int ln = e / group_elems;
+        atomicAdd(chunk_out + ln * cell_stride + (e - ln * group_elems), v);
+      }
     }
   }
 }
 
-template <int D, int C>
+template <int D, int G, bool ONE>
 cudaError_t launch_blend(const float* cells, const float* points, float* out,
-                         int n, const CellGeom<D>& g, int q,
+                         int n, int c, const CellGeom<D>& g, int q,
                          const SamplerParams& p, cudaStream_t stream) {
   if (q == 0) return cudaGetLastError();
-  blend_kernel<D, C><<<cdiv(q, kBlendThreads), kBlendThreads, 0, stream>>>(
-      cells, points, out, n, g, q, p);
+  const dim3 grid(cdiv(q, kBlendThreads),
+                  ONE ? 1 : channel_groups(c, kBlendGroup));
+  blend_kernel<D, G, ONE><<<grid, kBlendThreads, 0, stream>>>(
+      cells, points, out, n, c, g, q, p);
   return cudaGetLastError();
 }
 
-template <int D, int C>
+template <int D, int G, bool ONE>
 cudaError_t launch_bwd(const float* g, const float* points, float* dcells,
-                       int n, const CellGeom<D>& geom, int q,
+                       int n, int c, const CellGeom<D>& geom, int q,
                        const SamplerParams& p, cudaStream_t stream) {
   if (q == 0 || n == 0 || geom.texels == 0) return cudaGetLastError();
   DeviceLimits lim;
   cudaError_t err = device_limits(&lim);
   if (err != cudaSuccess) return err;
 
-  // up to 48 KB of cells per block, or as many cells of a larger size as
-  // the opted-in limit holds; a cell above that takes global atomics
-  const int64_t cell_bytes = static_cast<int64_t>(C) * geom.texels * 4;
+  // chunks of cells of one channel group: up to 48 KB, or as many groups
+  // of a larger cell as the opted-in limit holds; above it global atomics
+  const int groups = ONE ? 1 : channel_groups(c, kBwdGroup);
+  const int64_t cell_bytes = static_cast<int64_t>(G) * geom.texels * 4;
   const bool smem = cell_bytes <= lim.smem_optin;
   const int64_t budget =
       cell_bytes <= kStaticSmemBytes ? kStaticSmemBytes : lim.smem_optin;
@@ -329,20 +404,39 @@ cudaError_t launch_bwd(const float* g, const float* points, float* dcells,
                                               static_cast<int>(bytes + 1024)))
            : 4;
   const int q_blocks = std::max(
-      1, std::min(cdiv(per_sm * lim.sms, chunks), cdiv(q, threads)));
+      1, std::min(cdiv(per_sm * lim.sms, chunks * groups), cdiv(q, threads)));
   const int q_per_block = cdiv(q, q_blocks);
-  const dim3 grid(cdiv(q, q_per_block), chunks);
+  const dim3 grid(cdiv(q, q_per_block), chunks, groups);
   if (smem) {
-    auto* kernel = &bwd_kernel<D, C, true>;
+    auto* kernel = &bwd_kernel<D, G, ONE, true>;
     err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, bytes, stream>>>(g, points, dcells, n, geom, q,
+    kernel<<<grid, threads, bytes, stream>>>(g, points, dcells, n, c, geom, q,
                                              cells_per_chunk, q_per_block, p);
   } else {
-    bwd_kernel<D, C, false><<<grid, threads, 0, stream>>>(
-        g, points, dcells, n, geom, q, cells_per_chunk, q_per_block, p);
+    bwd_kernel<D, G, ONE, false><<<grid, threads, 0, stream>>>(
+        g, points, dcells, n, c, geom, q, cells_per_chunk, q_per_block, p);
   }
   return cudaGetLastError();
+}
+
+// Calls launch(std::integral_constant<int, G>, std::bool_constant<ONE>)
+// for c channels: c <= kMaxChannels as one group (G = c, ONE), more as
+// groups of group_width(c, MOST), which is over MOST / 2 for c > MOST.
+template <int MOST, typename F>
+cudaError_t dispatch_groups(int c, F&& launch) {
+  if (c <= kMaxChannels) {
+    return dispatch_channels(c, [&](auto cc) {
+      return launch(cc, std::true_type{});
+    });
+  }
+  return dispatch_channels(group_width(c, MOST), [&](auto gw) -> cudaError_t {
+    constexpr int G = decltype(gw)::value;
+    if constexpr (G > MOST / 2 && G <= MOST)
+      return launch(gw, std::false_type{});
+    else
+      return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace fused

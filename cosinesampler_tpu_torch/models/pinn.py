@@ -353,7 +353,10 @@ def make_train_step(cfg: PINNConfig, optimizer: torch.optim.Optimizer,
     def run(params, loss_fn):
         optimizer.zero_grad(set_to_none=True)
         lval = loss_fn(params)
-        lval.backward()
+        # the params only: the nested loss's points are a leaf that requires
+        # grad, and a cotangent nothing reads launches no kernel
+        # (ops/sampler.py)
+        lval.backward(inputs=list(params.values()))
         optimizer.step()
         return lval.detach()
 

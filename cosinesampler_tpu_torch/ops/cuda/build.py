@@ -127,10 +127,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # stop; the stream
         fn.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
         fn.restype = i32
-    # cells, w1, b1, w2, b2, points, dcells, grads; n, c, h, w, q, hidden,
-    # pde, kernel, padding, align, multicell, strict; the offset lattice's
-    # step and stop; the stream
-    lib.mega2w_step.argtypes = [ptr] * 8 + [i32] * 12 + [f32, f32, ptr]
+    # g, slot points, occ, hasv, sbi, first, last, visited, bricks; n, c,
+    # d, h, w, qp, nsb, nbz, nysb, own, rows_s, fp, nsh, kernel, padding,
+    # align, multicell, strict; the offset lattice's step and stop; the
+    # stream
+    lib.fused3b_bwd_ghost.argtypes = [ptr] * 9 + [i32] * 18 + [f32, f32, ptr]
+    lib.fused3b_bwd_ghost.restype = i32
+    # bricks, visited, dvol; n, c, d, h, w, nbz, nysb, own, rows_s, fp, nsh;
+    # the stream
+    lib.fused3b_ghost_fold.argtypes = [ptr] * 3 + [i32] * 11 + [ptr]
+    lib.fused3b_ghost_fold.restype = i32
+    # cells, w1, b1, w2, b2, points, dcells, grads, scratch; n, c, h, w,
+    # q, hidden, pde, kernel, padding, align, multicell, strict; the offset
+    # lattice's step and stop; the stream
+    lib.mega2w_step.argtypes = [ptr] * 9 + [i32] * 12 + [f32, f32, ptr]
     lib.mega2w_step.restype = i32
     for fn in (lib.blend_o, lib.splat_o):
         # 3 data pointers; dim, n, c, d, h, w, q, grid batch, 3 orders,
@@ -147,8 +157,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # as blend_o, with the slab rows dz and channels cc after the orders
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 18 + [f32, f32, ptr]
         fn.restype = i32
-    lib.fused2w_max_channels.argtypes = []
-    lib.fused2w_max_channels.restype = i32
     lib.csm_error_string.argtypes = [i32]
     lib.csm_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,8 +4,9 @@ in 2D and 3D at any channel count.
 Counterpart of the JAX package's ops/pallas/fused.py (``pallas_fused_blend``
 / ``pallas_fused_bwd``): (N, C, *S) cells at (Q, d) shared points ->
 (1+2d, C, Q) rows value, d/dx_i, d2/dx_i2 summed over the cells, and the
-exact transpose.  The fused op routes here above the 8 channels fused2w /
-fused3w take (ops/cuda/route.py ``fused_rule``).
+exact transpose.  The fused op routes here above 8 channels where these
+beat fused2w's / fused3w's channel groups (ops/cuda/route.py
+``fused_rule``).
 
 * The plain versions are ops/cuda/fused2w.py's ``plain_fused_blend`` /
   ``plain_fused_bwd``, which take any dim and channel count (the JAX
@@ -39,7 +40,7 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
     out = kernel_blend(f"fused_v1_blend{cfg.dim}", cfg.dim, cells, points,
-                       cfg, capped=False)
+                       cfg)
     fused_blend.launches += 1
     return out
 
@@ -53,7 +54,7 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
     if g.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
     dcells = kernel_bwd(f"fused_v1_bwd{cfg.dim}", cfg.dim, g, points,
-                        tuple(in_spatial), cfg, n_cells, capped=False)
+                        tuple(in_spatial), cfg, n_cells)
     fused_bwd.launches += 1
     return dcells
 

@@ -69,7 +69,7 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
     _check(cfg, tuple(cells.shape))
-    out = kernel_blend("fused2d_blend", 2, cells, points, cfg, capped=False)
+    out = kernel_blend("fused2d_blend", 2, cells, points, cfg)
     fused_blend.launches += 1
     return out
 
@@ -83,7 +83,7 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
         return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
     _check(cfg, (n_cells, *g.shape[1:2], *in_spatial))
     dcells = kernel_bwd("fused2d_bwd", 2, g, points, tuple(in_spatial), cfg,
-                        n_cells, capped=False)
+                        n_cells)
     fused_bwd.launches += 1
     return dcells
 

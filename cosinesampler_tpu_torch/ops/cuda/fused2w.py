@@ -114,12 +114,8 @@ def sampler_args(cfg: SamplerConfig, n: int, device: torch.device):
 
 def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
             out: torch.Tensor, cfg: SamplerConfig, n: int, c: int,
-            spatial: Tuple[int, ...], q: int, capped: bool) -> None:
+            spatial: Tuple[int, ...], q: int) -> None:
     lib = load_kernels()
-    if capped and c > lib.fused2w_max_channels():
-        raise NotImplementedError(
-            f"the CUDA kernels take at most {lib.fused2w_max_channels()} "
-            f"channels, got {c}")
     if n * c * math.prod(spatial) >= 2**31:
         raise ValueError("cell stack too large for the kernels' 32-bit "
                          "indexing")
@@ -131,11 +127,10 @@ def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
 
 
 def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
-                 points: torch.Tensor, cfg: SamplerConfig,
-                 capped: bool = True) -> torch.Tensor:
+                 points: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
     """(1+2d, C, Q) from the fused blend kernel ``entry`` of dimension
-    ``dim`` (fused2w_blend, fused3w_blend, fused2d_blend) on CUDA tensors;
-    ``capped``: the kernel takes at most fused2w_max_channels channels."""
+    ``dim`` (fused2w_blend, fused3w_blend, fused2d_blend, ...) on CUDA
+    tensors."""
     device = cuda_device(cells, points)
     check_kernel_inputs(cfg, cells, points)
     if (cfg.dim != dim or cells.dim() != 2 + dim or points.dim() != 2
@@ -147,16 +142,16 @@ def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
     n, c, *spatial = cells.shape
     q = points.shape[0]
     out = torch.empty((1 + 2 * dim, c, q), dtype=torch.float32, device=device)
-    _launch(entry, cells, points, out, cfg, n, c, tuple(spatial), q, capped)
+    _launch(entry, cells, points, out, cfg, n, c, tuple(spatial), q)
     return out
 
 
 def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
                in_spatial: Tuple[int, ...], cfg: SamplerConfig,
-               n_cells: int, capped: bool = True) -> torch.Tensor:
+               n_cells: int) -> torch.Tensor:
     """(N, C, *in_spatial) from the fused transpose kernel ``entry`` of
-    dimension ``dim`` (fused2w_bwd, fused3w_bwd, fused2d_bwd) on CUDA
-    tensors; ``capped`` as for kernel_blend."""
+    dimension ``dim`` (fused2w_bwd, fused3w_bwd, fused2d_bwd, ...) on CUDA
+    tensors."""
     device = cuda_device(g, points)
     check_kernel_inputs(cfg, g, points)
     if (cfg.dim != dim or g.dim() != 3 or g.shape[0] != 1 + 2 * dim
@@ -170,8 +165,7 @@ def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
     c, q = g.shape[1:]
     dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
                          device=device)
-    _launch(entry, g, points, dcells, cfg, n_cells, c, tuple(in_spatial), q,
-            capped)
+    _launch(entry, g, points, dcells, cfg, n_cells, c, tuple(in_spatial), q)
     return dcells
 
 

@@ -29,24 +29,38 @@ Counterpart of the JAX package's ops/pallas/fused3b.py, the route of large
 The kernels gather and scatter anywhere in the volume; the plan only
 orders the queries, so that the queries of one block share one brick of
 it and their gathers and atomics stay in L2.
+
+**The ghost path** (the JAX package's ``ghost=True``,
+``_fused3b_bwd_ghost_kernel`` with its fold ``_fold_bricks``): the same
+volume cotangent, accumulated per *super-brick* (one z slab of the plan
+times ``rb`` consecutive y bins) into a private brick, then folded onto
+the volume.  ``ghost_plan`` numbers the blocks' super-bricks as JAX does;
+``plain_fused3b_bwd_ghost_vol`` accumulates and folds with torch ops and
+the index math of the CUDA pair (csrc/fused3b_ghost.cu), which
+``fused3b_bwd_ghost_vol`` wraps.  ``fused3b_bwd_vol(..., ghost=None)``
+takes it where ``GHOST_ROUTE`` says so and the bricks fit
+``GHOST_BUDGET_BYTES``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import SamplerConfig
 from ..coords import clip_coordinates, reflect_coordinates, unnormalize
-from .build import check, load_kernels
+from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
 
-__all__ = ["cells_to_vol", "fused3b_blend_vol", "fused3b_bwd_vol",
-           "make_plan", "plain_fused3b_blend_vol", "plain_fused3b_bwd_vol",
-           "supports", "vol_layout", "vol_to_cells"]
+__all__ = ["cells_to_vol", "fold_bricks", "fused3b_blend_vol",
+           "fused3b_bwd_ghost_vol", "fused3b_bwd_vol", "ghost_bricks",
+           "ghost_fits", "ghost_plan", "make_plan", "plain_fold_bricks",
+           "plain_fused3b_blend_vol", "plain_fused3b_bwd_ghost_vol",
+           "plain_fused3b_bwd_vol", "plain_ghost_bricks", "supports",
+           "vol_layout", "vol_to_cells"]
 
 # the JAX package's defaults (fused3b.V3B_Q_BLOCK, V3B_GY): slots per plan
 # block, and y rows per bin; csrc/fused3b.cu runs one CUDA block of
@@ -56,6 +70,22 @@ GY = 2
 # fewest queries per bin the route takes (fused3b._MIN_Q_PER_BIN): below
 # it the padding blocks outnumber the real ones
 MIN_Q_PER_BIN = 2
+# y bins per super-brick of the ghost path (JAX: V3B_RB = 8, cut by its
+# VMEM fit).  Here rb sets the bricks' bytes, nsh * (rb * GY + fp) /
+# (rb * GY) times the volume's, and the blocks' count: at config 5 rb = 8
+# was the fastest of 1, 2, 4 and 8 (chip_smoke.py ghost_time_phase,
+# PERF.md section 6)
+GHOST_RB = 8
+# the most bytes of private bricks the ghost path allocates; above it
+# fused3b_bwd_vol takes fused3b_bwd.  JAX's _GHOST_HBM_BUDGET (6 << 30)
+# counted the same bricks in its padded TPU layout (W to 128 lanes, N to
+# 8 sublanes), which only adds bytes: the same 6 GiB of the port's
+# unpadded bricks admits every shape JAX's admits
+GHOST_BUDGET_BYTES = 6 << 30
+# whether fused3b_bwd_vol(ghost=None) takes the ghost path where it fits:
+# opt-in, as in JAX, unless the card shows it faster than fused3b_bwd at
+# config 5 (PERF.md section 6)
+GHOST_ROUTE = False
 
 
 def _geom(d: int, h: int, gy: int):
@@ -247,10 +277,16 @@ def fused3b_blend_vol(vol: torch.Tensor, plan,
 
 
 def fused3b_bwd_vol(g_p: torch.Tensor, plan, in_spatial: Tuple[int, ...],
-                    cfg: SamplerConfig, n_cells: int) -> torch.Tensor:
+                    cfg: SamplerConfig, n_cells: int,
+                    ghost: Optional[bool] = None) -> torch.Tensor:
     """Kernel-layout (D, H, W, N, C) cotangent of fused3b_blend_vol for the
     (7, C, QP) slot cotangent ``g_p``; kernel on CUDA tensors, plain on CPU
-    ones."""
+    ones.  ``ghost`` (None: GHOST_ROUTE) takes fused3b_bwd_ghost_vol where
+    its bricks fit (ghost_fits), as JAX's ``ghost`` does."""
+    if ((GHOST_ROUTE if ghost is None else ghost)
+            and ghost_fits(cfg, vol_layout(n_cells, g_p.shape[1],
+                                           in_spatial))):
+        return fused3b_bwd_ghost_vol(g_p, plan, in_spatial, cfg, n_cells)
     if g_p.device.type == "cpu" and plan[5].device.type == "cpu":
         return plain_fused3b_bwd_vol(g_p, plan, in_spatial, cfg, n_cells)
     if g_p.dim() != 3 or g_p.shape[0] != 7 or len(in_spatial) != 3:
@@ -263,5 +299,246 @@ def fused3b_bwd_vol(g_p: torch.Tensor, plan, in_spatial: Tuple[int, ...],
     return dvol
 
 
+def fused3b_bwd_ghost_vol(g_p: torch.Tensor, plan,
+                          in_spatial: Tuple[int, ...], cfg: SamplerConfig,
+                          n_cells: int, rb: int = GHOST_RB) -> torch.Tensor:
+    """fused3b_bwd_vol's result through private super-bricks and the fold
+    (the ghost kernel and its fold, csrc/fused3b_ghost.cu); kernels on
+    CUDA tensors, plain_fused3b_bwd_ghost_vol on CPU ones."""
+    if g_p.device.type == "cpu" and plan[5].device.type == "cpu":
+        return plain_fused3b_bwd_ghost_vol(g_p, plan, in_spatial, cfg,
+                                           n_cells, rb)
+    gplan = ghost_plan(plan, in_spatial, rb)
+    bricks = ghost_bricks(g_p, plan, gplan, in_spatial, cfg, n_cells, rb)
+    dvol = fold_bricks(bricks, gplan[3], in_spatial, cfg, rb)
+    fused3b_bwd_ghost_vol.launches += 1
+    return dvol
+
+
 fused3b_blend_vol.launches = 0
 fused3b_bwd_vol.launches = 0
+fused3b_bwd_ghost_vol.launches = 0
+
+
+# --- the ghost path -----------------------------------------------------------
+
+class _GhostGeom(NamedTuple):
+    """The super-bricks of a (D, H, W) volume: in coordinates padded by
+    ``fp`` texels in front of z and y, super-brick sbi = ysb * nbz + z0
+    covers slabs [z0, z0 + nsh) and rows [ysb * own, ysb * own + rows_s)."""
+    nbz: int
+    nysb: int
+    own: int
+    rows_s: int
+    fp: int
+    nsh: int
+
+    @property
+    def nsb(self) -> int:
+        return self.nbz * self.nysb
+
+
+def _ghost_geom(cfg: SamplerConfig, in_spatial, rb: int,
+                gy: int = GY) -> _GhostGeom:
+    """prep.front_pad / n_shifts and fused3b's super-brick geometry: a
+    query's corners span nsh = fp + 1 texels from its bin's padded
+    origin."""
+    d, h, _ = in_spatial
+    nby, nbz, _ = _geom(d, h, gy)
+    fp = 3 if cfg.padding_mode == "reflection" else 2
+    return _GhostGeom(nbz=nbz, nysb=-(-nby // rb), own=rb * gy,
+                      rows_s=rb * gy + fp, fp=fp, nsh=fp + 1)
+
+
+def _group_width(c: int) -> int:
+    """csrc/fused_rows.cuh group_width: channels of one group of <= 8."""
+    return -(-c // -(-c // 8))
+
+
+def ghost_fits(cfg: SamplerConfig, vol_shape, rb: int = GHOST_RB) -> bool:
+    """Whether the ghost path takes a (D, H, W, N, C) volume: its bricks
+    within GHOST_BUDGET_BYTES and one cell of one channel group's brick
+    within a block's shared memory (csrc/fused3b_ghost.cu)."""
+    d, h, w, n, c = vol_shape
+    g = _ghost_geom(cfg, (d, h, w), rb)
+    brick = g.nsh * g.rows_s * w * n * c * 4
+    return (g.nsb * brick <= GHOST_BUDGET_BYTES
+            and g.nsh * g.rows_s * w * _group_width(c) * 4
+            <= BLOCK_SMEM_BYTES)
+
+
+def ghost_plan(plan, in_spatial, rb: int = GHOST_RB, gy: int = GY):
+    """``(sbi, first, last, visited)`` of a brick plan: each block's
+    super-brick (int32, (nblocks,)), each super-brick's first and last
+    block and whether a block maps to it (int32, (nsb,)), on the plan's
+    device, with no host sync.
+
+    As JAX's _bwd3b_from_slots: sbi = (y0 // gy // rb) * nbz + z0, and the
+    blocks without a real query (the plan's tail) take the last real
+    block's super-brick."""
+    z0, y0, hasv = plan[2].long(), plan[3].long(), plan[4].long()
+    d, h, _ = in_spatial
+    nby, nbz, _ = _geom(d, h, gy)
+    nsb = nbz * -(-nby // rb)
+    nblocks = hasv.shape[0]
+    dev = hasv.device
+    bi = torch.arange(nblocks, dtype=torch.int64, device=dev)
+    sbi = (y0 // gy // rb) * nbz + z0
+    last_real = sbi[torch.clamp(torch.max(bi * hasv), min=0)]
+    sbi = torch.where(hasv > 0, sbi, last_real)
+    visited = torch.zeros((nsb,), dtype=torch.int32, device=dev)
+    visited.scatter_(0, sbi, 1)
+    first = torch.full((nsb,), nblocks, dtype=torch.int64,
+                       device=dev).scatter_reduce_(0, sbi, bi, "amin")
+    last = torch.full((nsb,), -1, dtype=torch.int64,
+                      device=dev).scatter_reduce_(0, sbi, bi, "amax")
+    return sbi.int(), first.int(), last.int(), visited
+
+
+def plain_ghost_bricks(g_p, plan, gplan, in_spatial, cfg: SamplerConfig,
+                       n_cells: int, rb: int = GHOST_RB):
+    """(nsb, nsh, rows_s, W, N, C) private bricks: brick sbi holds the
+    kernel-layout cotangent of its blocks' real slots over its window of
+    the padded volume.  Bricks no block visits are NaN, as the kernel
+    leaves them uninitialized; a contribution outside its brick raises
+    (the kernel would drop it).
+
+    The super-bricks are taken in classes whose windows lie apart (z0
+    modulo 2 nsh, ysb modulo 1 + ceil(rows_s / own)), one plain_fused_bwd
+    per class: a corner that left its window would land between the
+    class's windows, where the check finds it."""
+    d, h, w = in_spatial
+    c = g_p.shape[1]
+    occ, pts_p = plan[1], plan[5]
+    sbi, _, _, visited = gplan
+    g = _ghost_geom(cfg, in_spatial, rb)
+    dev = g_p.device
+    bricks = torch.full((g.nsb, g.nsh, g.rows_s, w, n_cells, c), math.nan,
+                        dtype=g_p.dtype, device=dev)
+    my = 1 + -(-g.rows_s // g.own)
+    sb_all = torch.arange(g.nsb, device=dev)
+    sb_class = sb_all % g.nbz % (2 * g.nsh) * my + sb_all // g.nbz % my
+    slot_sb = sbi.long().repeat_interleave(Q_BLOCK)
+    live = occ > 0
+    for k in range(2 * g.nsh * my):
+        sbs = torch.nonzero((sb_class == k) & (visited > 0)).flatten()
+        if sbs.numel() == 0:
+            continue
+        idx = torch.nonzero(live & (sb_class[slot_sb] == k)).flatten()
+        part = cells_to_vol(plain_fused_bwd(
+            g_p[:, :, idx], pts_p[idx], tuple(in_spatial), cfg, n_cells))
+        # the padded volume: fp in front of z and y, room behind for the
+        # last windows
+        pad = part.new_zeros((g.nbz + g.nsh, g.nysb * g.own + g.rows_s,
+                              w, n_cells, c))
+        pad[g.fp:g.fp + d, g.fp:g.fp + h] = part
+        zi = (sbs % g.nbz)[:, None, None] + torch.arange(
+            g.nsh, device=dev)[None, :, None]
+        yi = (sbs // g.nbz * g.own)[:, None, None] + torch.arange(
+            g.rows_s, device=dev)[None, None, :]
+        bricks[sbs] = pad[zi, yi]
+        pad[zi, yi] = 0
+        if pad.abs().max() > 0:
+            raise AssertionError(
+                "a corner falls outside its super-brick's window")
+    return bricks
+
+
+def plain_fold_bricks(bricks, visited, in_spatial, cfg: SamplerConfig,
+                      rb: int = GHOST_RB):
+    """(D, H, W, N, C): each texel's sum over the bricks that cover it,
+    the owning y-brick first, then those whose spill rows reach it, z
+    shifts in order (csrc/fused3b_ghost.cu fold_kernel's order); unvisited
+    bricks are selected out, never multiplied."""
+    d, h, _ = in_spatial
+    g = _ghost_geom(cfg, in_spatial, rb)
+    dev = bricks.device
+    pz = torch.arange(d, device=dev) + g.fp
+    py = torch.arange(h, device=dev) + g.fp
+    out = bricks.new_zeros((d, h, *bricks.shape[3:]))
+    for dsb in range(1 + -(-g.fp // g.own)):
+        ysb = py // g.own - dsb
+        row = py - ysb * g.own
+        yok = (ysb >= 0) & (ysb < g.nysb) & (row < g.rows_s)
+        for k in range(g.nsh):
+            zs = pz - k
+            zok = (zs >= 0) & (zs < g.nbz)
+            sb = (ysb[None, :] * g.nbz + zs[:, None]).clamp(0, g.nsb - 1)
+            ok = zok[:, None] & yok[None, :] & (visited[sb] > 0)
+            vals = bricks[sb, k, row.clamp(0, g.rows_s - 1)[None, :]]
+            out = out + torch.where(ok[..., None, None, None], vals, 0.0)
+    return out
+
+
+def plain_fused3b_bwd_ghost_vol(g_p, plan, in_spatial, cfg: SamplerConfig,
+                                n_cells: int, rb: int = GHOST_RB):
+    """plain_fused3b_bwd_vol's result through plain_ghost_bricks and
+    plain_fold_bricks."""
+    gplan = ghost_plan(plan, in_spatial, rb)
+    bricks = plain_ghost_bricks(g_p, plan, gplan, in_spatial, cfg, n_cells,
+                                rb)
+    return plain_fold_bricks(bricks, gplan[3], in_spatial, cfg, rb)
+
+
+def ghost_bricks(g_p: torch.Tensor, plan, gplan, in_spatial,
+                 cfg: SamplerConfig, n_cells: int,
+                 rb: int = GHOST_RB) -> torch.Tensor:
+    """plain_ghost_bricks' bricks from the ghost kernel on CUDA tensors
+    (unvisited bricks uninitialized), the plain version on CPU ones."""
+    if g_p.device.type == "cpu" and plan[5].device.type == "cpu":
+        return plain_ghost_bricks(g_p, plan, gplan, in_spatial, cfg, n_cells,
+                                  rb)
+    d, h, w = in_spatial
+    c = g_p.shape[1]
+    if g_p.dim() != 3 or g_p.shape[0] != 7:
+        raise ValueError(f"fused3b_bwd_ghost takes g_p (7, C, QP); got "
+                         f"{tuple(g_p.shape)}")
+    if not ghost_fits(cfg, vol_layout(n_cells, c, in_spatial), rb):
+        raise ValueError("the ghost path does not take this volume "
+                         "(ghost_fits)")
+    occ, hasv, pts_p = _plan_args(plan, g_p)
+    sbi, first, last, visited = gplan
+    cuda_device(g_p, occ, hasv, pts_p, sbi, first, last, visited)
+    check_kernel_inputs(cfg, g_p, occ, pts_p)
+    g = _ghost_geom(cfg, in_spatial, rb)
+    if visited.shape != (g.nsb,) or sbi.shape != hasv.shape:
+        raise ValueError("the ghost plan does not match the plan and rb")
+    bricks = torch.empty((g.nsb, g.nsh, g.rows_s, w, n_cells, c),
+                         dtype=torch.float32, device=g_p.device)
+    lib = load_kernels()
+    with torch.cuda.device(g_p.device):
+        err = lib.fused3b_bwd_ghost(
+            g_p.data_ptr(), pts_p.data_ptr(), occ.data_ptr(), hasv.data_ptr(),
+            sbi.data_ptr(), first.data_ptr(), last.data_ptr(),
+            visited.data_ptr(), bricks.data_ptr(), n_cells, c, d, h, w,
+            g_p.shape[-1], g.nsb, g.nbz, g.nysb, g.own, g.rows_s, g.fp, g.nsh,
+            *sampler_args(cfg, n_cells, g_p.device))
+    check(lib, err, "fused3b_bwd_ghost launch")
+    return bricks
+
+
+def fold_bricks(bricks: torch.Tensor, visited: torch.Tensor, in_spatial,
+                cfg: SamplerConfig, rb: int = GHOST_RB) -> torch.Tensor:
+    """plain_fold_bricks from the fold kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    if bricks.device.type == "cpu" and visited.device.type == "cpu":
+        return plain_fold_bricks(bricks, visited, in_spatial, cfg, rb)
+    cuda_device(bricks, visited)
+    d, h, w = in_spatial
+    g = _ghost_geom(cfg, in_spatial, rb)
+    n, c = bricks.shape[-2:]
+    if (bricks.shape != (g.nsb, g.nsh, g.rows_s, w, n, c)
+            or visited.shape != (g.nsb,) or visited.dtype != torch.int32):
+        raise ValueError("the bricks do not match the volume and rb")
+    if d * h * w * n * c >= 2**31:
+        raise ValueError("volume too large for the kernels' 32-bit indexing")
+    dvol = torch.empty((d, h, w, n, c), dtype=torch.float32,
+                       device=bricks.device)
+    lib = load_kernels()
+    with torch.cuda.device(bricks.device):
+        err = lib.fused3b_ghost_fold(
+            bricks.data_ptr(), visited.data_ptr(), dvol.data_ptr(), n, c, d,
+            h, w, g.nbz, g.nysb, g.own, g.rows_s, g.fp, g.nsh,
+            torch.cuda.current_stream(bricks.device).cuda_stream)
+    check(lib, err, "fused3b_ghost_fold launch")
+    return dvol

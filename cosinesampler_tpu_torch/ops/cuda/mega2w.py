@@ -32,10 +32,13 @@ from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
 __all__ = ["mega2w_step", "plain_mega2w_step", "supports"]
 
 PDE_IDS = {"allen_cahn": 0, "helmholtz": 1}
-# csrc/fused_rows.cuh kMaxChannels; csrc/mega2w.cu kMaxHidden, the JAX
-# kernel's bound of 32 hidden rows
-MAX_CHANNELS = 8
+# the JAX kernel's bounds: C + 4 <= 128 (its MLP tile) and 32 hidden rows
+# (csrc/mega2w.cu kMaxHidden)
+MAX_CHANNELS = 124
 MAX_HIDDEN = 32
+# csrc/fused_rows.cuh kMaxChannels: above it the kernel keeps the feature
+# rows and their cotangents in a scratch of 10 * C * Q floats
+REGISTER_CHANNELS = 8
 
 
 def supports(cfg: SamplerConfig, cells_shape, pde: str, hidden: int) -> bool:
@@ -153,13 +156,16 @@ def mega2w_step(cells, w1, b1, w2, b2, points, cfg: SamplerConfig,
     ncell = cells.numel()
     out = torch.zeros((ncell + (c + 2) * hidden + 2,), dtype=torch.float32,
                       device=device)
+    scratch = (torch.empty((10 * c * q,), dtype=torch.float32, device=device)
+               if c > REGISTER_CHANNELS else None)
     lib = load_kernels()
     with torch.cuda.device(device):
         err = lib.mega2w_step(
             cells.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), points.data_ptr(), out.data_ptr(),
-            out[ncell:].data_ptr(), n, c, h, w, q, hidden, PDE_IDS[pde],
-            *sampler_args(cfg, n, device))
+            out[ncell:].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, c, h, w, q,
+            hidden, PDE_IDS[pde], *sampler_args(cfg, n, device))
     check(lib, err, "mega2w_step launch")
     mega2w_step.launches += 1
     row = out[ncell:]

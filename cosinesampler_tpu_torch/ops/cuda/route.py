@@ -19,10 +19,11 @@ PyTorch version on the call's own CUDA device, as the JAX package sends it
 to XLA: f64 tensors, and tensors whose element counts pass the kernels'
 32-bit indexing.  ``sampler_rule`` makes that decision for the public
 sampler and ``fused_rule`` for the fused op (ops/fused.py), after the JAX
-package's ``_fused_blend`` / ``_fused_bwd`` order: plain; fused2d or
-fused2w in 2D and fused3d, fused3s or fused3w in 3D up to
-``FUSED_MAX_CHANNELS`` channels; the channel-looped v1 kernels (B6,
-ops/cuda/fused.py) above.  Both are pure functions of facts known before
+package's ``_fused_blend`` / ``_fused_bwd`` order: plain; fused2d
+or fused2w in 2D and fused3d, fused3s or fused3w in 3D up to
+``FUSED_MAX_CHANNELS`` channels; above it fused2w's / fused3w's channel
+groups or the channel-looped v1 kernels (B6, ops/cuda/fused.py), by
+measurement.  Both are pure functions of facts known before
 any launch (device type, dtypes, element counts, channels, config), and
 ``pick`` / ``pick_fused`` apply them to a call's tensors: no route
 switches after a failed build or launch.
@@ -59,10 +60,20 @@ MIN_PAIRS = 1 << 20
 # the kernels index with 32-bit ints: a tensor of this many elements or
 # more takes the plain route
 INDEX_LIMIT = 2**31
-# the most channels the fused2w / fused3w kernels are instantiated for
-# (csrc/fused_rows.cuh kMaxChannels); above it the fused op takes the v1
-# kernels, which loop over channel groups
+# the most channels a fused2w / fused3w thread keeps in registers at once
+# (csrc/fused_rows.cuh kMaxChannels).  Above it both walk channel groups,
+# as the v1 kernels do, and the rule picks by chip_smoke.py's
+# wide_route_sweep_phase (PERF.md section 4): in 2D fused2w up to
+# FUSED2W_WIDE_MAX_C channels, the v1 pair above; in 3D fused3w up to
+# FUSED3W_WIDE_MAX_Q queries, the v1 pair above.  fused2w won on 96 x 12
+# x 16^2 at 1024, 16 384 and 100 000 points and lost at 16 channels at
+# all three; fused3w won on 50 x C x 16^3 at 8192 points at C = 16 (lost
+# by 4% at C = 12) and lost at 16 384 at both.  On 16 x C x 128^3 it won
+# by 2-3% at 100 000 too, which the rule gives up rather than extend a
+# bound to point counts the sweep does not reach.
 FUSED_MAX_CHANNELS = 8
+FUSED2W_WIDE_MAX_C = 12
+FUSED3W_WIDE_MAX_Q = 8192
 # in 2D up to 8 channels, fused2d up to FUSED2D_MAX_Q queries or up to
 # FUSED2D_MAX_PAIRS (cell, query) pairs, fused2w otherwise: each the last
 # point where fused2d won in chip_smoke.py's sweep (PERF.md section 4).
@@ -169,7 +180,10 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     dtype of its tensors: ``"plain"`` for CUDA calls no fused kernel takes
     (a dtype other than f32; strict reference in 2D with align_corners off,
     whose rows mix alignments; a tensor over the 32-bit indexing); else
-    ``"fused"`` (the v1 kernels) above FUSED_MAX_CHANNELS channels; in 3D
+    above FUSED_MAX_CHANNELS channels ``"fused2w"`` in 2D up to
+    FUSED2W_WIDE_MAX_C channels, ``"fused3w"`` in 3D up to
+    FUSED3W_WIDE_MAX_Q queries, and ``"fused"`` (the v1 kernels)
+    otherwise; in 3D
     ``"fused3d"`` up to FUSED3D_MAX_Q queries where its chunks fit shared
     memory (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
@@ -189,7 +203,9 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
             or (cfg.strict_reference and dim == 2 and not cfg.align_corners)):
         return "plain"
     if c > FUSED_MAX_CHANNELS:
-        return "fused"
+        if dim == 2:
+            return "fused2w" if c <= FUSED2W_WIDE_MAX_C else "fused"
+        return "fused3w" if n_queries <= FUSED3W_WIDE_MAX_Q else "fused"
     if dim == 3:
         if (n_queries <= FUSED3D_MAX_Q
                 and fused3d.supports(cfg, cells_shape)):

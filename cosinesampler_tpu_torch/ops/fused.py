@@ -15,8 +15,9 @@ takes (f64, strict reference in 2D with align_corners off, tensors over
 fused2w (ops/cuda/fused2w.py) for the others; in 3D fused3d
 (ops/cuda/fused3d.py) for small clouds, fused3s (ops/cuda/fused3s.py)
 for many points over large stacks and fused3w (ops/cuda/fused3w.py) for
-the others, up to 8 channels; the channel-looped v1 kernels
-(ops/cuda/fused.py) above.  The wrappers take their plain versions for
+the others, up to 8 channels; above 8, fused2w's / fused3w's channel
+groups or the channel-looped v1 kernels (ops/cuda/fused.py), as
+measured.  The wrappers take their plain versions for
 CPU tensors; ``backend="xla"`` takes them everywhere.
 
 ``make_fused_mega`` is the hook of the one-launch train-step gradient

@@ -19,11 +19,15 @@ percell or slab as ops/cuda/route.py routes it, or, under
 Every member of one chain works on one grid and passes one
 ``route.GridPlans`` along, so percell's pair plan is built once a chain.
 
-``ctx.needs_input_grad`` is fixed when the forward runs, so a backward
-computes every cotangent whose input required grad then: a
-``torch.autograd.grad(u.sum(), points)`` still splats to the cells when
-they require grad, and that splat's result is dropped (PERF.md counts
-those launches).
+A backward computes only the cotangents the engine will use, as JAX's
+dead-code elimination and the reference's skip of a zero cotangent
+(modules_2d.py:87-89) do.  ``ctx.needs_input_grad`` is fixed when the
+forward runs, so each backward asks the running backward pass instead
+(``_engine_runs``): under ``torch.autograd.grad(u.sum(), points)`` the
+cells' splat is not launched.  The forwards turn off
+``materialize_grads``, so a cotangent nothing produced arrives as None
+instead of zeros, and the backward then returns None for every input
+instead of launching kernels on zeros.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from torch.autograd.graph import _get_grad_fn_or_grad_acc
 
 from . import generic
 from .config import SamplerConfig
@@ -49,6 +55,20 @@ def _splat(gout, grid, in_spatial, cfg: SamplerConfig, orders, plans):
     if cfg.backend == "xla":
         return generic.splat(gout, grid, in_spatial, cfg, orders)
     return route.splat(gout, grid, in_spatial, cfg, orders, plans)
+
+
+def _engine_runs(t: torch.Tensor) -> bool:
+    """Whether the running backward pass executes the node that receives
+    ``t``'s cotangent.  ``torch._C._will_engine_execute_node`` answers for
+    every node but a leaf that ``torch.autograd.grad`` captures, for which
+    it raises: the pass executes that one (it is what the pass returns)."""
+    if not t.requires_grad:
+        return False
+    try:
+        return torch._C._will_engine_execute_node(
+            _get_grad_fn_or_grad_acc(t))
+    except RuntimeError:
+        return True
 
 
 def bump_orders(orders: Tuple[int, ...], axis: int) -> Tuple[int, ...]:
@@ -81,18 +101,21 @@ class BlendO(torch.autograd.Function):
         plans = route.GridPlans() if plans is None else plans
         ctx.save_for_backward(input, grid)
         ctx.cfg, ctx.orders, ctx.plans = cfg, orders, plans
+        ctx.set_materialize_grads(False)
         return _blend(input, grid, cfg, orders, plans)
 
     @staticmethod
     def backward(ctx, g):
         input, grid = ctx.saved_tensors
         cfg, orders, plans = ctx.cfg, ctx.orders, ctx.plans
-        g = g.contiguous()
         input_bar = grid_bar = None
-        if ctx.needs_input_grad[0]:
+        if g is None:
+            return input_bar, grid_bar, None, None, None
+        g = g.contiguous()
+        if ctx.needs_input_grad[0] and _engine_runs(input):
             input_bar = SplatO.apply(g, grid, tuple(input.shape[2:]), cfg,
                                      orders, plans).to(input.dtype)
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1] and _engine_runs(grid):
             grid_bar = _grid_cotangent(g, input, grid, cfg, orders, plans)
         return input_bar, grid_bar, None, None, None
 
@@ -106,18 +129,21 @@ class SplatO(torch.autograd.Function):
         plans = route.GridPlans() if plans is None else plans
         ctx.save_for_backward(gout, grid)
         ctx.cfg, ctx.orders, ctx.plans = cfg, orders, plans
+        ctx.set_materialize_grads(False)
         return _splat(gout, grid, in_spatial, cfg, orders, plans)
 
     @staticmethod
     def backward(ctx, cot):
         gout, grid = ctx.saved_tensors
         cfg, orders, plans = ctx.cfg, ctx.orders, ctx.plans
-        cot = cot.contiguous()
         gout_bar = grid_bar = None
-        if ctx.needs_input_grad[0]:
+        if cot is None:
+            return gout_bar, grid_bar, None, None, None, None
+        cot = cot.contiguous()
+        if ctx.needs_input_grad[0] and _engine_runs(gout):
             gout_bar = BlendO.apply(cot, grid, cfg, orders,
                                     plans).to(gout.dtype)
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1] and _engine_runs(grid):
             grid_bar = _grid_cotangent(gout, cot, grid, cfg, orders, plans)
         return gout_bar, grid_bar, None, None, None, None
 

@@ -7,6 +7,7 @@
     python scripts/profile_port_step.py --nested-vol [percell|blend_o|slab]
                                         [--points Q] [--profile]
     python scripts/profile_port_step.py --fused3b [--reps R]
+    python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
@@ -23,7 +24,12 @@ step's peak device memory.  ``--nested-vol`` runs the nested
 through the route ops/cuda/route.py gives it or, when named, through
 that route.  ``--fused3b`` times fused3b's blend and bwd kernels alone
 on config 5's volume and points (4 channels, the kernel layout), each the
-median of ``--reps`` calls (CUDA events) after 3 warm-up calls.  Prints the
+median of ``--reps`` calls (CUDA events) after 3 warm-up calls;
+``--kernels`` so times fused2w's and fused3w's blend and bwd (96 x C x
+16^2 and 50 x C x 16^3, 100 000 points) and mega2w (96 x C x 16^2).
+``--cell-dim`` sets C (4 by default) for these and for the main-path
+steps (at C = 16 the megakernel step of a checkout whose mega2w takes at
+most 8 channels is its autograd fallback).  Prints the
 card's name and power limit, the median step time (CUDA events, 3 warm-up
 steps) and the kernel launches per step.  ``--profile`` adds a
 torch.profiler window of 5 steps: device time per step, the device's busy
@@ -141,6 +147,57 @@ def _fused3b_kernels(card, reps):
     return 0
 
 
+def _median_ms(fn, reps):
+    """Median ms of ``reps`` calls of ``fn`` (CUDA events), after 3."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _main_kernels(card, c, reps):
+    """Median ms of fused2w's and fused3w's kernels and mega2w at the 2D
+    and 3D main paths' shapes with C channels."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = 100_000
+    medians = {}
+    for mod, dim, n in ((fused2w, 2, 96), (fused3w, 3, 50)):
+        cfg = SamplerConfig(dim=dim)
+        spatial = (16,) * dim
+        cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
+        pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((1 + 2 * dim, c, q), generator=gen, device="cuda")
+        medians[f"fused{dim}w_blend"] = _median_ms(
+            lambda: mod.fused_blend(cells, pts, cfg), reps)
+        medians[f"fused{dim}w_bwd"] = _median_ms(
+            lambda: mod.fused_bwd(g, pts, spatial, cfg, n), reps)
+    cfg = SamplerConfig(dim=2)
+    cells = torch.rand((96, c, 16, 16), generator=gen, device="cuda")
+    pts = torch.rand((q, 2), generator=gen, device="cuda") * 2.2 - 1.1
+    mlp = [torch.randn((c, 16), generator=gen, device="cuda") * 0.5,
+           torch.randn((16,), generator=gen, device="cuda") * 0.1,
+           torch.randn((16, 1), generator=gen, device="cuda") * 0.3,
+           torch.full((1,), 0.1, device="cuda")]
+    if c <= 8 or mega2w.supports(cfg, tuple(cells.shape), "allen_cahn", 16):
+        medians["mega2w"] = _median_ms(
+            lambda: mega2w.mega2w_step(cells, *mlp, pts, cfg, "allen_cahn"),
+            reps)
+    print(f"{card}; kernels at C = {c} (2D 96 x {c} x 16^2, 3D 50 x {c} x "
+          f"16^3, 100000 points), median of {reps}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items()),
+          flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nested", action="store_true",
@@ -159,7 +216,11 @@ def main(argv=None):
     ap.add_argument("--fused3b", action="store_true",
                     help="time fused3b's kernels alone at config 5")
     ap.add_argument("--reps", type=int, default=20,
-                    help="timed calls of each --fused3b kernel")
+                    help="timed calls of each --fused3b / --kernels kernel")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time fused2w, fused3w and mega2w alone")
+    ap.add_argument("--cell-dim", type=int, default=4,
+                    help="channels of --kernels and the main-path steps")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -171,6 +232,8 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     if args.fused3b:
         return _fused3b_kernels(card, args.reps)
+    if args.kernels:
+        return _main_kernels(card, args.cell_dim, args.reps)
     if args.config5:
         run, pts = _config5_step(args.config5)
         batches = [pts] * (3 + args.steps)
@@ -190,8 +253,9 @@ def main(argv=None):
                        for i in range(3 + args.steps)]
         path = f"nested 128^3 ({args.points} points, {args.nested_vol})"
     else:
-        cfg = (pinn.PINNConfig() if args.dim == 2 else
-               pinn.PINNConfig(dim=3, n_cells=50, pde="helmholtz"))
+        cfg = (pinn.PINNConfig(cell_dim=args.cell_dim) if args.dim == 2 else
+               pinn.PINNConfig(dim=3, n_cells=50, cell_dim=args.cell_dim,
+                               pde="helmholtz"))
         params = pinn.init_params(torch.Generator().manual_seed(0), cfg,
                                   "cuda")
         step = pinn.make_train_step(
@@ -202,7 +266,8 @@ def main(argv=None):
             batches = [torch.from_numpy(gen.batch(i)).cuda()
                        for i in range(3 + args.steps)]
         path = ("megakernel" if args.megakernel else
-                "nested" if args.nested else "fused") + f" {args.dim}D"
+                "nested" if args.nested else "fused") + \
+            f" {args.dim}D C={args.cell_dim}"
 
     for pts in batches[:3]:
         run(pts)

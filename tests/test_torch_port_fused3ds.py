@@ -178,7 +178,8 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
     planes or more (config 5's 16 x 4 x 128^3 with fresh points), each
     bound checked on both sides at the sweep's points; fused3w otherwise,
     JAX's fused3s shape (2 x 2 x 32^3 at 2048) included, where fused3s
-    lost on the card; the v1 pair above 8 channels."""
+    lost on the card; above 8 channels fused3w's channel groups for small
+    clouds (tests/test_torch_port_wide.py holds that bound)."""
     rule = route.fused_rule
     cfg = TConfig(dim=3)
     refl = TConfig(dim=3, padding_mode="reflection")
@@ -212,7 +213,7 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
         assert rule(cfg, shape, 100_000) == want, shape
     assert rule(cfg, big, 65_536) == "fused3w"
     assert rule(cfg, big, 81_920) == "fused3s"
-    assert rule(cfg, (50, 16, 16, 16, 16), 200) == "fused"
+    assert rule(cfg, (50, 16, 16, 16, 16), 200) == "fused3w"
     assert rule(cfg, ref, 200, "cuda", torch.float64) == "plain"
 
 

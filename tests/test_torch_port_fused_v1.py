@@ -132,8 +132,8 @@ SLICE = {2: dict(n_cells=6, cell_dim=12, cell_size=8, hidden=16),
 @pytest.mark.parametrize("dim", [2, 3], ids=["2d-allen-cahn",
                                              "3d-helmholtz"])
 def test_wide_slice_loss_and_grads_match_jax(dim):
-    """pinn.loss_fused at C = 12 through the v1 route (the cells
-    transpose through fused_v1.fused_bwd), against
+    """pinn.loss_fused at C = 12 through the rule's route (fused2w's and
+    fused3w's channel groups at these sizes), against
     jax.value_and_grad(pinn.loss_fused) on the same weights and points:
     loss rtol 1e-5, every leaf rtol 1e-4 (the reference's dloss/dcells
     bar)."""
@@ -147,7 +147,7 @@ def test_wide_slice_loss_and_grads_match_jax(dim):
         {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(pts),
         jcfg)
     assert route.fused_rule(tcfg.sampler, np_params["cells"].shape, 200,
-                            "cuda") == "fused"
+                            "cuda") == f"fused{dim}w"
     before = fused_v1.fused_bwd.launches
     params = params_from_numpy(np_params, "cpu")
     loss = tpinn.loss_fused(params, torch.from_numpy(pts), tcfg)
@@ -181,8 +181,9 @@ def test_wide_trainer_two_steps_on_cpu():
 
 def test_fused_rule_follows_the_jax_order():
     """route.fused_rule as a pure function of shapes, dtypes and device
-    type: plain for what no CUDA kernel takes, the v1 kernels above 8
-    channels, the 3D kernels in 3D (fused3d for these small clouds;
+    type: plain for what no CUDA kernel takes; above 8 channels the v1
+    kernels, but fused3w's channel groups for small 3D clouds; the 3D
+    kernels in 3D (fused3d for these small clouds;
     tests/test_torch_port_fused3ds.py holds the 3D branch), fused2d for
     small 2D clouds whose channel group fits shared memory, fused2w
     otherwise; off the card the same kernel routes."""
@@ -206,10 +207,12 @@ def test_fused_rule_follows_the_jax_order():
     assert rule(cfg2, (8, 4, 16, 16), pairs // 8) == "fused2d"
     assert rule(cfg2, (8, 4, 16, 16), pairs // 8 + 1) == "fused2w"
     assert rule(cfg3, (50, 4, 16, 16, 16), 100) == "fused3d"
-    for shape in ((96, 16, 16, 16), (96, 9, 16, 16), (50, 16, 16, 16, 16)):
+    for shape in ((96, 16, 16, 16), (50, 16, 16, 16, 16)):
         cfg = cfg2 if len(shape) == 4 else cfg3
         assert rule(cfg, shape, 100_000) == "fused"
-        assert rule(cfg, shape, 100) == "fused"
+        assert rule(cfg, shape, 100) == ("fused" if cfg is cfg2
+                                         else "fused3w")
+    assert rule(cfg2, (96, 9, 16, 16), 100_000) == "fused2w"
     # a 4 x 256^2 cell (1 MB) is over a block's shared memory
     assert rule(cfg2, (2, 4, 256, 256), 100) == "fused2w"
     for what, args in [
@@ -227,7 +230,8 @@ def test_fused_rule_follows_the_jax_order():
                 (8, 4, 8, 8, 8), 100, "cuda", F32) == "fused3d"
     # off the card the wrappers decide: the CPU takes the plain versions
     assert rule(cfg2, (96, 4, 16, 16), 100_000, "cpu", F64) == "fused2w"
-    assert rule(cfg3, (8, 16, 8, 8, 8), 100, "cpu", F64) == "fused"
+    assert rule(cfg3, (8, 16, 8, 8, 8), 100, "cpu", F64) == "fused3w"
+    assert rule(cfg3, (8, 16, 8, 8, 8), 100_000, "cpu", F64) == "fused"
     assert rule(cfg2, (96, 4, 16, 16), 100_000, "mixed", F64) == "fused2w"
 
 

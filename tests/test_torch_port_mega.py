@@ -214,7 +214,10 @@ def test_mega_available_gates():
                                                      pde="helmholtz"), 100_000)
     assert not tpinn.mega_available(tpinn.PINNConfig(backend="xla"), 100_000)
     assert not tpinn.mega_available(tpinn.PINNConfig(hidden=64), 100_000)
-    assert not tpinn.mega_available(tpinn.PINNConfig(cell_dim=9), 100_000)
+    # any C with C + 4 <= 128, as JAX's mega2w.supports
+    assert tpinn.mega_available(tpinn.PINNConfig(cell_dim=16), 100_000)
+    assert tpinn.mega_available(tpinn.PINNConfig(cell_dim=124), 100_000)
+    assert not tpinn.mega_available(tpinn.PINNConfig(cell_dim=125), 100_000)
     assert not tpinn.mega_available(tpinn.PINNConfig(precision="bf16"),
                                     100_000)
     assert tfused.make_fused_mega(TConfig(dim=2), (96, 4, 16, 16), 100_000,
