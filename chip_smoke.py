@@ -18,16 +18,19 @@ fused3b_bwd_ghost: private super-bricks and their fold, held to its
 plain versions and timed against fused3b_bwd at rb 1, 2, 4 and 8 and at
 16 channels), and the nested 3D trainer on config 5's volume (100 000
 points) for 3 steps through the route ops/cuda/route.py gives it
-(percell_blend / percell_splat); the per-cell surface of 4 x 4 x 128^3
-cells (per-cell 16^3 grids), its sparse case, a 4 x 4 x 1024^2 2D
-volume and a stack of 1024 x 4 x 16^3 cells (slab_blend / slab_splat) go
-through their routes too, and percell and slab are held to their plain
-versions at all those shapes.  At 16 feature channels the 2D trainer (20
-steps) and the 3D trainer (5) go through the routed channel-looped v1
-kernels (fused_blend / fused_bwd), held to their plain versions at C in
-{9, 12, 16, 32, 64}, and the megakernel trainer (5) through mega2w's
-channel groups; fused2w's and fused3w's channel groups and the wide
-mega2w are held to their plain versions at 9 to 124 channels and timed
+(slab_blend / slab_splat over the slab bins, one build a step) and 3
+steps forced through percell (percell_blend / percell_splat); the
+per-cell surface of 4 x 4 x 128^3 cells (per-cell 16^3 grids), its
+sparse case, a 4 x 4 x 1024^2 2D volume and a stack of 1024 x 4 x 16^3
+cells go through their routes too, and percell, slab and the slab bins
+are held to their plain versions at all those shapes and at a skewed
+and a sparse cloud on config 5's volume.  At 16 feature channels the 2D
+trainer (20 steps) and the 3D trainer (5) go through the routed
+channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
+versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
+through mega2w's channel groups; fused2w's and fused3w's channel groups
+and the wide mega2w are held to their plain versions at 9 to 124
+channels and timed
 against the v1 pair (the sweep behind the fused op's rule above 8
 channels); the nested trainers' blends and splats a step are counted
 (no kernel for a cotangent nothing reads);
@@ -96,7 +99,7 @@ STEPS, NESTED_STEPS, STEPS_3D = 20, 10, 3
 # BASELINE config 5: the vol-resident 3D trainer at full width
 N5, S5, Q5, STEPS_VOL = 16, 128, 1_000_000, 5
 # the nested 3D trainer on config 5's volume with the reference's 3D point
-# count (test_3d.py), through the over-budget route (percell / slab)
+# count (test_3d.py), through the over-budget route (slab; percell forced)
 QN, STEPS_NESTED_VOL = 100_000, 3
 # the per-cell surface of scripts/smoke_slab.py: 4 x 4 x 128^3 cells,
 # per-cell (16, 16, 16) grids; its sparse case (2, 2, 2); and a 2D volume
@@ -762,20 +765,74 @@ def compare_route(what, name, cfg, x, grid, gout, orders_list):
     return worst
 
 
+def compare_bins(what, cfg, cells_shape, grid, align=None):
+    """slab_bins against plain_bins on the card: the same first slot of
+    every (cell, row) and, slot by slot, a pair of the same key (the
+    kernel orders a bin by its atomics, the plain version by query); perm
+    a permutation."""
+    align = cfg.align_corners if align is None else align
+    got = slab.make_bins(grid, cells_shape, cfg, align)
+    want = slab.plain_bins(grid, cells_shape, cfg, align)
+    key = torch.empty_like(want.perm, dtype=torch.int64)
+    key[want.perm.long()] = torch.repeat_interleave(
+        torch.arange(want.starts.numel() - 1, device=grid.device),
+        (want.starts[1:] - want.starts[:-1]).long())
+    slots = torch.arange(got.perm.numel(), device=grid.device)
+    ok = (torch.equal(got.starts, want.starts)
+          and torch.equal(key[got.perm.long()], key[want.perm.long()])
+          and torch.equal(torch.sort(got.perm).values.long(), slots))
+    empty = int((want.starts[1:] == want.starts[:-1]).sum())
+    print(f"compare slab_bins {what} ({'x'.join(map(str, cells_shape))}, "
+          f"grid {tuple(grid.shape)}): {got.perm.numel()} pairs, {empty} of "
+          f"{want.starts.numel() - 1} (cell, row) bins empty; equal to the "
+          f"plain bins: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"slab_bins {what}: differs from plain_bins")
+
+
+def _band_points(q, s, rows, seed):
+    """(1, 1, 1, q, 3) shared points over an s^3 cell (multicell,
+    align_corners) whose z source coordinates lie in [rows[0] + 0.05,
+    rows[1] - 1) before the cell shift (< 1): every pair's floor row in
+    [rows[0], rows[1]), x and y over the whole cell."""
+    gen = _cuda_gen(seed)
+    pts = torch.rand((q, 3), generator=gen, device="cuda") * 2.0 - 1.0
+    scale = 0.5 * (s - 2)
+    lo, hi = rows[0] + 0.05, rows[1] - 1.0
+    pts[:, 2] = (torch.rand((q,), generator=gen, device="cuda") * (hi - lo)
+                 + lo) / scale - 1.0
+    return pts.reshape(1, 1, 1, q, 3)
+
+
 def pc_slab_kernel_phase():
     """percell and slab against their plain versions at the slice's shapes
-    (the nested trainer's volume and points, the per-cell surface, its
-    sparse case, the 2D volume) and in variants."""
+    (the nested trainer's volume and points, a skewed and a sparse cloud
+    there, the per-cell surface, its sparse case, the 2D volume) and in
+    variants, rows whose bytes are not a multiple of 16 among them; the
+    slab bins against their plain version."""
     errs = {}
     cfg3 = SamplerConfig(dim=3)
     x, grid, gout = _nested_vol_inputs(20)
+    compare_bins("nested-volume", cfg3, tuple(x.shape), grid)
     e = compare_route("nested-volume", "percell", cfg3, x, grid, gout,
                       [(0, 0, 0), (0, 0, 1), (2, 0, 0), (1, 1, 1), (3, 0, 0)])
     errs["percell_blend"], errs["percell_splat"] = e
     e = compare_route("nested-volume", "slab", cfg3, x, grid, gout,
                       [(0, 0, 0), (0, 2, 0)])
     errs["slab_blend"], errs["slab_splat"] = e
-    del x, grid, gout
+    # skewed: every pair's floor row in 40..41, one blend slab (dz = 2) of
+    # 64; sparse: 20 points a cell, most of the 64 x 16 blend bins empty
+    for what, pts in (("skewed", _band_points(QN, S5, (40, 42), 40)),
+                      ("sparse-volume", _band_points(20, S5, (0, S5 - 1),
+                                                     41))):
+        g = torch.randn((N5, C, 1, 1, pts.shape[3]), generator=_cuda_gen(42),
+                        device="cuda")
+        compare_bins(what, cfg3, tuple(x.shape), pts)
+        e = compare_route(what, "slab", cfg3, x, pts, g,
+                          [(0, 0, 0), (1, 0, 2)])
+        errs["slab_blend"] = max(errs["slab_blend"], e[0])
+        errs["slab_splat"] = max(errs["slab_splat"], e[1])
+    del x, grid, gout, g
     torch.cuda.empty_cache()
     for what, g in (("per-cell", GP), ("sparse", GP_SPARSE)):
         x, grid, gout = _per_cell_inputs(3, NP, (SP,) * 3, (g,) * 3, 21)
@@ -826,6 +883,19 @@ def pc_slab_kernel_phase():
                                      **wide)
     compare_route("shared-grid-2d", "slab", SamplerConfig(dim=2), x,
                   grid[:1].contiguous(), gout, [(0, 3), (1, 2)])
+    # rows of 13 x 15 and 201 floats: copied and stored by the threads,
+    # not by bulk copies; strict 2D with align off bins the order-0 blend
+    # with align on
+    x, grid, gout = _per_cell_inputs(3, 3, (40, 13, 15), (1, 1, 4099), 43,
+                                     **wide)
+    compare_route("odd-rows", "slab", cfg3, x, grid, gout,
+                  [(0, 0, 0), (1, 2, 0)])
+    x, grid, gout = _per_cell_inputs(2, 3, (300, 201), (1, 4099), 44, **wide)
+    cfg2s = SamplerConfig(dim=2, strict_reference=True, align_corners=False)
+    compare_bins("odd-rows-2d strict, blend", cfg2s, tuple(x.shape), grid,
+                 True)
+    compare_route("odd-rows-2d-strict-align-false", "slab", cfg2s, x, grid,
+                  gout, [(0, 0), (1, 1)])
     return errs
 
 
@@ -855,29 +925,81 @@ def _touched_values(x, grid, cfg):
     return int(torch.unique(torch.cat(keys)).numel()) * c
 
 
+def _time_plan(what, build_fn, pairs):
+    """A plan's (or bins') first build on the host clock, then its ms by
+    CUDA events over 3 builds, printed."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ms = _time_ms(build_fn, 3)
+    print(f"{what} at the nested volume ({pairs} pairs): first build "
+          f"{first_ms:.2f} ms (host clock), then {ms:.3f} ms (CUDA events, "
+          f"3 builds)", flush=True)
+    return ms
+
+
+def _library_ops(x, grid, gout):
+    """grid_sample and its cells backward at their one setting (linear,
+    order 0, zeros, no multicell, align_corners) on per-cell grids."""
+    full = grid.expand(x.shape[0], *grid.shape[1:])
+    return {
+        "blend": lambda: F.grid_sample(x, full, mode="bilinear",
+                                       padding_mode="zeros",
+                                       align_corners=True),
+        "splat": lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gout, x, full, 0, 0, True, [True, False])[0],
+    }
+
+
+def _against_library(what, kernels, library):
+    """Each kernel against the library call of its kind, in turns, after
+    checking that the two compute one function: {name: (ms, lib ms)}."""
+    out = {}
+    for name, kernel in kernels.items():
+        lib = library["blend" if "blend" in name else "splat"]
+        _, err = _rel_err(kernel().reshape(1, -1), lib().reshape(1, -1))
+        if not err <= REL_TOL:
+            raise RuntimeError(f"{name}: the library call computes another "
+                               f"function ({err:.3e})")
+        ms, lib_ms = _in_turns(kernel, lib, reps=5)
+        out[name] = (ms, lib_ms)
+        print(f"time {name} at linear, order 0, no multicell ({what}): "
+              f"kernel {ms:.4f} ms, library "
+              f"{'grid_sample' if 'blend' in name else 'grid_sampler_3d_backward'}"
+              f" {lib_ms:.4f} ms (rel diff {err:.2e})", flush=True)
+    return out
+
+
 def pc_slab_time_phase():
     """At the nested trainer's volume and points: each route's kernels
     against blend_o / splat_o on the same inputs and against their plain
-    versions (in turns), the plan's build, and the 3D grid_sample and its
+    versions (in turns), the percell plan's and the slab bins' builds
+    (the kernels take them built), and the 3D grid_sample and its
     backward at their one setting (linear, order 0, zeros, no multicell,
-    align_corners) beside the kernels at that setting.  Then the route
-    rule's measurement: one blend and one splat (percell with its plan's
-    build) on each route, across cell sizes and pair counts."""
+    align_corners) beside the kernels at that setting, there and on the
+    routed stack of 1024 x 4 x 16^3 cells at 2^18 and 2^20 pairs;
+    percell_blend's two output orders.  Then the route rule's measurement:
+    one blend and one splat on each route, with and without its plan's
+    build, across cell sizes and pair counts."""
     cfg = SamplerConfig(dim=3)
     o = (0, 0, 0)
     x, grid, gout = _nested_vol_inputs(27)
     spatial = (S5,) * 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plan = percell.make_plan(grid, tuple(x.shape), cfg)
-    torch.cuda.synchronize()
-    plan_ms = (time.perf_counter() - t0) * 1e3
-    plan_ms2 = _time_ms(lambda: percell.make_plan(grid, tuple(x.shape), cfg),
-                        3)
+    shape = tuple(x.shape)
     pairs = N5 * QN
-    print(f"pair plan at the nested volume ({pairs} pairs): first build "
-          f"{plan_ms:.2f} ms (host clock), then {plan_ms2:.3f} ms (CUDA "
-          f"events, 3 builds)", flush=True)
+    plan = percell.make_plan(grid, shape, cfg)
+    bins = slab.make_bins(grid, shape, cfg, cfg.align_corners)
+    plan_ms = _time_plan("pair plan", lambda: percell.make_plan(
+        grid, shape, cfg), pairs)
+    bins_ms = _time_plan("slab bins", lambda: slab.make_bins(
+        grid, shape, cfg, cfg.align_corners), pairs)
+    bins_device_ms = _device_ms(lambda: slab.make_bins(
+        grid, shape, cfg, cfg.align_corners), reps=10)
+    print(f"slab bins at the nested volume: {bins_device_ms:.4f} ms of "
+          f"device time a build (torch.profiler, its memset and three "
+          f"kernels)", flush=True)
     touched = _touched_values(x, grid, cfg)
     flops = 2 * 8 * C * pairs
     out_elems = N5 * C * QN
@@ -886,12 +1008,15 @@ def pc_slab_time_phase():
                                               touched), flops),
         "percell_splat": _bound(_kernel_bytes(gout, grid, x.numel(),
                                               4 * pairs), flops),
+        # the bins are the slab route's own design, not the function's
+        # bytes: their build is timed apart (plan_ms)
         "slab_blend": _bound(_kernel_bytes(x, grid, out_elems, 0, touched),
                              flops),
         "slab_splat": _bound(_kernel_bytes(gout, grid, x.numel(), 0), flops),
     }
     print(f"bounds at the nested volume: the blend reads {touched} distinct "
-          f"cell values of {x.numel()}", flush=True)
+          f"cell values of {x.numel()}; percell's pair plan is read once",
+          flush=True)
     dzb, ccb = slab.geometry(C, spatial, 1)
     dzs, ccs = slab.geometry(C, spatial, 0)
     ops = {
@@ -905,13 +1030,13 @@ def pc_slab_time_phase():
                                                 plan),
             lambda: blend_splat.splat(gout, grid, spatial, cfg, o)),
         "slab_blend": (
-            lambda: slab.blend(x, grid, cfg, o),
-            lambda: slab.plain_blend_slab(x, grid, cfg, o, dzb, ccb),
+            lambda: slab.blend(x, grid, cfg, o, bins),
+            lambda: slab.plain_blend_slab(x, grid, cfg, o, dzb, ccb, bins),
             lambda: blend_splat.blend(x, grid, cfg, o)),
         "slab_splat": (
-            lambda: slab.splat(gout, grid, spatial, cfg, o),
+            lambda: slab.splat(gout, grid, spatial, cfg, o, bins),
             lambda: slab.plain_splat_slab(gout, grid, spatial, cfg, o, dzs,
-                                          ccs),
+                                          ccs, bins),
             lambda: blend_splat.splat(gout, grid, spatial, cfg, o)),
     }
     times = {}
@@ -919,12 +1044,16 @@ def pc_slab_time_phase():
         ms, plain_ms = _in_turns(kernel, plain, reps=1)
         ms, other_ms = _in_turns(kernel, other, reps=5)
         bound_ms, bound_by = bounds[name]
+        build_ms = plan_ms if name.startswith("percell") else bins_ms
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by,
-                           v1_ms_same_work=other_ms)
+                           bound_by=bound_by, v1_ms_same_work=other_ms,
+                           plan_ms=build_ms)
+        if name.startswith("slab"):
+            times[name]["plan_device_ms"] = bins_device_ms
         print(f"time {name} at the nested volume ({N5}x{C}x{S5}^3, shared "
-              f"Q={QN}, order 0): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"Q={QN}, order 0): kernel {ms:.4f} ms ({ms + build_ms:.4f} "
+              f"with its {'plan' if 'percell' in name else 'bins'}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of it; "
               f"{'blend_o' if 'blend' in name else 'splat_o'} on the same "
               f"inputs {other_ms:.4f} ms", flush=True)
@@ -932,36 +1061,32 @@ def pc_slab_time_phase():
     _blend_order_times(x, grid, cfg, plan)
 
     lib_cfg = SamplerConfig(dim=3, kernel="linear", multicell=False)
-    full = grid.expand(N5, *grid.shape[1:])
-    plan_l = percell.make_plan(grid, tuple(x.shape), lib_cfg)
-    library = {
-        "blend": lambda: F.grid_sample(x, full, mode="bilinear",
-                                       padding_mode="zeros",
-                                       align_corners=True),
-        "splat": lambda: torch.ops.aten.grid_sampler_3d_backward(
-            gout, x, full, 0, 0, True, [True, False])[0],
-    }
-    kernels = {
+    plan_l = percell.make_plan(grid, shape, lib_cfg)
+    bins_l = slab.make_bins(grid, shape, lib_cfg, True)
+    lib = _against_library("nested volume", {
         "percell_blend": lambda: percell.blend(x, grid, lib_cfg, o, plan_l),
         "percell_splat": lambda: percell.splat(gout, grid, spatial, lib_cfg,
                                                o, plan_l),
-        "slab_blend": lambda: slab.blend(x, grid, lib_cfg, o),
-        "slab_splat": lambda: slab.splat(gout, grid, spatial, lib_cfg, o),
-    }
-    for name, kernel in kernels.items():
-        lib = library["blend" if "blend" in name else "splat"]
-        _, err = _rel_err(kernel().reshape(1, -1), lib().reshape(1, -1))
-        if not err <= REL_TOL:
-            raise RuntimeError(f"{name}: the library call computes another "
-                               f"function ({err:.3e})")
-        ms, lib_ms = _in_turns(kernel, lib, reps=5)
+        "slab_blend": lambda: slab.blend(x, grid, lib_cfg, o, bins_l),
+        "slab_splat": lambda: slab.splat(gout, grid, spatial, lib_cfg, o,
+                                         bins_l)}, _library_ops(x, grid, gout))
+    for name, (ms, lib_ms) in lib.items():
         times[name].update(library_ms=lib_ms, ms_at_library_setting=ms)
-        print(f"time {name} at linear, order 0, no multicell (nested "
-              f"volume): kernel {ms:.4f} ms, library "
-              f"{'grid_sample' if 'blend' in name else 'grid_sampler_3d_backward'}"
-              f" {lib_ms:.4f} ms (rel diff {err:.2e})", flush=True)
-    del x, grid, gout, full, plan, plan_l
+    del x, grid, gout, plan, plan_l, bins, bins_l
     torch.cuda.empty_cache()
+    # the routed stack of small cells: one slab a cell, no bins
+    for q in (GS // 4, GS):
+        x, grid, gout = _per_cell_inputs(3, NS, (SS,) * 3, (1, 1, q), 28)
+        lib = _against_library(f"{NS}x{C}x{SS}^3, per-cell Q={q}", {
+            "slab_blend": lambda: slab.blend(x, grid, lib_cfg, o),
+            "slab_splat": lambda: slab.splat(gout, grid, (SS,) * 3, lib_cfg,
+                                             o)}, _library_ops(x, grid, gout))
+        for name, (ms, lib_ms) in lib.items():
+            times[name].update({f"ms_small_cells_{NS * q}_pairs": ms,
+                                f"library_ms_small_cells_{NS * q}_pairs":
+                                    lib_ms})
+        del x, grid, gout
+        torch.cuda.empty_cache()
     route_sweep_phase()
     return times
 
@@ -999,21 +1124,35 @@ def _blend_order_times(x, grid, cfg, plan):
 
 def _route_ms(x, grid, gout, cfg):
     """ms of one blend and one splat (order 0) on each route, in turns:
-    blend_o / splat_o; percell with its plan built in the call
-    ("percell+plan", a chain of one call) and with the plan reused (a
-    longer chain: the nested trainer's or a backward pass); slab.  Also
-    each op alone on blend_o and on percell with its plan reused."""
+    blend_o / splat_o; percell and slab with their plan or bins built in
+    the call ("percell+plan", "slab+plan": a chain of one call) and
+    reused (a longer chain: the nested trainer's or a backward pass).
+    Also each op alone on blend_o and on percell with its plan reused."""
     spatial = tuple(x.shape[2:])
+    shape = tuple(x.shape)
     o = (0,) * cfg.dim
+
+    def slab_bins():
+        # one set for both, as route.GridPlans gives them
+        needed = slab.needs_bins(shape, True) or slab.needs_bins(shape, False)
+        return (slab.make_bins(grid, shape, cfg, cfg.align_corners)
+                if needed else None)
+
+    def slab_pair(bins):
+        return (slab.blend(x, grid, cfg, o, bins),
+                slab.splat(gout, grid, spatial, cfg, o, bins))
+
     runs = {
         "blend_o": lambda: (blend_splat.blend(x, grid, cfg, o),
                             blend_splat.splat(gout, grid, spatial, cfg, o)),
-        "slab": lambda: (slab.blend(x, grid, cfg, o),
-                         slab.splat(gout, grid, spatial, cfg, o)),
         "blend_o blend": lambda: blend_splat.blend(x, grid, cfg, o),
         "blend_o splat": lambda: blend_splat.splat(gout, grid, spatial, cfg,
                                                    o),
     }
+    if slab.supports(cfg, shape):
+        bins = slab_bins()
+        runs.update({"slab+plan": lambda: slab_pair(slab_bins()),
+                     "slab": lambda: slab_pair(bins)})
     if percell.supports(cfg, tuple(x.shape)):
         plan = percell.make_plan(grid, tuple(x.shape), cfg)
 
@@ -1045,16 +1184,20 @@ def route_sweep_phase():
     for n, s, q in ((16, 16, 100_000), (16, 32, 100_000), (4, 64, 4096),
                     (16, 64, 100_000), (4, 128, 8), (4, 128, 512),
                     (4, 128, 4096), (4, 128, 32_768), (16, 128, 1024),
-                    (16, 128, 4096), (16, 128, 16_384), (16, 128, 65_536),
-                    (16, 128, 100_000)):
+                    (16, 128, 4096), (16, 128, 8192), (16, 128, 16_384),
+                    (16, 128, 65_536), (16, 128, 100_000)):
         cases.append((3, n, (s,) * 3, (1, 1, q)))
     # stacks over L2 of cells under a block's shared memory (66 and 221
-    # KB) and of 524 KB cells
+    # KB) and of 524 KB cells; cells whose 256 KB planes the slab kernels
+    # do not take (two rows of one channel over a block's shared memory)
     cases += [(3, 1024, (16,) * 3, (1, 1, 256)),
               (3, 1024, (16,) * 3, (1, 1, 1024)),
               (3, 512, (24,) * 3, (1, 1, 2048)),
-              (3, 128, (32,) * 3, (1, 1, 8192))]
-    for n, s, q in ((4, 1024, 16), (4, 1024, 1024), (4, 1024, 16_384)):
+              (3, 128, (32,) * 3, (1, 1, 8192)),
+              (3, 8, (32, 256, 256), (1, 1, 8192)),
+              (3, 8, (32, 256, 256), (1, 1, 131_072))]
+    for n, s, q in ((4, 1024, 16), (4, 1024, 1024), (4, 1024, 16_384),
+                    (4, 1024, 65_536), (4, 1024, 262_144)):
         cases.append((2, n, (s,) * 2, (1, q)))
     for dim, n, spatial, grid_out in cases:
         for shared in (False, True):
@@ -2464,38 +2607,58 @@ def _routed(name):
 
 def nested_vol_trainer_phase():
     """The nested 3D trainer on config 5's volume (16 x 4 x 128^3, 100 000
-    fresh points a step), 3 steps through the routed kernels and no other,
-    and its losses against the same steps with every call routed to
-    blend_o / splat_o: the first at rtol LOSS_RTOL, each within
-    GRAD_TOL.  Returns the routed run's launches and its peak memory."""
+    fresh points a step), 3 steps through the routed kernels and no other
+    (one slab bins or percell plan a step), then the same steps with
+    every call routed to the other over-budget route and to blend_o /
+    splat_o: the losses of each against blend_o's, the first at rtol
+    LOSS_RTOL, each within GRAD_TOL.  Returns the launches of both
+    over-budget routes' runs."""
     def cfg():
         return TrainConfig(model=MODEL_NV, device="cuda", fused=False,
                            batch_points=QN, steps=STEPS_NESTED_VOL,
                            log_every=1, seed=0)
 
+    shape = (N5, C, *(S5,) * 3)
+    routed = route.rule(MODEL_NV.sampler, shape, N5 * QN)
+    other = "percell" if routed == "slab" else "slab"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    make_bins = slab.make_bins.launches
     launches, losses = _train_checked(
         f"nested 3D {N5}x{C}x{S5}^3, {QN} points", cfg(), STEPS_NESTED_VOL,
-        _expected(MODEL_NV.sampler, (N5, C, *(S5,) * 3), N5 * QN),
-        decrease=False)
+        ROUTE_KERNELS[routed], decrease=False)
+    bins_built = slab.make_bins.launches - make_bins
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
-    blend, splat = _expected(MODEL_NV.sampler, (N5, C, *(S5,) * 3), N5 * QN)
-    _check_nested_launches("nested 128^3 trainer", 3,
+    blend, splat = ROUTE_KERNELS[routed]
+    _check_nested_launches(f"nested 128^3 trainer ({routed})", 3,
                            launches[blend] / STEPS_NESTED_VOL,
                            launches[splat] / STEPS_NESTED_VOL)
+    print(f"nested 128^3 trainer ({routed}): slab bins built {bins_built} "
+          f"times in {STEPS_NESTED_VOL} steps", flush=True)
+    if bins_built != (STEPS_NESTED_VOL if routed == "slab" else 0):
+        raise RuntimeError("the nested trainer built other than one set of "
+                           "slab bins a step")
+    runs = {routed: losses}
+    with _routed(other):
+        more, runs[other] = _train_checked(
+            f"nested 3D {N5}x{C}x{S5}^3, {QN} points, routed to {other}",
+            cfg(), STEPS_NESTED_VOL, ROUTE_KERNELS[other], decrease=False)
+    launches.update({k: more[k] for k in ROUTE_KERNELS[other]})
     with _routed("blend_o"):
-        ref_launches, ref = _train_checked(
+        _, ref = _train_checked(
             f"nested 3D {N5}x{C}x{S5}^3, {QN} points, routed to blend_o",
             cfg(), STEPS_NESTED_VOL, ("blend_o", "splat_o"), decrease=False)
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
-    print(f"nested 128^3 trainer: routed vs blend_o / splat_o losses "
-          f"{' '.join(f'{v:.8g}' for v in ref)} (blend_o); worst rel diff "
-          f"{max(rel):.3e}, first {rel[0]:.3e}; peak device memory "
-          f"{peak:.3f} GiB", flush=True)
-    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
-        raise RuntimeError("the routed and blend_o nested trainers disagree")
+    for name, run in runs.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(run, ref)]
+        print(f"nested 128^3 trainer: {name} vs blend_o / splat_o losses "
+              f"{' '.join(f'{v:.8g}' for v in ref)} (blend_o); worst rel "
+              f"diff {max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+        if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+            raise RuntimeError(f"the {name} and blend_o nested trainers "
+                               "disagree")
+    print(f"nested 128^3 trainer ({routed}): peak device memory {peak:.3f} "
+          f"GiB", flush=True)
     return launches
 
 
@@ -2577,15 +2740,13 @@ def sparse_and_2d_phase():
 
 def nested_vol_step_phase():
     """Median ms of the nested 128^3 train step (fresh points, CUDA events,
-    1 warm-up and 3 timed steps) with every call routed to percell and to
-    blend_o / splat_o, in turns, and one timed step routed to slab (some
-    1.5 s a step)."""
+    1 warm-up and 3 timed steps) with every call routed to slab, to
+    percell and to blend_o / splat_o, in turns."""
     with PointGenerator(QN, 3, seed=31) as gen:
         batches = [torch.from_numpy(gen.batch(i)).cuda() for i in range(4)]
-    kinds = ("percell", "blend_o")
+    kinds = ("slab", "percell", "blend_o")
     runs = []
-    for kind, steps in [(k, batches) for k in kinds + kinds[::-1]] + [
-            ("slab", batches[:2])]:
+    for kind, steps in [(k, batches) for k in kinds + kinds[::-1]]:
         with _routed(kind):
             params = pinn.init_params(torch.Generator().manual_seed(0),
                                       MODEL_NV, "cuda")
@@ -2604,7 +2765,7 @@ def nested_vol_step_phase():
         runs.append((kind, statistics.median(times)))
         del params, step
         torch.cuda.empty_cache()
-    for kind in kinds + ("slab",):
+    for kind in kinds:
         ms = [m for k, m in runs if k == kind]
         print(f"step nested 128^3 routed to {kind}: "
               f"{sum(ms) / len(ms):.2f} ms (turns "
@@ -3099,12 +3260,10 @@ def main():
     vol = _timed(vol_trainer_phase)
     ghost = _timed(ghost_trainer_phase)
     nested_vol = _timed(nested_vol_trainer_phase)
-    per_cell = [_timed(per_cell_chain_phase),
-                *_timed(sparse_and_2d_phase).values()]
-    launches.update({k: nested_vol[k] for k in ("percell_blend",
-                                                "percell_splat")})
-    launches.update({k: sum(run.get(k, 0) for run in per_cell)
-                     for k in ("slab_blend", "slab_splat")})
+    _timed(per_cell_chain_phase)
+    _timed(sparse_and_2d_phase)
+    launches.update({k: nested_vol[k] for k in (
+        "percell_blend", "percell_splat", "slab_blend", "slab_splat")})
     launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"],
                     mega2w=mega["mega2w"],
                     fused3w_blend=fused3["fused3w_blend"],

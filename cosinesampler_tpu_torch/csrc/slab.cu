@@ -1,40 +1,63 @@
-// Slab-decomposed blend_o / splat_o for volumes too large for one block's
-// shared memory, 2D and 3D, for NVIDIA Hopper (sm_90a).
+// Slab-decomposed blend_o / splat_o over pairs binned by (cell, slab), for
+// volumes too large for one block's shared memory, 2D and 3D, for NVIDIA
+// Hopper (sm_90a).
 //
 // slab_blend replaces the TPU kernel
 //   ops/pallas/slab.py::_blend_slab_kernel of the JAX package
 // slab_splat replaces
 //   ops/pallas/slab.py::_splat_slab_kernel
+// slab_bins builds the bins both walk (the JAX route bins nothing).
 //
 // Contract (the blend_o / splat_o contract of csrc/blend_splat.cu):
 //   input (N, C, *S) f32 with S = (D, H, W) or (H, W), grid (G, Q, d) f32
 //   with G = N or 1, per-axis derivative orders, and the slab geometry
 //   (dz, cc) of ops/cuda/slab.py: the leading spatial axis is cut into
-//   slabs of dz rows and the channels into chunks of cc.
-//   slab_blend: -> out (N, C, Q) f32, equal bit for bit to blend_o's.
+//   slabs of dz rows and the channels into chunks of cc.  When the axis
+//   takes more than one slab, the bins of slab_bins: perm (N * Q,) int32,
+//   the pair n * Q + q of each slot, ordered by (cell, floor row of the
+//   leading axis clamped to [0, D)), and starts (N * D + 1,) int32, the
+//   first slot of each (cell, row).  With one slab they are null and a
+//   cell's slots are its pairs in query order.
+//   slab_blend: -> out (N, C, Q) f32 in query order, equal bit for bit to
+//               blend_o's.
 //   slab_splat: gout (N, C, Q) f32 -> out (N, C, *S) f32, the transpose.
 //               Every element of out is written, so it needs no zeroing.
+//   slab_bins:  grid -> perm and starts; starts must be zeroed.  A
+//               cell's rows must fit one block's shared-memory histogram.
 //
 // What bounds them on the H100, and the design:
-// * A volume over the 227 KB of shared memory a block may use sends
-//   splat_o to its global-atomics branch, whose atomics land at random in
-//   device memory.  Here block (slab, chunk, cell) owns the rows
-//   [z0, z0 + dz) of cc channels of one cell and keeps them in shared
-//   memory: the splat accumulates its slab there with shared-memory
-//   atomics and writes it out once with plain stores (the slabs tile the
-//   volume, so no two blocks write one element and out needs no memset);
-//   the blend stages its rows plus a one-row halo and serves the pairs
-//   whose floor row lies in its slab (a pair's corner rows are its floor
-//   row and the next), so every output is written once, without atomics.
-// * Every block still reads all Q coordinates of its cell, but only the
-//   cheap slab-axis floor (no interpolant weights) for a pair it does not
-//   serve: slabs multiply that test and nothing else, as on the TPU.  The
-//   route is for clouds too sparse to pay for percell's sort; the bytes
-//   it must move are the staged volume (blend) or the written one (splat)
-//   and the coordinates once per slab.
+// * The bytes: the blend must stage the volume (each block its slab plus
+//   a one-row halo, 0.8 GB for the 537 MB nested 128^3 volume at dz = 2),
+//   the splat must write it once (537 MB); the pairs' coordinates and
+//   cotangents are read once per block that serves them.
+// * Block (slab, chunk, cell) owns the rows [z0, z0 + dz) of cc channels
+//   of one cell.  It walks only its own slots: the blend the bin of its
+//   slab (a pair's corner rows are its floor row and the next, both in the
+//   staged window), the splat the bins of floor rows z0 - 1 to
+//   z0 + dz - 1 (the pairs with a corner row in its slab), a contiguous
+//   range of slots.  Each output element is written once: the blend's
+//   pairs by one block each, the splat's slab accumulated in shared memory
+//   with shared-memory atomics and stored once (the slabs tile the volume).
+// * The blend stages its window with 1D bulk async copies (TMA), one per
+//   channel, issued by one thread and completing on an mbarrier, while
+//   every thread loads its first pair's coordinates and computes its
+//   corners.  Rows whose bytes are not a multiple of 16 (or a window that
+//   leaves no room for the barrier) are copied by the block's threads.
+//   A block whose bin is empty stages nothing.  The splat stores its slab
+//   with 1D bulk async copies from shared memory where the rows allow.
+// * slab_bins is a counting sort with no host sync: a histogram of
+//   (cell, row) keys, each block counting 2048 queries of one cell in
+//   shared memory and adding each row's count to the global one once
+//   (one global atomic a pair took most of the build's time), the
+//   atomics' return values giving each pair's rank in its bin; one
+//   block's scan of the counts; and a scatter.  The floor is
+//   csrc/pair_corners.cuh's, the one the blend and splat walk, so a
+//   pair's bin always holds its corner rows.  The rank makes the order
+//   within a bin that of the atomics: not deterministic, which moves no
+//   blend value and only the splat's (already unordered) summation.
 // * The TPU kernels' one-hot MXU contractions, sublane-multiple slab
-//   heights and zero-initialised accumulation over a sequential grid axis
-//   do not carry over.
+//   heights, zero-initialised accumulation over a sequential grid axis and
+//   evaluation of every query against every slab do not carry over.
 // * The splat's shared-memory atomics add in no fixed order: not
 //   deterministic.
 #include <cuda_runtime.h>
@@ -48,6 +71,82 @@
 namespace {
 
 constexpr int kSlabThreads = 512;
+// a splat block that has an SM to itself (over half its shared memory)
+// takes twice the threads, to hide its gathers' latency
+constexpr int kWideSplatThreads = 1024;
+constexpr int kBinThreads = 256;
+// queries of one cell a histogram block counts, kBinPerThread a thread
+constexpr int kBinPerThread = 8;
+constexpr int kBinQueries = kBinThreads * kBinPerThread;
+constexpr int kScanThreads = 1024;
+// dynamic shared memory ahead of the blend's window: its mbarrier, padded
+// so that the window stays 16-byte aligned for the bulk copies
+constexpr int kBarrierBytes = 16;
+
+// --- bulk async copies (TMA) and their mbarrier -------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+  // make the initialised barrier visible to the async proxy
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// global -> shared, completing `bytes` of the barrier's transaction count
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global in one bulk group
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// --- the block's slab and its slots -------------------------------------
 
 // Slab geometry of one block: slab (blockIdx.x), channel chunk
 // (blockIdx.y), cell (blockIdx.z).
@@ -55,52 +154,83 @@ template <int D>
 struct SlabBlock {
   int depth;  // rows of the leading axis
   int row;    // elements of one row: H * W (3D) or W (2D)
-  int ns;     // slabs
-  int slab, z0, c0, cn, ni;
+  int z0, c0, cn, ni;
 
   __device__ SlabBlock(const csm::PairShape& s, int dz, int cc) {
     depth = s.size[D - 1];
     row = s.stride[D - 1];
-    ns = (depth + dz - 1) / dz;
-    slab = blockIdx.x;
-    z0 = slab * dz;
+    z0 = blockIdx.x * dz;
     c0 = blockIdx.y * cc;
     cn = min(cc, s.c - c0);
     ni = blockIdx.z;
+  }
+
+  // The slots [*first, *last) of the pairs whose floor row lies in
+  // [lo, hi): the bins' range, or the whole cell without bins.
+  __device__ void slots(const csm::PairShape& s, const int* starts, int lo,
+                        int hi, int* first, int* last) const {
+    if (starts == nullptr) {
+      *first = ni * s.q;
+      *last = *first + s.q;
+    } else {
+      *first = __ldg(starts + ni * depth + max(lo, 0));
+      *last = __ldg(starts + ni * depth + min(hi, depth));
+    }
   }
 };
 
 template <int D>
 __global__ void __launch_bounds__(kSlabThreads)
     slab_blend_kernel(const float* __restrict__ input,
-                      const float* __restrict__ grid, float* __restrict__ out,
-                      csm::PairShape s, int dz, int cc, csm::SamplerParams p) {
-  extern __shared__ float win[];
+                      const float* __restrict__ grid,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ starts,
+                      float* __restrict__ out, csm::PairShape s, int dz,
+                      int cc, csm::SamplerParams p, bool bulk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* win = reinterpret_cast<float*>(smem + (bulk ? kBarrierBytes : 0));
   const SlabBlock<D> b(s, dz, cc);
+  int first, last;
+  b.slots(s, starts, b.z0, b.z0 + dz, &first, &last);
+  if (first == last) return;  // an empty bin stages nothing
+
   // rows [z0, z0 + dz] of the chunk: the slab and its one-row halo
   const int rows = min(dz + 1, b.depth - b.z0);
   const int win_elems = rows * b.row;
-  for (int c = 0; c < b.cn; ++c) {
-    const float* src =
-        input + (static_cast<int64_t>(b.ni) * s.c + b.c0 + c) * s.texels +
-        static_cast<int64_t>(b.z0) * b.row;
-    for (int e = threadIdx.x; e < win_elems; e += blockDim.x)
-      win[c * win_elems + e] = __ldg(src + e);
+  const float* src = input +
+                     (static_cast<int64_t>(b.ni) * s.c + b.c0) * s.texels +
+                     static_cast<int64_t>(b.z0) * b.row;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      barrier_init(bar);
+      const uint32_t bytes = static_cast<uint32_t>(win_elems) * 4u;
+      barrier_expect(bar, bytes * b.cn);
+      for (int c = 0; c < b.cn; ++c)
+        bulk_load(win + c * win_elems, src + static_cast<int64_t>(c) * s.texels,
+                  bytes, bar);
+    }
+    __syncthreads();
+  } else {
+    for (int c = 0; c < b.cn; ++c)
+      for (int e = threadIdx.x; e < win_elems; e += blockDim.x)
+        win[c * win_elems + e] =
+            __ldg(src + static_cast<int64_t>(c) * s.texels + e);
+    __syncthreads();
   }
-  __syncthreads();
 
+  // thread 0 always has a slot, so it waits for the copies before the
+  // block can exit
+  bool staged = !bulk;
   const int base = b.z0 * b.row;
   float* dst_cell = out + (static_cast<int64_t>(b.ni) * s.c + b.c0) * s.q;
-  for (int qi = threadIdx.x; qi < s.q; qi += blockDim.x) {
-    // the owner: the slab of the floor row, the edge slabs taking the
-    // clamped floors outside [0, depth)
-    const int f = csm::pair_floor<D>(s, grid, b.ni, qi, D - 1, p);
-    const int owner = f < 0 ? 0 : min(f / dz, b.ns - 1);
-    if (owner != b.slab) continue;
+  for (int slot = first + threadIdx.x; slot < last; slot += blockDim.x) {
+    const int pair = perm == nullptr ? slot : __ldg(perm + slot);
+    const int qi = pair - b.ni * s.q;
     int off[1 << D];
     float wgt[1 << D];
     csm::pair_corners<D>(s, grid, b.ni, qi, p, off, wgt);
-    // an owned pair's in-bounds corners lie in the window
+    // the bin's in-bounds corners lie in the window
 #pragma unroll
     for (int k = 0; k < (1 << D); ++k) {
       off[k] -= base;
@@ -109,35 +239,53 @@ __global__ void __launch_bounds__(kSlabThreads)
         off[k] = 0;
       }
     }
+    if (!staged) {
+      barrier_wait(bar, 0);
+      staged = true;
+    }
+    float* dst = dst_cell + qi;
     for (int c = 0; c < b.cn; ++c) {
       const float* w_c = win + c * win_elems;
       float acc = 0.0f;
 #pragma unroll
       for (int k = 0; k < (1 << D); ++k) acc = fmaf(wgt[k], w_c[off[k]], acc);
-      dst_cell[static_cast<int64_t>(c) * s.q + qi] = acc;
+      dst[static_cast<int64_t>(c) * s.q] = acc;
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kSlabThreads)
+template <int D, int kThreads>
+__global__ void __launch_bounds__(kThreads)
     slab_splat_kernel(const float* __restrict__ gout,
-                      const float* __restrict__ grid, float* __restrict__ out,
-                      csm::PairShape s, int dz, int cc, csm::SamplerParams p) {
-  extern __shared__ float acc[];
+                      const float* __restrict__ grid,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ starts,
+                      float* __restrict__ out, csm::PairShape s, int dz,
+                      int cc, csm::SamplerParams p, bool bulk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc = reinterpret_cast<float*>(smem);
   const SlabBlock<D> b(s, dz, cc);
   const int rows = min(dz, b.depth - b.z0);
   const int slab_elems = rows * b.row;
-  for (int e = threadIdx.x; e < b.cn * slab_elems; e += blockDim.x)
-    acc[e] = 0.0f;
+  const int acc_elems = b.cn * slab_elems;
+  if (acc_elems % 4 == 0) {
+    float4* acc4 = reinterpret_cast<float4*>(acc);
+    for (int e = threadIdx.x; e < acc_elems / 4; e += blockDim.x)
+      acc4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    for (int e = threadIdx.x; e < acc_elems; e += blockDim.x) acc[e] = 0.0f;
+  }
   __syncthreads();
 
+  // corner rows f and f + 1: the pairs of floor rows z0 - 1 to
+  // z0 + rows - 1 have one in the slab
+  int first, last;
+  b.slots(s, starts, b.z0 - 1, b.z0 + rows, &first, &last);
   const int base = b.z0 * b.row;
   const float* g_cell = gout + (static_cast<int64_t>(b.ni) * s.c + b.c0) * s.q;
-  for (int qi = threadIdx.x; qi < s.q; qi += blockDim.x) {
-    // corner rows f and f + 1: skip the pair unless one lies in the slab
-    const int f = csm::pair_floor<D>(s, grid, b.ni, qi, D - 1, p);
-    if (f + 1 < b.z0 || f >= b.z0 + rows) continue;
+  for (int slot = first + threadIdx.x; slot < last; slot += blockDim.x) {
+    const int pair = perm == nullptr ? slot : __ldg(perm + slot);
+    const int qi = pair - b.ni * s.q;
     int off[1 << D];
     float wgt[1 << D];
     csm::pair_corners<D>(s, grid, b.ni, qi, p, off, wgt);
@@ -154,53 +302,172 @@ __global__ void __launch_bounds__(kSlabThreads)
         if (wgt[k] != 0.0f) atomicAdd(a_c + off[k], wgt[k] * gv);
     }
   }
-  __syncthreads();
 
-  for (int c = 0; c < b.cn; ++c) {
-    float* dst = out +
-                 (static_cast<int64_t>(b.ni) * s.c + b.c0 + c) * s.texels +
-                 static_cast<int64_t>(b.z0) * b.row;
-    for (int e = threadIdx.x; e < slab_elems; e += blockDim.x)
-      dst[e] = acc[c * slab_elems + e];
+  float* dst = out + (static_cast<int64_t>(b.ni) * s.c + b.c0) * s.texels +
+               static_cast<int64_t>(b.z0) * b.row;
+  if (bulk) {
+    // the shared-memory atomics are generic-proxy writes: fence them
+    // before the async proxy reads the slab
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int c = 0; c < b.cn; ++c)
+        bulk_store(dst + static_cast<int64_t>(c) * s.texels,
+                   acc + c * slab_elems,
+                   static_cast<uint32_t>(slab_elems) * 4u);
+      bulk_store_wait();
+    }
+  } else {
+    __syncthreads();
+    for (int c = 0; c < b.cn; ++c)
+      for (int e = threadIdx.x; e < slab_elems; e += blockDim.x)
+        dst[static_cast<int64_t>(c) * s.texels + e] = acc[c * slab_elems + e];
   }
 }
 
-// Shared memory of one block: cc channels of dz rows, plus the halo row
-// for the blend.
-int64_t slab_smem_bytes(const csm::PairShape& s, int dim, int dz, int cc,
-                        bool blend) {
-  const int row = s.stride[dim - 1];
-  return static_cast<int64_t>(cc) * (blend ? dz + 1 : dz) * row *
-         static_cast<int64_t>(sizeof(float));
+// --- the bins: a counting sort of the pairs by (cell, floor row) ---------
+
+// Each pair's key (cell, clamped floor row) and its rank among the pairs
+// of its key.  A block counts kBinQueries queries of one cell in a
+// shared-memory histogram of the cell's rows (the ranks within the block)
+// and adds each row's count to the global one once (the block's base).
+template <int D>
+__global__ void __launch_bounds__(kBinThreads)
+    slab_bin_count_kernel(const float* __restrict__ grid, int* __restrict__ key,
+                          int* __restrict__ rank, int* __restrict__ counts,
+                          csm::PairShape s, csm::SamplerParams p) {
+  extern __shared__ int hist[];
+  const int ni = blockIdx.y;
+  const int depth = s.size[D - 1];
+  int* cell_counts = counts + ni * depth;
+  for (int r = threadIdx.x; r < depth; r += blockDim.x) hist[r] = 0;
+  __syncthreads();
+  const int q0 = blockIdx.x * kBinQueries + threadIdx.x;
+  int row[kBinPerThread], local[kBinPerThread];
+#pragma unroll
+  for (int i = 0; i < kBinPerThread; ++i) {
+    const int qi = q0 + i * kBinThreads;
+    row[i] = -1;
+    if (qi < s.q) {
+      const int f = csm::pair_floor<D>(s, grid, ni, qi, D - 1, p);
+      row[i] = min(max(f, 0), depth - 1);
+      local[i] = atomicAdd(hist + row[i], 1);
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < depth; r += blockDim.x) {
+    const int c = hist[r];
+    if (c != 0) hist[r] = atomicAdd(cell_counts + r, c);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kBinPerThread; ++i) {
+    if (row[i] < 0) continue;
+    const int pair = ni * s.q + q0 + i * kBinThreads;
+    key[pair] = ni * depth + row[i];
+    rank[pair] = local[i] + hist[row[i]];
+  }
 }
 
+// counts[0, m) -> their exclusive prefix sums in place, counts[m] = total:
+// one block, each thread over a contiguous chunk
+__global__ void __launch_bounds__(kScanThreads)
+    slab_bin_scan_kernel(int* __restrict__ counts, int m) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  const int per = (m + kScanThreads - 1) / kScanThreads;
+  const int lo = min(t * per, m), hi = min(lo + per, m);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += counts[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += v;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int c = counts[i];
+    counts[i] = run;
+    run += c;
+  }
+  if (t == kScanThreads - 1) counts[m] = run;
+}
+
+__global__ void __launch_bounds__(kBinThreads)
+    slab_bin_scatter_kernel(const int* __restrict__ key,
+                            const int* __restrict__ rank,
+                            const int* __restrict__ starts,
+                            int* __restrict__ perm, int pairs) {
+  const int pair = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pair >= pairs) return;
+  perm[__ldg(starts + key[pair]) + rank[pair]] = pair;
+}
+
+// --- launches --------------------------------------------------------------
+
 template <int D, bool kBlend>
-cudaError_t launch_slab(const float* src, const float* grid, float* out,
+cudaError_t launch_slab(const float* src, const float* grid, const int* perm,
+                        const int* starts, float* out,
                         const csm::PairShape& s, int dz, int cc,
                         const csm::SamplerParams& p, cudaStream_t stream) {
   if (dz < 1 || cc < 1) return cudaErrorInvalidValue;
   if (s.n == 0 || s.c == 0 || s.texels == 0 || (kBlend && s.q == 0))
     return cudaGetLastError();
+  const int depth = s.size[D - 1];
+  const int row = s.stride[D - 1];
+  // more than one slab needs the bins
+  const bool bins = depth > dz;
+  if (bins && (perm == nullptr || starts == nullptr))
+    return cudaErrorInvalidValue;
   csm::DeviceLimits lim;
   cudaError_t err = csm::device_limits(&lim);
   if (err != cudaSuccess) return err;
-  const int64_t bytes = slab_smem_bytes(s, D, dz, cc, kBlend);
+  // cc channels of dz rows, plus the halo row for the blend
+  const int64_t data = static_cast<int64_t>(cc) * (kBlend ? dz + 1 : dz) *
+                       row * static_cast<int64_t>(sizeof(float));
+  // bulk copies take 16-byte aligned addresses and sizes
+  const bool aligned =
+      row % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(kBlend ? src : out) % 16 == 0;
+  const bool bulk =
+      aligned && (!kBlend || data + kBarrierBytes <= lim.smem_optin);
+  const int64_t bytes = data + (kBlend && bulk ? kBarrierBytes : 0);
   if (bytes > lim.smem_optin) return cudaErrorInvalidValue;
-  auto* kernel = kBlend ? &slab_blend_kernel<D> : &slab_splat_kernel<D>;
+  const bool wide = !kBlend && 2 * bytes > lim.smem_per_sm;
+  auto* kernel = kBlend  ? &slab_blend_kernel<D>
+                 : wide ? &slab_splat_kernel<D, kWideSplatThreads>
+                        : &slab_splat_kernel<D, kSlabThreads>;
   err = csm::allow_smem(kernel, static_cast<size_t>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 blocks(csm::cdiv(s.size[D - 1], dz), csm::cdiv(s.c, cc), s.n);
-  kernel<<<blocks, kSlabThreads, static_cast<size_t>(bytes), stream>>>(
-      src, grid, out, s, dz, cc, p);
+  const dim3 blocks(csm::cdiv(depth, dz), csm::cdiv(s.c, cc), s.n);
+  kernel<<<blocks, wide ? kWideSplatThreads : kSlabThreads,
+           static_cast<size_t>(bytes), stream>>>(
+      src, grid, bins ? perm : nullptr, bins ? starts : nullptr, out, s, dz,
+      cc, p, bulk);
   return cudaGetLastError();
 }
 
 template <bool kBlend>
-int slab_entry(const void* src, const void* grid, void* out, int dim, int n,
-               int c, int d, int h, int w, int q, int grid_batch, int ox,
-               int oy, int oz, int dz, int cc, int kernel, int padding,
-               int align, int multicell, int strict, float off_step,
-               float off_stop, void* stream) {
+int slab_entry(const void* src, const void* grid, const void* perm,
+               const void* starts, void* out, int dim, int n, int c, int d,
+               int h, int w, int q, int grid_batch, int ox, int oy, int oz,
+               int dz, int cc, int kernel, int padding, int align,
+               int multicell, int strict, float off_step, float off_stop,
+               void* stream) {
   if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz) || n > 65535)
     return cudaErrorInvalidValue;
   const csm::PairShape s =
@@ -209,38 +476,96 @@ int slab_entry(const void* src, const void* grid, void* out, int dim, int n,
       kernel, padding, align, multicell, strict, off_step, off_stop);
   const auto* in = static_cast<const float*>(src);
   const auto* gr = static_cast<const float*>(grid);
+  const auto* pm = static_cast<const int*>(perm);
+  const auto* st = static_cast<const int*>(starts);
   auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_slab<2, kBlend>(in, gr, o, s, dz, cc, p, st)
-                  : launch_slab<3, kBlend>(in, gr, o, s, dz, cc, p, st);
+  auto cs = static_cast<cudaStream_t>(stream);
+  return dim == 2
+             ? launch_slab<2, kBlend>(in, gr, pm, st, o, s, dz, cc, p, cs)
+             : launch_slab<3, kBlend>(in, gr, pm, st, o, s, dz, cc, p, cs);
+}
+
+template <int D>
+cudaError_t launch_bins(const float* grid, int* key, int* rank, int* starts,
+                        int* perm, const csm::PairShape& s,
+                        const csm::SamplerParams& p, cudaStream_t stream) {
+  const int depth = s.size[D - 1];
+  if (s.n == 0 || s.q == 0) return cudaGetLastError();
+  csm::DeviceLimits lim;
+  cudaError_t err = csm::device_limits(&lim);
+  if (err != cudaSuccess) return err;
+  // the histogram of a cell's rows lives in shared memory
+  const int64_t hist_bytes = static_cast<int64_t>(depth) * sizeof(int);
+  if (hist_bytes > lim.smem_optin) return cudaErrorInvalidValue;
+  err = csm::allow_smem(&slab_bin_count_kernel<D>,
+                        static_cast<size_t>(hist_bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 count_blocks(csm::cdiv(s.q, kBinQueries), s.n);
+  slab_bin_count_kernel<D><<<count_blocks, kBinThreads, hist_bytes, stream>>>(
+      grid, key, rank, starts, s, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slab_bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(starts, s.n * depth);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int pairs = s.n * s.q;
+  slab_bin_scatter_kernel<<<csm::cdiv(pairs, kBinThreads), kBinThreads, 0,
+                            stream>>>(key, rank, starts, perm, pairs);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// d is ignored for dim == 2; orders (ox, oy, oz) per grid axis.
-int slab_blend(const void* input, const void* grid, void* out, int dim,
-               int n, int c, int d, int h, int w, int q, int grid_batch,
-               int ox, int oy, int oz, int dz, int cc, int kernel,
-               int padding, int align, int multicell, int strict,
-               float off_step, float off_stop, void* stream) {
-  return slab_entry<true>(input, grid, out, dim, n, c, d, h, w, q,
-                          grid_batch, ox, oy, oz, dz, cc, kernel, padding,
+// d is ignored for dim == 2; orders (ox, oy, oz) per grid axis; perm and
+// starts null when the leading axis is one slab (d or h <= dz).
+int slab_blend(const void* input, const void* grid, const void* perm,
+               const void* starts, void* out, int dim, int n, int c, int d,
+               int h, int w, int q, int grid_batch, int ox, int oy, int oz,
+               int dz, int cc, int kernel, int padding, int align,
+               int multicell, int strict, float off_step, float off_stop,
+               void* stream) {
+  return slab_entry<true>(input, grid, perm, starts, out, dim, n, c, d, h, w,
+                          q, grid_batch, ox, oy, oz, dz, cc, kernel, padding,
                           align, multicell, strict, off_step, off_stop,
                           stream);
 }
 
 // Writes every element of out (N, C, *S).
-int slab_splat(const void* gout, const void* grid, void* out, int dim, int n,
-               int c, int d, int h, int w, int q, int grid_batch, int ox,
-               int oy, int oz, int dz, int cc, int kernel, int padding,
-               int align, int multicell, int strict, float off_step,
-               float off_stop, void* stream) {
-  return slab_entry<false>(gout, grid, out, dim, n, c, d, h, w, q,
-                           grid_batch, ox, oy, oz, dz, cc, kernel, padding,
+int slab_splat(const void* gout, const void* grid, const void* perm,
+               const void* starts, void* out, int dim, int n, int c, int d,
+               int h, int w, int q, int grid_batch, int ox, int oy, int oz,
+               int dz, int cc, int kernel, int padding, int align,
+               int multicell, int strict, float off_step, float off_stop,
+               void* stream) {
+  return slab_entry<false>(gout, grid, perm, starts, out, dim, n, c, d, h, w,
+                           q, grid_batch, ox, oy, oz, dz, cc, kernel, padding,
                            align, multicell, strict, off_step, off_stop,
                            stream);
+}
+
+// The bins of a grid over (N, *S) cells: key and rank (N * Q,) int32
+// scratch, starts (N * D + 1,) int32 zeroed, perm (N * Q,) int32.  d is
+// ignored for dim == 2.
+int slab_bins(const void* grid, void* key, void* rank, void* starts,
+              void* perm, int dim, int n, int d, int h, int w, int q,
+              int grid_batch, int padding, int align, int multicell,
+              int strict, float off_step, float off_stop, void* stream) {
+  if (csm::bad_pair_args(dim, grid_batch, n, 0, 0, 0) || n > 65535)
+    return cudaErrorInvalidValue;
+  const csm::PairShape s =
+      csm::make_pair_shape(dim, n, 1, d, h, w, q, grid_batch, 0, 0, 0);
+  const csm::SamplerParams p = csm::make_params(
+      csm::kCosine, padding, align, multicell, strict, off_step, off_stop);
+  const auto* gr = static_cast<const float*>(grid);
+  auto* k = static_cast<int*>(key);
+  auto* r = static_cast<int*>(rank);
+  auto* st = static_cast<int*>(starts);
+  auto* pm = static_cast<int*>(perm);
+  auto cs = static_cast<cudaStream_t>(stream);
+  return dim == 2 ? launch_bins<2>(gr, k, r, st, pm, s, p, cs)
+                  : launch_bins<3>(gr, k, r, st, pm, s, p, cs);
 }
 
 }  // extern "C"

@@ -64,9 +64,9 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
                  extra=()) -> None:
     """Call ``entry``, a C entry point of the blend_o / splat_o family
     (blend_o, splat_o, percell_*, slab_*), on the current stream of the
-    device of ``pointers[-1]``: the data pointers, then dim, n, c, d, h, w,
-    q, grid batch, three orders, ``extra`` (ints), the config flags, the
-    offset lattice and the stream."""
+    device of ``pointers[-1]``: the data pointers (None for a null one),
+    then dim, n, c, d, h, w, q, grid batch, three orders, ``extra``
+    (ints), the config flags, the offset lattice and the stream."""
     lib = load_kernels()
     if n * c * max(q, math.prod(spatial)) >= 2**31:
         raise ValueError("cells or queries too many for the kernels' 32-bit "
@@ -77,9 +77,10 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
     device = pointers[-1].device
     with torch.cuda.device(device):
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in pointers), cfg.dim, n, c, d, h, w, q,
-            grid_batch, ox, oy, oz, *extra, KERNEL_IDS[cfg.kernel],
-            PADDING_IDS[cfg.padding_mode], int(align), int(cfg.multicell),
+            *(0 if t is None else t.data_ptr() for t in pointers), cfg.dim,
+            n, c, d, h, w, q, grid_batch, ox, oy, oz, *extra,
+            KERNEL_IDS[cfg.kernel], PADDING_IDS[cfg.padding_mode],
+            int(align), int(cfg.multicell),
             int(cfg.strict_reference), float(step), float(stop),
             torch.cuda.current_stream(device).cuda_stream)
     check(lib, err, f"{entry} launch")

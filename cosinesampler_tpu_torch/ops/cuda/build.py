@@ -154,9 +154,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
         fn.restype = i32
     for fn in (lib.slab_blend, lib.slab_splat):
-        # as blend_o, with the slab rows dz and channels cc after the orders
-        fn.argtypes = [ptr, ptr, ptr] + [i32] * 18 + [f32, f32, ptr]
+        # input or gout, grid, perm, starts, out; then as blend_o, with the
+        # slab rows dz and channels cc after the orders
+        fn.argtypes = [ptr] * 5 + [i32] * 18 + [f32, f32, ptr]
         fn.restype = i32
+    # grid, key, rank, starts, perm; dim, n, d, h, w, q, grid batch,
+    # padding, align, multicell, strict; the offset lattice's step and
+    # stop; the stream
+    lib.slab_bins.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
+    lib.slab_bins.restype = i32
     lib.csm_error_string.argtypes = [i32]
     lib.csm_error_string.restype = ctypes.c_char_p
     return lib

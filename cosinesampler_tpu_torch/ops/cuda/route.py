@@ -4,15 +4,16 @@ Counterpart of the JAX package's ops/pallas/__init__.py ``_blend`` /
 ``_splat``, which send a volume over the TPU's VMEM budget to the binned
 per-cell kernels (percell.py) when the cloud has enough (cell, query)
 pairs and to the slab kernels (slab.py) otherwise.  That budget means
-nothing on the card.  What does is whether one cell fits the 227 KB of
-shared memory a block may use (splat_o then accumulates in shared
-memory, and above it falls to global atomics at random over the stack)
-and whether the stack fits the 50 MB L2 (those atomics then stay in L2).
-``rule`` is the card's rule, measured (PERF.md section 4); ``pick``
-applies it to one call.  Over a 3D stack larger than L2 with many pairs,
-cells that fit a block's shared memory go to the slab kernels (one block
-stages a whole cell) and larger ones to percell; everything else goes to
-blend_o / splat_o.
+nothing on the card.  What does is whether the stack fits the 50 MB L2
+(splat_o's atomics then stay in L2) and how many pairs share the bytes
+a route must move: the slab kernels stage and write the whole stack once
+(a slab of rows a block, its pairs binned by row), blend_o / splat_o
+gather and add where each pair lands.  ``rule`` is the card's rule,
+measured (PERF.md section 4); ``pick`` applies it to one call.  Over a
+stack larger than L2 with many pairs the slab kernels take every cell
+whose two rows fit a block's shared memory (and whose rows the bins'
+histogram holds), percell the 3D cells whose rows do not fit;
+everything else goes to blend_o / splat_o.
 
 A call that no kernel takes goes to the ``"plain"`` route, the plain
 PyTorch version on the call's own CUDA device, as the JAX package sends it
@@ -30,9 +31,11 @@ switches after a failed build or launch.
 ``run_plain`` runs the plain route and counts its calls in
 ``run_plain.launches``.
 
-``GridPlans`` carries percell's pair plan along one autograd chain: the
-nested 3D trainer makes some 200 blend/splat launches on one grid a step,
-and each takes the plan built at the chain's first percell launch.
+``GridPlans`` carries percell's pair plan and slab's bins along one
+autograd chain: the nested 3D trainer makes 40 blends and 40 splats on
+one grid a step, and all of them take the bins built at the chain's
+first slab launch (0.077 ms a build at 1.6 M pairs, PERF.md section
+6).
 """
 
 from __future__ import annotations
@@ -42,21 +45,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import SamplerConfig
+from ..config import SamplerConfig, effective_align
 from . import blend_splat, fused2d, fused3d, fused3s, percell, slab
-from .build import BLOCK_SMEM_BYTES
 
 __all__ = ["GridPlans", "blend", "fused_rule", "pick", "pick_fused", "rule",
            "run_plain", "sampler_rule", "splat"]
 
 # a stack up to this many bytes keeps splat_o's global atomics in L2 (the
-# H100's 50 MB): blend_o / splat_o won or tied there (16 x 4 x 32^3)
+# H100's 50 MB): blend_o / splat_o won there (16 x 4 x 16^3 and 32^3 at
+# 1.6 M pairs; the slab kernels lost 6x and by 5-25%)
 STACK_L2_BYTES = 50 * 10**6
-# fewest (cell, query) pairs at which percell, its plan reused along the
-# chain, and slab beat blend_o / splat_o over a stack larger than L2
-# (percell at 128^3: 2^20 won, 2^18 lost; slab at 16^3: 2^20 won, 2^18
-# within noise; PERF.md section 4)
-MIN_PAIRS = 1 << 20
+# fewest (cell, query) pairs at which the slab kernels, their bins reused
+# along the chain, beat blend_o / splat_o over a stack larger than L2: on
+# 16 x 4 x 128^3 2^18 won and 131 072 lost, on 1024 x 4 x 16^3 and 4 x 4
+# x 1024^2 2^18 won (the 2D volume lost at 65 536).  percell, its plan
+# reused, lost to slab at every point at 2^18 pairs or more, and beat
+# blend_o / splat_o where slab cannot stage two rows (8 x 4 x 32 x 256^2:
+# won at 2^20, tied at 65 536; PERF.md section 4)
+MIN_PAIRS = 1 << 18
 # the kernels index with 32-bit ints: a tensor of this many elements or
 # more takes the plain route
 INDEX_LIMIT = 2**31
@@ -108,20 +114,18 @@ FUSED3S_MIN_PLANES = 24
 def rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
          n_pairs: int) -> str:
     """The route of a CUDA f32 blend or splat over (N, C, *S) cells and
-    ``n_pairs`` (cell, query) pairs.  A 3D stack over the L2 at MIN_PAIRS
-    pairs or more: slab for cells up to a block's shared memory (where
-    slab.supports them), percell for larger cells; blend_o / splat_o
-    otherwise.  Both ops of a chain take one route, so they share one
-    plan."""
-    cell_bytes = 4 * math.prod(cells_shape[1:])
-    if (not percell.supports(cfg, cells_shape) or n_pairs < MIN_PAIRS
-            or cells_shape[0] * cell_bytes <= STACK_L2_BYTES):
+    ``n_pairs`` (cell, query) pairs.  A stack over the L2 at MIN_PAIRS
+    pairs or more: slab where slab.supports the cells (two rows of one
+    channel fit a block's shared memory, and the bins' histogram of a
+    cell's rows), percell for 3D cells whose rows do not fit; blend_o /
+    splat_o otherwise.  Both ops of a chain take one
+    route, so they share one plan."""
+    if (n_pairs < MIN_PAIRS
+            or 4 * math.prod(cells_shape) <= STACK_L2_BYTES):
         return "blend_o"
-    # a cell up to a block's shared memory: slab stages it whole, and
-    # splat_o accumulates it there (csrc/blend_splat.cu)
-    if cell_bytes > BLOCK_SMEM_BYTES:
-        return "percell"
-    return "slab" if slab.supports(cfg, cells_shape) else "blend_o"
+    if slab.geometry(cells_shape[1], cells_shape[2:], 1) is not None:
+        return "slab" if slab.supports(cfg, cells_shape) else "blend_o"
+    return "percell" if percell.supports(cfg, cells_shape) else "blend_o"
 
 
 def sampler_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
@@ -234,28 +238,45 @@ run_plain.launches = 0
 
 
 class GridPlans:
-    """The percell pair plan of the grid of one autograd chain, built at
-    its first percell launch and reused by the others.  The plan is keyed
-    on the grid's storage, shape, strides and version and on what the plan
-    depends on, so a grid that is not the one it was built for (or was
-    changed in place) gets a new one."""
+    """The pair plans of the grid of one autograd chain: percell's pair
+    plan and slab's bins, each built at its route's first launch that
+    needs it and reused by the others.  Each is keyed on the grid's
+    storage, shape, strides and version and on what it depends on, so a
+    grid that is not the one it was built for (or was changed in place)
+    gets a new one.  ``builds`` counts the builds of both."""
 
     def __init__(self):
-        self._key = None
-        self._plan: Optional[percell.PairPlan] = None
+        self._cache = {}
         self.builds = 0
+
+    def _get(self, kind: str, key, make):
+        held = self._cache.get(kind)
+        if held is None or held[0] != key:
+            held = (key, make())
+            self._cache[kind] = held
+            self.builds += 1
+        return held[1]
+
+    @staticmethod
+    def _key(grid: torch.Tensor, cells_shape, cfg: SamplerConfig):
+        return (grid.device, grid.data_ptr(), tuple(grid.shape),
+                tuple(grid.stride()), grid.dtype, grid._version,
+                cells_shape[0], tuple(cells_shape[2:]), cfg.padding_mode,
+                cfg.align_corners, cfg.multicell, cfg.strict_reference)
 
     def percell(self, grid: torch.Tensor, cells_shape,
                 cfg: SamplerConfig) -> percell.PairPlan:
-        key = (grid.device, grid.data_ptr(), tuple(grid.shape),
-               tuple(grid.stride()), grid.dtype, grid._version,
-               cells_shape[0], tuple(cells_shape[2:]), cfg.padding_mode,
-               cfg.align_corners, cfg.multicell, cfg.strict_reference)
-        if key != self._key:
-            self._plan = percell.make_plan(grid, cells_shape, cfg)
-            self._key = key
-            self.builds += 1
-        return self._plan
+        return self._get("percell", self._key(grid, cells_shape, cfg),
+                         lambda: percell.make_plan(grid, cells_shape, cfg))
+
+    def slab(self, grid: torch.Tensor, cells_shape, cfg: SamplerConfig,
+             align: bool) -> slab.SlabBins:
+        """slab's bins with ``align``, one set for each value: the
+        blend's effective align_corners differs from the splat's in strict
+        2D at order 0 only."""
+        return self._get(f"slab, align {align}",
+                         self._key(grid, cells_shape, cfg),
+                         lambda: slab.make_bins(grid, cells_shape, cfg, align))
 
 
 def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
@@ -269,7 +290,10 @@ def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
         plan = (plans or GridPlans()).percell(grid, shape, cfg)
         return percell.blend(input, grid, cfg, orders, plan)
     if route == "slab":
-        return slab.blend(input, grid, cfg, orders)
+        align = effective_align(cfg, orders)
+        bins = ((plans or GridPlans()).slab(grid, shape, cfg, align)
+                if slab.needs_bins(shape, True) else None)
+        return slab.blend(input, grid, cfg, orders, bins)
     if route == "plain":
         return run_plain(blend_splat.plain_blend, input, grid, cfg, orders)
     return blend_splat.blend(input, grid, cfg, orders)
@@ -287,7 +311,10 @@ def splat(gout: torch.Tensor, grid: torch.Tensor,
         plan = (plans or GridPlans()).percell(grid, shape, cfg)
         return percell.splat(gout, grid, in_spatial, cfg, orders, plan)
     if route == "slab":
-        return slab.splat(gout, grid, in_spatial, cfg, orders)
+        bins = ((plans or GridPlans()).slab(grid, shape, cfg,
+                                            cfg.align_corners)
+                if slab.needs_bins(shape, False) else None)
+        return slab.splat(gout, grid, in_spatial, cfg, orders, bins)
     if route == "plain":
         return run_plain(blend_splat.plain_splat, gout, grid,
                          tuple(in_spatial), cfg, orders)

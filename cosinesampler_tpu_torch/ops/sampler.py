@@ -17,7 +17,8 @@ included.  Each family member is one kernel launch, blend_o / splat_o,
 percell or slab as ops/cuda/route.py routes it, or, under
 ``backend="xla"`` and for CPU tensors, one plain ops/generic.py call.
 Every member of one chain works on one grid and passes one
-``route.GridPlans`` along, so percell's pair plan is built once a chain.
+``route.GridPlans`` along, so percell's pair plan or slab's bins are
+built once a chain.
 
 A backward computes only the cotangents the engine will use, as JAX's
 dead-code elimination and the reference's skip of a zero cotangent

@@ -8,6 +8,7 @@
                                         [--points Q] [--profile]
     python scripts/profile_port_step.py --fused3b [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
+    python scripts/profile_port_step.py --slab [--reps R]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
@@ -26,7 +27,12 @@ that route.  ``--fused3b`` times fused3b's blend and bwd kernels alone
 on config 5's volume and points (4 channels, the kernel layout), each the
 median of ``--reps`` calls (CUDA events) after 3 warm-up calls;
 ``--kernels`` so times fused2w's and fused3w's blend and bwd (96 x C x
-16^2 and 50 x C x 16^3, 100 000 points) and mega2w (96 x C x 16^2).
+16^2 and 50 x C x 16^3, 100 000 points) and mega2w (96 x C x 16^2);
+``--slab`` so times the slab route's blend and splat kernels on config
+5's volume at 100 000 shared points (cosine, and linear without
+multicell, the setting of grid_sample) and on 1024 x 4 x 16^3 cells at
+2^18 and 2^20 per-cell pairs, each with the bins (where the checkout's
+kernels take bins) built once before the timed calls.
 ``--cell-dim`` sets C (4 by default) for these and for the main-path
 steps (at C = 16 the megakernel step of a checkout whose mega2w takes at
 most 8 channels is its autograd fallback).  Prints the
@@ -198,6 +204,49 @@ def _main_kernels(card, c, reps):
     return 0
 
 
+def _slab_kernels(card, reps):
+    """Median ms of the slab blend and splat at the nested volume and the
+    routed small cells, bins (where the wrappers take them) built once."""
+    import inspect
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    from cosinesampler_tpu_torch.ops.cuda import slab
+    takes_bins = "bins" in inspect.signature(slab.blend).parameters
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with PointGenerator(100_000, 3, seed=7) as pgen:
+        shared = torch.from_numpy(pgen.batch(0)).cuda().reshape(
+            1, 1, 1, -1, 3)
+    cases = [("nested 16x4x128^3, Q=100000", (16, 4, 128, 128, 128), shared)]
+    for q in (256, 1024):
+        grid = torch.rand((1024, 1, 1, q, 3), generator=gen,
+                          device="cuda") * 1.9 - 0.95
+        cases.append((f"1024x4x16^3, {1024 * q} pairs", (1024, 4, 16, 16, 16),
+                      grid))
+    medians = {}
+    for what, shape, grid in cases:
+        x = torch.rand(shape, generator=gen, device="cuda")
+        gout = torch.randn((shape[0], 4, *grid.shape[1:-1]), generator=gen,
+                           device="cuda")
+        for name, cfg in (("cosine", SamplerConfig(dim=3)),
+                          ("linear", SamplerConfig(dim=3, kernel="linear",
+                                                   multicell=False))):
+            if name == "linear" and shape[0] != 16:
+                continue
+            o = (0, 0, 0)
+            kw = ({"bins": slab.make_bins(grid, shape, cfg, True)}
+                  if takes_bins else {})
+            medians[f"{what} {name} blend"] = _median_ms(
+                lambda: slab.blend(x, grid, cfg, o, **kw), reps)
+            medians[f"{what} {name} splat"] = _median_ms(
+                lambda: slab.splat(gout, grid, shape[2:], cfg, o, **kw), reps)
+        del x, gout
+        torch.cuda.empty_cache()
+    print(f"{card}; slab kernels, median of {reps} (bins "
+          f"{'built once' if takes_bins else 'not taken'}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items()),
+          flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nested", action="store_true",
@@ -216,9 +265,12 @@ def main(argv=None):
     ap.add_argument("--fused3b", action="store_true",
                     help="time fused3b's kernels alone at config 5")
     ap.add_argument("--reps", type=int, default=20,
-                    help="timed calls of each --fused3b / --kernels kernel")
+                    help="timed calls of each --fused3b / --kernels / "
+                         "--slab kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="time fused2w, fused3w and mega2w alone")
+    ap.add_argument("--slab", action="store_true",
+                    help="time the slab route's blend and splat alone")
     ap.add_argument("--cell-dim", type=int, default=4,
                     help="channels of --kernels and the main-path steps")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
@@ -234,6 +286,8 @@ def main(argv=None):
         return _fused3b_kernels(card, args.reps)
     if args.kernels:
         return _main_kernels(card, args.cell_dim, args.reps)
+    if args.slab:
+        return _slab_kernels(card, args.reps)
     if args.config5:
         run, pts = _config5_step(args.config5)
         batches = [pts] * (3 + args.steps)

@@ -19,6 +19,7 @@ from cosinesampler_tpu_torch.ops import sampler
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.utils import pointgen as tpointgen
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 class _Probe(torch.autograd.Function):

@@ -18,6 +18,7 @@ from cosinesampler_tpu.ops.pallas.fused2w import (pallas_fused2w_blend,
 from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import build, fused2w
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C, H, W, Q = 5, 3, 6, 7, 150
 # explicit everywhere: tests/test_torch_parity.py sets an f64 default dtype

@@ -21,6 +21,7 @@ from cosinesampler_tpu_torch.ops import fused as tfused
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w, route
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C, S, Q = 3, 2, (6, 7, 5), 200   # (D, H, W) = S
 

@@ -31,6 +31,7 @@ from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import fused3d, fused3s, fused3w, route
 from cosinesampler_tpu_torch.utils import pointgen as tpointgen
 from cosinesampler_tpu_torch.utils.convert import params_to_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = torch.float32
 # the JAX package's tests/test_fused3d.py and test_fused3s.py shapes: 5

@@ -32,6 +32,7 @@ from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
 from cosinesampler_tpu_torch.ops.cuda import fused2d, fused2w, fused3w, route
 from cosinesampler_tpu_torch.utils import pointgen as tpointgen
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32, F64 = torch.float32, torch.float64
 # Q off every block size: JAX's 2048 (2D) and 256 (3D) fused blocks, the
@@ -243,7 +244,7 @@ def test_sampler_rule_sends_what_no_kernel_takes_to_plain():
     sr = route.sampler_rule
     assert sr(cfg2, (96, 4, 16, 16), (1, 1, 100_000, 2)) == "blend_o"
     assert sr(cfg3, (16, 4, 128, 128, 128), (1, 1, 1, 100_000, 3)) == \
-        "percell"
+        "slab"
     assert sr(cfg2, (96, 4, 16, 16), (1, 1, 100_000, 2), "cuda", F64) == \
         "plain"
     assert sr(cfg2, (2, 4, 16384, 16384), (1, 1, 4096, 2)) == "plain"

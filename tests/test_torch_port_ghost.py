@@ -17,6 +17,7 @@ from cosinesampler_tpu.ops.config import SamplerConfig as JConfig
 from cosinesampler_tpu.ops.pallas import fused3b as jfused3b
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import fused3b
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # tests/test_fused3b.py's ghost case: 3 cells x 2 channels over (10, 12, 9)
 N_CELL, C, Q, SPATIAL = 3, 2, 160, (10, 12, 9)

@@ -24,6 +24,7 @@ from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import mega2w
 from cosinesampler_tpu_torch.utils.convert import (params_from_numpy,
                                                    params_to_numpy)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(n_cells=4, cell_dim=3, cell_size=8, hidden=8)
 MLP = ("w1", "b1", "w2", "b2")

@@ -18,6 +18,7 @@ from cosinesampler_tpu_torch.ops import generic as tgeneric
 from cosinesampler_tpu_torch.ops import interpolants as tinterp
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.config import effective_align
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KERNELS = ("cosine", "linear", "smoothstep")
 PADDINGS = ("zeros", "border", "reflection")

@@ -28,6 +28,7 @@ from cosinesampler_tpu_torch.ops.cuda import (blend_splat, percell, route,
                                               slab)
 from cosinesampler_tpu_torch.utils import pointgen as tpointgen
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX package's percell test shapes (tests/test_percell.py)
 N_CELL, C, Q = 3, 2, 700
@@ -193,28 +194,43 @@ def test_grid_plans_never_serve_a_stale_plan():
 # --- the router ---------------------------------------------------------------
 
 def test_rule_routes_by_cell_stack_and_pairs():
-    """The measured rule (PERF.md section 4): over a 3D stack larger than
-    L2 with 2^20 pairs or more, percell for cells over a block's shared
-    memory (the nested 128^3 trainer's 1.6 M pairs) and slab for cells
-    under it (64 KB and 216 KB cells); blend_o / splat_o elsewhere: the
-    16^3 main path's stack, a 16 x 4 x 32^3 stack that fits L2, the
-    per-cell surface's 16 384 pairs, 2^18 pairs, more cells than slab
-    takes, and every 2D volume."""
+    """The measured rule (PERF.md section 4): over a stack larger than L2
+    with 2^18 pairs or more, slab wherever two rows of one channel fit a
+    block's shared memory (the nested 128^3 trainer's 1.6 M pairs, 64 KB
+    to 524 KB cells, the 2D volume), percell for 3D cells whose rows do
+    not (256^2 planes); each bound pinned on both sides: 2^18 and 131 072
+    pairs, a stack just over and just under L2; blend_o / splat_o
+    elsewhere: the 16^3 main path's stack, the per-cell surface's 16 384
+    pairs, more cells than slab takes, 2D rows too wide for slab, and a
+    leading axis deeper than the bins' shared-memory histogram takes
+    (pinned on both sides)."""
     cfg3, cfg2 = TConfig(dim=3), TConfig(dim=2)
     vol = (16, 4, 128, 128, 128)
-    assert route.rule(cfg3, vol, 16 * 100_000) == "percell"
-    assert route.rule(cfg3, vol, 1 << 20) == "percell"
-    assert route.rule(cfg3, (16, 4, 64, 64, 64), 1 << 20) == "percell"
-    for shape in ((1024, 4, 16, 16, 16), (512, 4, 24, 24, 24)):
-        assert route.rule(cfg3, shape, 1 << 20) == "slab"
-        assert route.rule(cfg3, shape, 1 << 18) == "blend_o"
+    for pairs in (16 * 100_000, 1 << 20, 1 << 18):
+        assert route.rule(cfg3, vol, pairs) == "slab"
+    assert route.rule(cfg3, vol, 131_072) == "blend_o"
+    for shape in ((1024, 4, 16, 16, 16), (512, 4, 24, 24, 24),
+                  (128, 4, 32, 32, 32), (16, 4, 64, 64, 64)):
+        assert route.rule(cfg3, shape, 1 << 18) == "slab"
+        assert route.rule(cfg3, shape, (1 << 18) - 1) == "blend_o"
+    wide = (8, 4, 32, 256, 256)
+    assert route.rule(cfg3, wide, 1 << 20) == "percell"
+    assert route.rule(cfg3, wide, 65_536) == "blend_o"
+    # a stack of 50 MB stays in L2: blend_o; one just over it: slab
+    assert route.rule(cfg3, (762, 4, 16, 16, 16), 1 << 20) == "blend_o"
+    assert route.rule(cfg3, (763, 4, 16, 16, 16), 1 << 20) == "slab"
     for shape, pairs in (((50, 4, 16, 16, 16), 50 * 100_000),
                          ((16, 4, 32, 32, 32), 16 * 100_000),
                          ((4, 4, 128, 128, 128), 4 * 4096),
-                         ((70_000, 4, 16, 16, 16), 70_000 * 16),
-                         (vol, 1 << 18)):
+                         ((70_000, 4, 16, 16, 16), 70_000 * 16)):
         assert route.rule(cfg3, shape, pairs) == "blend_o"
-    assert route.rule(cfg2, (16, 4, 2048, 2048), 1 << 24) == "blend_o"
+    assert route.rule(cfg2, (4, 4, 1024, 1024), 1 << 18) == "slab"
+    assert route.rule(cfg2, (4, 4, 1024, 1024), 65_536) == "blend_o"
+    assert route.rule(cfg2, (16, 4, 2048, 2048), 1 << 24) == "slab"
+    assert route.rule(cfg2, (16, 1, 64, 40_000), 1 << 20) == "blend_o"
+    assert slab.BIN_MAX_DEPTH == 58_112
+    assert route.rule(cfg2, (4, 1, 58_112, 64), 1 << 20) == "slab"
+    assert route.rule(cfg2, (4, 1, 58_113, 64), 1 << 20) == "blend_o"
 
 
 def test_pick_takes_blend_o_off_cuda_f32():
@@ -283,19 +299,23 @@ def test_nested_slice_through_forced_route_matches_jax(monkeypatch, name,
     sampler launch routed to ``name`` (the plain versions on the CPU; slab
     with a small shared-memory budget, so 6 slabs of 2 channels in the
     blend), against jax.value_and_grad: loss at rtol 1e-5, every gradient
-    leaf at rtol 1e-4.  One nested step builds one percell plan."""
+    leaf at rtol 1e-4.  One nested step builds one percell plan or one
+    set of slab bins."""
     np_params, pts, want_loss, want_grads = nested_reference
     monkeypatch.setattr(route, "pick", lambda *args: name)
     monkeypatch.setattr(slab, "SMEM_BYTES", 600)
     assert slab.geometry(4, (6, 6, 6), 1) == (1, 2)
-    builds = []
-    make_plan = percell.make_plan
-    monkeypatch.setattr(percell, "make_plan",
-                        lambda *a, **k: builds.append(1) or make_plan(*a, **k))
+    builds = {"percell": [], "slab": []}
+    make_plan, make_bins = percell.make_plan, slab.make_bins
+    monkeypatch.setattr(percell, "make_plan", lambda *a, **k: builds[
+        "percell"].append(1) or make_plan(*a, **k))
+    monkeypatch.setattr(slab, "make_bins", lambda *a, **k: builds[
+        "slab"].append(1) or make_bins(*a, **k))
     params = params_from_numpy(np_params, "cpu")
     loss = tpinn.loss(params, torch.from_numpy(pts), tpinn.PINNConfig(**KW3))
     loss.backward()
-    assert len(builds) == (1 if name == "percell" else 0)
+    assert {k: len(v) for k, v in builds.items()} == {
+        "percell": int(name == "percell"), "slab": int(name == "slab")}
     np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-5)
     assert set(params) == set(want_grads)
     for k, p in params.items():

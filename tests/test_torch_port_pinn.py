@@ -18,6 +18,7 @@ from cosinesampler_tpu_torch.models import train as ttrain
 from cosinesampler_tpu_torch.utils import pointgen as tpointgen
 from cosinesampler_tpu_torch.utils.convert import (params_from_numpy,
                                                    params_to_numpy)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(n_cells=8, cell_size=16, hidden=16)
 Q = 512

@@ -25,6 +25,7 @@ from cosinesampler_tpu_torch.ops import generic as tgeneric
 from cosinesampler_tpu_torch.ops import sampler as tsampler
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import blend_splat
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_CELL, C = 3, 2
 # explicit everywhere: tests/test_torch_parity.py sets an f64 default dtype

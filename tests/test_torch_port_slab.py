@@ -19,6 +19,7 @@ from cosinesampler_tpu_torch.ops import generic as tgeneric
 from cosinesampler_tpu_torch.ops import sampler as tsampler
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import percell, route, slab
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_CELL, C, Q = 2, 3, 96
 F32 = torch.float32

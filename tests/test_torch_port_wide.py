@@ -21,6 +21,7 @@ from cosinesampler_tpu_torch.models import pinn as tpinn
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
 from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w, mega2w, route
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = torch.float32
 
