@@ -22,9 +22,12 @@ points) for 3 steps through the route ops/cuda/route.py gives it
 steps forced through percell (percell_blend / percell_splat); the
 per-cell surface of 4 x 4 x 128^3 cells (per-cell 16^3 grids), its
 sparse case, a 4 x 4 x 1024^2 2D volume and a stack of 1024 x 4 x 16^3
-cells go through their routes too, and percell, slab and the slab bins
-are held to their plain versions at all those shapes and at a skewed
-and a sparse cloud on config 5's volume.  At 16 feature channels the 2D
+cells go through their routes too, and percell, slab, the percell plan
+and the slab bins are held to their plain versions at all those shapes,
+at a skewed and a sparse cloud on config 5's volume and (percell) on 8 x
+4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles and splat_o's launch
+geometry are each timed against their alternatives (the sweeps behind
+percell.geometry and blend_splat.splat_geometry).  At 16 feature channels the 2D
 trainer (20 steps) and the 3D trainer (5) go through the routed
 channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
 versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
@@ -65,6 +68,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -108,6 +112,9 @@ NP, SP, GP, GP_SPARSE = 4, 128, 16, 2
 S2D, G2D = 1024, 128
 # a stack over L2 of cells under a block's shared memory: per-cell points
 NS, SS, GS = 1024, 16, 1024
+# cells whose rows the slab kernels cannot stage (percell's route): 8 x 4
+# x 32 x 256^2 at 2^20 (cell, query) pairs
+NW, SW, QW = 8, (32, 256, 256), 1 << 20
 # kernel vs plain: max |kernel - plain| over the largest |plain| of the row
 # (f32, other summation order, f32 atomics in the splats).  A blend_o or
 # splat_o launch is one row: order k scales it by (pi * mult)^k, so only an
@@ -404,6 +411,12 @@ def v1_kernel_phase():
                       [(0, 0), (1, 0), (0, 1), (2, 0), (1, 1), (3, 0)])
     compare_v1("3d-main", SamplerConfig(dim=3), N3, C, (S3,) * 3, Q,
                [(0, 0, 0), (0, 0, 1), (2, 0, 0), (1, 1, 1)], seed=1)
+    # per-cell grids at the main shapes: splat_o's blocks of cells then
+    # read a grid row a cell
+    compare_v1("2d-main-per-cell", SamplerConfig(dim=2), N, C, (H, W), Q,
+               [(0, 0), (1, 2)], seed=7, grid_batch=N)
+    compare_v1("3d-main-per-cell", SamplerConfig(dim=3), N3, C, (S3,) * 3, Q,
+               [(0, 0, 0), (0, 2, 1)], seed=8, grid_batch=N3)
     small = (8, 3, (12, 10), 4099)       # Q not a multiple of the block
     orders = [(0, 0), (1, 0), (2, 1)]
     wide = dict(lo=-1.2, hi=1.2)
@@ -429,6 +442,12 @@ def v1_kernel_phase():
              dict(grid_batch=6))]:
         compare_v1(name, SamplerConfig(dim=3, **kw), 6, 3, (7, 8, 9), 4099,
                    [(0, 0, 0), (1, 0, 1)], seed=3, **wide, **extra)
+    # 3 cells of 3 x 7 x 9 floats: lanes over 2 cells, and a cell whose
+    # floats are not a multiple of 4 flushed by global atomics
+    if blend_splat.splat_geometry(3, 3, (7, 9), 4099).lanes != 2:
+        raise RuntimeError("splat_o: the odd-cell variant takes other lanes")
+    compare_v1("odd-cell", SamplerConfig(dim=2), 3, 3, (7, 9), 4099,
+               [(0, 0), (1, 2)], seed=9, **wide)
     # cells too large for shared memory even opted in: global atomics
     compare_v1("2d-large-cell", SamplerConfig(dim=2), 2, 4, (128, 128), 4096,
                [(0, 0), (0, 1)], seed=4, **wide)
@@ -790,18 +809,48 @@ def compare_bins(what, cfg, cells_shape, grid, align=None):
         raise RuntimeError(f"slab_bins {what}: differs from plain_bins")
 
 
-def _band_points(q, s, rows, seed):
+def _band_points(q, s, rows, seed, y_rows=None):
     """(1, 1, 1, q, 3) shared points over an s^3 cell (multicell,
     align_corners) whose z source coordinates lie in [rows[0] + 0.05,
     rows[1] - 1) before the cell shift (< 1): every pair's floor row in
-    [rows[0], rows[1]), x and y over the whole cell."""
+    [rows[0], rows[1]), x and y over the whole cell (y, where ``y_rows``
+    is given, in those rows likewise)."""
     gen = _cuda_gen(seed)
     pts = torch.rand((q, 3), generator=gen, device="cuda") * 2.0 - 1.0
     scale = 0.5 * (s - 2)
-    lo, hi = rows[0] + 0.05, rows[1] - 1.0
-    pts[:, 2] = (torch.rand((q,), generator=gen, device="cuda") * (hi - lo)
-                 + lo) / scale - 1.0
+    for axis, band in ((2, rows), (1, y_rows)):
+        if band is None:
+            continue
+        lo, hi = band[0] + 0.05, band[1] - 1.0
+        pts[:, axis] = (torch.rand((q,), generator=gen, device="cuda")
+                        * (hi - lo) + lo) / scale - 1.0
     return pts.reshape(1, 1, 1, q, 3)
+
+
+def compare_plan(what, cfg, cells_shape, grid):
+    """percell_plan against plain_plan on the card: the same first slot of
+    every (cell, tile) and, slot by slot, a pair of the same key (the
+    kernel orders a bin by its atomics, the plain version by query); perm
+    a permutation."""
+    got = percell.make_plan(grid, cells_shape, cfg)
+    want = percell.plain_plan(grid, cells_shape, cfg)
+    key = torch.empty_like(want.perm, dtype=torch.int64)
+    key[want.perm.long()] = torch.repeat_interleave(
+        torch.arange(want.starts.numel() - 1, device=grid.device),
+        (want.starts[1:] - want.starts[:-1]).long())
+    slots = torch.arange(got.perm.numel(), device=grid.device)
+    ok = ((got.dz, got.ty) == (want.dz, want.ty)
+          and torch.equal(got.starts, want.starts)
+          and torch.equal(key[got.perm.long()], key[want.perm.long()])
+          and torch.equal(torch.sort(got.perm).values.long(), slots))
+    sizes = want.starts[1:] - want.starts[:-1]
+    print(f"compare percell_plan {what} ({'x'.join(map(str, cells_shape))}, "
+          f"grid {tuple(grid.shape)}): {got.perm.numel()} pairs in tiles of "
+          f"({got.dz}, {got.ty}) rows, {int((sizes == 0).sum())} of "
+          f"{sizes.numel()} (cell, tile) bins empty, the fullest "
+          f"{int(sizes.max())}; equal to the plain plan: {ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"percell_plan {what}: differs from plain_plan")
 
 
 def pc_slab_kernel_phase():
@@ -814,6 +863,7 @@ def pc_slab_kernel_phase():
     cfg3 = SamplerConfig(dim=3)
     x, grid, gout = _nested_vol_inputs(20)
     compare_bins("nested-volume", cfg3, tuple(x.shape), grid)
+    compare_plan("nested-volume", cfg3, tuple(x.shape), grid)
     e = compare_route("nested-volume", "percell", cfg3, x, grid, gout,
                       [(0, 0, 0), (0, 0, 1), (2, 0, 0), (1, 1, 1), (3, 0, 0)])
     errs["percell_blend"], errs["percell_splat"] = e
@@ -832,8 +882,29 @@ def pc_slab_kernel_phase():
                           [(0, 0, 0), (1, 0, 2)])
         errs["slab_blend"] = max(errs["slab_blend"], e[0])
         errs["slab_splat"] = max(errs["slab_splat"], e[1])
-    del x, grid, gout, g
+    # skewed for percell: every pair in z rows 40..41 and y rows 15..16,
+    # one (z tile, y band) a cell
+    pts = _band_points(QN, S5, (40, 42), 45, y_rows=(15, 17))
+    compare_plan("skewed-band", cfg3, tuple(x.shape), pts)
+    e = compare_route("skewed-band", "percell", cfg3, x, pts, gout,
+                      [(0, 0, 0), (0, 1, 2)])
+    errs["percell_blend"] = max(errs["percell_blend"], e[0])
+    errs["percell_splat"] = max(errs["percell_splat"], e[1])
+    del x, grid, gout, g, pts
     torch.cuda.empty_cache()
+    # the routed cells whose rows slab cannot stage: 8 x 4 x 32 x 256^2 at
+    # 2^20 pairs, per-cell and shared grids
+    for what, gb in (("wide-rows per-cell", NW), ("wide-rows shared", 1)):
+        x, grid, gout = _per_cell_inputs(3, NW, SW, (1, 1, QW // NW), 46,
+                                         -1.0, 1.0)
+        grid = grid[:gb].contiguous()
+        compare_plan(what, cfg3, tuple(x.shape), grid)
+        e = compare_route(what, "percell", cfg3, x, grid, gout,
+                          [(0, 0, 0), (1, 0, 2)])
+        errs["percell_blend"] = max(errs["percell_blend"], e[0])
+        errs["percell_splat"] = max(errs["percell_splat"], e[1])
+        del x, grid, gout
+        torch.cuda.empty_cache()
     for what, g in (("per-cell", GP), ("sparse", GP_SPARSE)):
         x, grid, gout = _per_cell_inputs(3, NP, (SP,) * 3, (g,) * 3, 21)
         for name in ("percell", "slab"):
@@ -888,8 +959,18 @@ def pc_slab_kernel_phase():
     # with align on
     x, grid, gout = _per_cell_inputs(3, 3, (40, 13, 15), (1, 1, 4099), 43,
                                      **wide)
-    compare_route("odd-rows", "slab", cfg3, x, grid, gout,
-                  [(0, 0, 0), (1, 2, 0)])
+    for name in ("percell", "slab"):
+        compare_route("odd-rows", name, cfg3, x, grid, gout,
+                      [(0, 0, 0), (1, 2, 0)])
+    # rows of 8192 floats: two rows of one channel of two planes exceed a
+    # percell tile, so its blend gathers from the volume
+    x, grid, gout = _per_cell_inputs(3, 2, (4, 4, 8192), (1, 1, 4099), 48,
+                                     **wide)
+    if percell.channels(C, (4, 4, 8192), *percell.geometry(
+            C, (4, 4, 8192))) != 0:
+        raise RuntimeError("percell: the wide-row variant is staged")
+    compare_route("unstaged", "percell", cfg3, x, grid, gout,
+                  [(0, 0, 0), (0, 1, 1)])
     x, grid, gout = _per_cell_inputs(2, 3, (300, 201), (1, 4099), 44, **wide)
     cfg2s = SamplerConfig(dim=2, strict_reference=True, align_corners=False)
     compare_bins("odd-rows-2d strict, blend", cfg2s, tuple(x.shape), grid,
@@ -925,7 +1006,7 @@ def _touched_values(x, grid, cfg):
     return int(torch.unique(torch.cat(keys)).numel()) * c
 
 
-def _time_plan(what, build_fn, pairs):
+def _time_plan(what, build_fn, pairs, where="the nested volume"):
     """A plan's (or bins') first build on the host clock, then its ms by
     CUDA events over 3 builds, printed."""
     torch.cuda.synchronize()
@@ -934,7 +1015,7 @@ def _time_plan(what, build_fn, pairs):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     ms = _time_ms(build_fn, 3)
-    print(f"{what} at the nested volume ({pairs} pairs): first build "
+    print(f"{what} at {where} ({pairs} pairs): first build "
           f"{first_ms:.2f} ms (host clock), then {ms:.3f} ms (CUDA events, "
           f"3 builds)", flush=True)
     return ms
@@ -979,8 +1060,9 @@ def pc_slab_time_phase():
     (the kernels take them built), and the 3D grid_sample and its
     backward at their one setting (linear, order 0, zeros, no multicell,
     align_corners) beside the kernels at that setting, there and on the
-    routed stack of 1024 x 4 x 16^3 cells at 2^18 and 2^20 pairs;
-    percell_blend's two output orders.  Then the route rule's measurement:
+    routed stack of 1024 x 4 x 16^3 cells at 2^18 and 2^20 pairs and (the
+    percell pair) on 8 x 4 x 32 x 256^2 cells at 2^20 pairs with its plan's
+    build.  Then the route rule's measurement:
     one blend and one splat on each route, with and without its plan's
     build, across cell sizes and pair counts."""
     cfg = SamplerConfig(dim=3)
@@ -1058,8 +1140,6 @@ def pc_slab_time_phase():
               f"{'blend_o' if 'blend' in name else 'splat_o'} on the same "
               f"inputs {other_ms:.4f} ms", flush=True)
 
-    _blend_order_times(x, grid, cfg, plan)
-
     lib_cfg = SamplerConfig(dim=3, kernel="linear", multicell=False)
     plan_l = percell.make_plan(grid, shape, lib_cfg)
     bins_l = slab.make_bins(grid, shape, lib_cfg, True)
@@ -1087,39 +1167,81 @@ def pc_slab_time_phase():
                                     lib_ms})
         del x, grid, gout
         torch.cuda.empty_cache()
+    # percell's routed cells (rows slab cannot stage), per-cell points
+    x, grid, gout = _per_cell_inputs(3, NW, SW, (1, 1, QW // NW), 49, -1.0,
+                                     1.0)
+    shape = tuple(x.shape)
+    plan_ms = _time_plan("pair plan", lambda: percell.make_plan(
+        grid, shape, cfg), QW, f"{NW}x{C}x{'x'.join(map(str, SW))}")
+    plan_l = percell.make_plan(grid, shape, lib_cfg)
+    lib = _against_library(f"{NW}x{C}x{'x'.join(map(str, SW))}, per-cell "
+                           f"Q={QW // NW}", {
+        "percell_blend": lambda: percell.blend(x, grid, lib_cfg, o, plan_l),
+        "percell_splat": lambda: percell.splat(gout, grid, SW, lib_cfg, o,
+                                               plan_l)},
+        _library_ops(x, grid, gout))
+    for name, (ms, lib_ms) in lib.items():
+        times[name].update(ms_wide_rows=ms, library_ms_wide_rows=lib_ms,
+                           plan_ms_wide_rows=plan_ms)
+    del x, grid, gout, plan_l
+    torch.cuda.empty_cache()
+    percell_tile_sweep()
     route_sweep_phase()
     return times
 
 
-def _blend_order_times(x, grid, cfg, plan):
-    """percell_blend's output order, timed in turns at order 0: each
-    cell's slot order (coalesced stores) gathered back to query order (the
-    wrapper's), that kernel alone, and the kernel's query-order variant
-    (scattered stores)."""
-    n, c, *spatial = x.shape
+# the shared memory a percell tile may take in percell_tile_sweep: two,
+# three and four blocks an SM, and one
+TILE_SWEEP_BYTES = (113 * 1024, 75 * 1024, 55 * 1024, 227 * 1024)
+
+
+def percell_tile_sweep():
+    """The measurement behind percell.geometry: percell_blend (order 0)
+    at the nested volume and on 8 x 4 x 32 x 256^2 cells (2^20 per-cell
+    pairs) with the tiles of each budget in TILE_SWEEP_BYTES, and tiles of
+    one z row (bins by (cell, z row, y band)) at each, blend and plan
+    timed in turns, each blend equal to blend_o's bit for bit."""
+    cfg = SamplerConfig(dim=3)
     o = (0, 0, 0)
-    out = torch.empty((n, c, plan.q), device=x.device)
-
-    def launch(entry):
-        blend_splat.launch_pairs(entry, (x, grid, plan.perm, out), cfg, n, c,
-                                 spatial, plan.q, grid.shape[0], o,
-                                 effective_align(cfg, o))
-        return out
-
-    def wrapper():
-        return percell.blend(x, grid, cfg, o, plan)
-
-    want = wrapper().reshape(n, c, plan.q)
-    if not torch.equal(launch("percell_blend_query_order"), want):
-        raise RuntimeError("percell_blend: the query-order variant differs "
-                           "from the wrapper's output")
-    ms, query_ms = _in_turns(wrapper, lambda: launch(
-        "percell_blend_query_order"), reps=5)
-    ms2, slot_ms = _in_turns(wrapper, lambda: launch("percell_blend"), reps=5)
-    print(f"time percell_blend output order (nested volume, order 0): slot "
-          f"order and the gather back (the wrapper) {ms:.4f} / {ms2:.4f} ms; "
-          f"slot-order kernel alone {slot_ms:.4f} ms; query-order kernel "
-          f"{query_ms:.4f} ms", flush=True)
+    budget = percell.TILE_BYTES
+    cases = (("nested volume", _nested_vol_inputs(50)[:2]),
+             ("8x4x32x256^2", _per_cell_inputs(3, NW, SW, (1, 1, QW // NW),
+                                               51, -1.0, 1.0)[:2]))
+    try:
+        for what, (x, grid) in cases:
+            spatial = tuple(x.shape[2:])
+            shape = tuple(x.shape)
+            want = blend_splat.blend(x, grid, cfg, o)
+            runs = {}
+            for tile_bytes in TILE_SWEEP_BYTES:
+                percell.TILE_BYTES = tile_bytes
+                dz, ty = percell.geometry(C, spatial)
+                one_row = (tile_bytes - percell.BARRIER_BYTES) // (
+                    4 * C * 2 * spatial[2]) - 1
+                for tile in ((dz, ty), (1, min(one_row, spatial[1]))):
+                    plan = percell.make_plan(grid, shape, cfg, tile)
+                    if not torch.equal(percell.blend(x, grid, cfg, o, plan),
+                                       want):
+                        raise RuntimeError(f"percell_blend {what} tile "
+                                           f"{tile}: differs from blend_o's")
+                    runs[f"{tile_bytes // 1024} KB tile {tile}"] = (
+                        functools.partial(percell.blend, x, grid, cfg, o,
+                                          plan),
+                        functools.partial(percell.make_plan, grid, shape,
+                                          cfg, tile))
+            ms = {k: [] for k in runs}
+            for k in list(runs) + list(runs)[::-1]:
+                ms[k].append((_time_ms(runs[k][0], 5),
+                              _time_ms(runs[k][1], 5)))
+            print(f"percell tile sweep {what} ({'x'.join(map(str, shape))}, "
+                  f"grid {tuple(grid.shape)}), blend / plan ms: " + "; ".join(
+                      f"{k} {sum(b for b, _ in v) / 2:.4f} / "
+                      f"{sum(p for _, p in v) / 2:.4f}"
+                      for k, v in ms.items()), flush=True)
+            del x, grid, want, runs
+            torch.cuda.empty_cache()
+    finally:
+        percell.TILE_BYTES = budget
 
 
 def _route_ms(x, grid, gout, cfg):
@@ -1195,6 +1317,7 @@ def route_sweep_phase():
               (3, 512, (24,) * 3, (1, 1, 2048)),
               (3, 128, (32,) * 3, (1, 1, 8192)),
               (3, 8, (32, 256, 256), (1, 1, 8192)),
+              (3, 8, (32, 256, 256), (1, 1, 32_768)),
               (3, 8, (32, 256, 256), (1, 1, 131_072))]
     for n, s, q in ((4, 1024, 16), (4, 1024, 1024), (4, 1024, 16_384),
                     (4, 1024, 65_536), (4, 1024, 262_144)):
@@ -2929,6 +3052,59 @@ def v1_time_phase():
     return times
 
 
+def _with_q_blocks(geom, q_blocks, q):
+    qpb = -(-q // q_blocks)
+    return geom._replace(q_per_block=qpb, q_blocks=-(-q // qpb))
+
+
+def splat_sweep_phase():
+    """The measurement behind blend_splat.splat_geometry: splat_o at the 2D
+    and 3D main paths' shapes (shared points, order 0) over launch
+    geometries, each held to the rule's output and timed in turns: the
+    rule's, half and twice its query blocks, half its lanes, and the first
+    design's geometry (12 cells of lanes on queries in 66 query blocks; 3D
+    one cell in 11)."""
+    for dim, n, spatial, parent in ((2, N, (H, W), (12, 66)),
+                                    (3, N3, (S3,) * 3, (1, 11))):
+        cfg = SamplerConfig(dim=dim)
+        _, grid, gout = _v1_inputs(dim, n, C, spatial, Q, seed=13)
+        o = (0,) * dim
+        rule = blend_splat.splat_geometry(n, C, spatial, Q)
+        cell = C * math.prod(spatial)
+        geoms = {
+            "rule": rule,
+            "half the query blocks": _with_q_blocks(
+                rule, max(1, rule.q_blocks // 2), Q),
+            "twice the query blocks": _with_q_blocks(
+                rule, 2 * rule.q_blocks, Q),
+            "first design's": _with_q_blocks(blend_splat.SplatGeometry(
+                parent[0], 1, cell, Q, 1), parent[1], Q),
+        }
+        if rule.lanes > 1:
+            half = rule.lanes // 2
+            geoms["half the lanes"] = _with_q_blocks(
+                rule._replace(cells=half, lanes=half), 2 * rule.q_blocks, Q)
+        want = blend_splat.launch_splat(gout, grid, cfg, spatial, o, rule)
+        runs = {}
+        for name, geom in geoms.items():
+            fn = functools.partial(blend_splat.launch_splat, gout, grid, cfg,
+                                   spatial, o, geom)
+            _, err = _rel_err(fn().reshape(1, -1), want.reshape(1, -1))
+            if not err <= REL_TOL:
+                raise RuntimeError(f"splat_o {dim}D {name} geometry: "
+                                   f"disagrees with the rule's ({err:.3e})")
+            runs[name] = fn
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(_time_ms(runs[k], 10))
+        print(f"splat_o sweep {dim}D ({n}x{C}x{'x'.join(map(str, spatial))}, "
+              f"Q={Q}): " + "; ".join(
+                  f"{k} {tuple(geoms[k])} {sum(v) / 2:.4f} ms"
+                  for k, v in ms.items()), flush=True)
+        del grid, gout, want
+        torch.cuda.empty_cache()
+
+
 def mega_fused3w_time_phase():
     """mega2w, fused3w_blend and fused3w_bwd at the main paths against
     their plain versions, and mega2w against the two fused2w kernels that
@@ -3293,6 +3469,7 @@ def main():
     _timed(nested_vs_fused_phase)
     _timed(reference_phase)
     times.update(_timed(v1_time_phase))
+    _timed(splat_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))
     times.update(_timed(ghost_time_phase))

@@ -35,14 +35,31 @@
 //   warp's gathers fall in one cell.
 // * splat_o reads the N*C*Q cotangent once (154 MB at the main path,
 //   ~46 us).  Its naive form, one global atomicAdd per (pair, corner,
-//   channel), piles onto the few thousand texels of each cell.  As in
-//   fused2w_bwd, a block owns a chunk of cells in shared memory,
-//   accumulates its slice of the queries there with shared-memory
-//   atomics, and flushes the chunk once with global atomicAdd.  A cell
-//   above 48 KB (the 3D 4 x 16^3 cell is 64 KB) takes one cell per block
-//   in opted-in dynamic shared memory, up to the card's per-block limit
-//   (227 KB on the H100); only a cell larger than that takes global
-//   atomics directly.
+//   channel), piles onto the few thousand texels of each cell.  A block
+//   owns a chunk of cells in shared memory, accumulates its slice of the
+//   queries there with shared-memory atomics, and flushes the chunk once.
+//   Shared-memory f32 atomicAdd compiles to a compare-and-swap loop
+//   (ATOMS.CAST.SPIN in the SASS), so what it costs is bank conflicts and
+//   retries: with a warp's 32 lanes on 32 queries of one cell (the first
+//   design), the lanes land on random words of a 1 KB channel plane.  So
+//   where a chunk holds several cells (up to 8: the 2D main path's 4 KB
+//   cells), a warp's lanes split over the chunk's cells: the 8 lanes of a
+//   query add its corners into 8 cells whose strides (4 floats past a
+//   multiple of 32) put them in 8 distinct bank quads, and no two lanes
+//   of one instruction share a word; a cell's lanes take runs of 2
+//   consecutive queries, 8 a warp, one 32-byte sector of cotangents.  A
+//   64 KB 3D cell takes a block to itself, lanes on queries.  The flush
+//   is one bulk async reduction (TMA, cp.reduce.async.bulk .add.f32) a
+//   cell into out, issued by one thread: the L2 adds whole cells instead
+//   of a global atomic an element (6.5 M of them at the 2D main path),
+//   and blocks along the queries make three waves of the blocks the card
+//   holds at once.  A cell above the card's per-block shared memory (227
+//   KB on the H100) takes global atomics directly.  Tried and dropped
+//   (PERF.md section 6): a channel-interleaved (texel, C) layout with
+//   64- and 128-bit compare-and-swap of a corner's channels (slower: the
+//   wide CAS serialises on the same banks), partial sums in a scratch
+//   summed by a second kernel (no faster than the bulk reduction), and
+//   32 cells a warp (one block an SM, too few warps).
 // * The TPU splat was deterministic (a sequential accumulation over query
 //   blocks).  This one is not: f32 atomics add in an order that changes
 //   from run to run, so results agree with the plain version to rounding,
@@ -52,13 +69,13 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "launch.cuh"
 #include "pair_corners.cuh"
 
 namespace {
 
 constexpr int kBlendThreads = 256;
-constexpr int kSplatThreads = 256;
 
 // One thread per (cell, query): thread t takes cell t / Q, query t % Q.
 template <int D>
@@ -85,53 +102,100 @@ __global__ void __launch_bounds__(kBlendThreads)
   }
 }
 
+constexpr int kSplatThreads = 256;
+
+// One launch's geometry (ops/cuda/blend_splat.py splat_geometry).
+struct SplatGeom {
+  int cells;  // cells a block holds in shared memory (kSmem)
+  int stride;  // floats of one cell in shared memory
+  int q_per_block;
+  bool bulk;  // flush by bulk reductions (else a global atomic an element)
+};
+
 // Block (bx, by) accumulates queries [by * q_per_block, ...) into cells
-// [bx * cells_per_chunk, ...).  SMEM: in shared memory, flushed once at the
-// end; otherwise straight into out.  out must be zeroed.
-template <int D, bool SMEM>
+// [bx * g.cells, ...) (kSmem: in shared memory, flushed once at the end;
+// otherwise every cell, straight into out).  out must be zeroed.  Lane l
+// of a warp takes cell l % kLanes of each group of kLanes cells, and
+// query run l / kLanes of the warp's 32 / kLanes runs, each of
+// max(1, kLanes / 4) consecutive queries: with kLanes 8, a run's 8 lanes
+// add one query's corners into 8 cells whose strides put them in 8
+// distinct banks, and a cell's lanes read 8 consecutive cotangents (one
+// sector).
+template <int D, int kLanes, bool kSmem>
 __global__ void __launch_bounds__(kSplatThreads)
     splat_o_kernel(const float* __restrict__ gout,
                    const float* __restrict__ grid, float* __restrict__ out,
-                   csm::PairShape s, int cells_per_chunk, int q_per_block,
-                   csm::SamplerParams p) {
-  extern __shared__ float sacc[];
+                   csm::PairShape s, SplatGeom g, csm::SamplerParams p) {
+  extern __shared__ __align__(16) float sacc[];
+  constexpr int kRuns = 32 / kLanes;
+  constexpr int kRunLen = kLanes >= 4 ? kLanes / 4 : 1;
   const int cell_elems = s.c * s.texels;
-  const int n0 = blockIdx.x * cells_per_chunk;
-  const int n1 = min(s.n, n0 + cells_per_chunk);
-  const int chunk_elems = (n1 - n0) * cell_elems;
-  float* chunk_out = out + static_cast<int64_t>(n0) * cell_elems;
-  float* acc = SMEM ? sacc : chunk_out;
-  if (SMEM) {
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) sacc[e] = 0.0f;
+  const int n0 = kSmem ? blockIdx.x * g.cells : 0;
+  const int n1 = kSmem ? min(s.n, n0 + g.cells) : s.n;
+  const int stride = kSmem ? g.stride : cell_elems;
+  if (kSmem) {
+    const int elems = (n1 - n0) * stride;
+    float4* acc4 = reinterpret_cast<float4*>(sacc);
+    for (int e = threadIdx.x; e < elems / 4; e += kSplatThreads)
+      acc4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e = elems / 4 * 4 + threadIdx.x; e < elems; e += kSplatThreads)
+      sacc[e] = 0.0f;
     __syncthreads();
   }
 
-  const int q0 = blockIdx.y * q_per_block;
-  const int q1 = min(s.q, q0 + q_per_block);
-  for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
-    for (int ni = n0; ni < n1; ++ni) {
-      int off[1 << D];
-      float wgt[1 << D];
-      csm::pair_corners<D>(s, grid, ni, qi, p, off, wgt);
-      const float* g = gout + static_cast<int64_t>(ni) * s.c * s.q + qi;
-      float* cell = acc + static_cast<int64_t>(ni - n0) * cell_elems;
-      for (int c = 0; c < s.c; ++c) {
-        const float gv = __ldg(g + static_cast<int64_t>(c) * s.q);
-        float* dst = cell + static_cast<int64_t>(c) * s.texels;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int li = lane % kLanes, lj = lane / kLanes;
+  const int q0 = blockIdx.y * g.q_per_block;
+  const int q1 = min(s.q, q0 + g.q_per_block);
+  for (int qa = q0 + (warp * kRuns + lj) * kRunLen; qa < q1;
+       qa += (kSplatThreads / 32) * kRuns * kRunLen) {
+    for (int ni = n0 + li; ni < n1; ni += kLanes) {
+      float* cell = kSmem ? sacc + (ni - n0) * stride
+                          : out + static_cast<int64_t>(ni) * cell_elems;
+      const float* g_cell = gout + static_cast<int64_t>(ni) * s.c * s.q;
+      // not unrolled: two pairs' corners at once take more registers than
+      // four blocks an SM leave a thread
+#pragma unroll 1
+      for (int r = 0; r < kRunLen; ++r) {
+        const int qi = qa + r;
+        if (qi >= q1) break;
+        int off[1 << D];
+        float wgt[1 << D];
+        csm::pair_corners<D>(s, grid, ni, qi, p, off, wgt);
+        for (int c = 0; c < s.c; ++c) {
+          const float gv = __ldg(g_cell + static_cast<int64_t>(c) * s.q + qi);
+          float* dst = cell + c * s.texels;
 #pragma unroll
-        for (int k = 0; k < (1 << D); ++k)
-          if (wgt[k] != 0.0f) atomicAdd(dst + off[k], wgt[k] * gv);
+          for (int k = 0; k < (1 << D); ++k)
+            if (wgt[k] != 0.0f) atomicAdd(dst + off[k], wgt[k] * gv);
+        }
       }
     }
   }
+  if (!kSmem) return;
 
-  if (SMEM) {
+  float* dst = out + static_cast<int64_t>(n0) * cell_elems;
+  if (g.bulk) {
+    // the shared-memory atomics are generic-proxy writes: fence them
+    // before the async proxy reads the accumulator; one bulk reduction a
+    // cell (cell_elems, stride and out 16-byte aligned: the launch checks)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) {
-      const float v = sacc[e];
-      if (v != 0.0f) atomicAdd(chunk_out + e, v);
+    if (threadIdx.x == 0) {
+      for (int ln = 0; ln < n1 - n0; ++ln)
+        csm::bulk_reduce_add(dst + static_cast<int64_t>(ln) * cell_elems,
+                             sacc + ln * stride,
+                             static_cast<uint32_t>(cell_elems) * 4u);
+      csm::bulk_store_wait();
     }
+    return;
   }
+  __syncthreads();
+  for (int ln = 0; ln < n1 - n0; ++ln)
+    for (int e = threadIdx.x; e < cell_elems; e += kSplatThreads) {
+      const float v = sacc[ln * stride + e];
+      if (v != 0.0f) atomicAdd(dst + static_cast<int64_t>(ln) * cell_elems + e, v);
+    }
 }
 
 template <int D>
@@ -146,46 +210,58 @@ cudaError_t launch_blend(const float* input, const float* grid, float* out,
   return cudaGetLastError();
 }
 
+template <int D, int kLanes, bool kSmem>
+cudaError_t launch_splat_kernel(const float* gout, const float* grid,
+                                float* out, const csm::PairShape& s,
+                                const SplatGeom& g, int q_blocks,
+                                const csm::SamplerParams& p,
+                                cudaStream_t stream) {
+  auto* kernel = &splat_o_kernel<D, kLanes, kSmem>;
+  const size_t bytes =
+      kSmem ? static_cast<size_t>(g.cells) * g.stride * sizeof(float) : 0;
+  cudaError_t err = csm::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int chunks = kSmem ? csm::cdiv(s.n, g.cells) : 1;
+  kernel<<<dim3(chunks, q_blocks), kSplatThreads, bytes, stream>>>(
+      gout, grid, out, s, g, p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_splat(const float* gout, const float* grid, float* out,
-                         const csm::PairShape& s,
+                         const csm::PairShape& s, int cells, int lanes,
+                         int stride, int q_per_block, int q_blocks,
                          const csm::SamplerParams& p, cudaStream_t stream) {
   if (s.n == 0 || s.q == 0 || s.c == 0 || s.texels == 0)
     return cudaGetLastError();
-  csm::DeviceLimits lim;
-  cudaError_t err = csm::device_limits(&lim);
-  if (err != cudaSuccess) return err;
-  const int sms = lim.sms, optin = lim.smem_optin;
-
-  const int64_t cell_bytes =
-      static_cast<int64_t>(s.c) * s.texels * static_cast<int64_t>(sizeof(float));
-  const bool smem = cell_bytes <= optin;
-  // up to 48 KB of cells per block, or one larger cell in opted-in memory
-  const int cells_per_chunk =
-      !smem ? s.n
-            : (cell_bytes <= csm::kStaticSmemBytes
-                   ? std::min<int64_t>(s.n, csm::kStaticSmemBytes / cell_bytes)
-                   : 1);
-  const int chunks = csm::cdiv(s.n, cells_per_chunk);
-  // enough blocks for ~4 per SM, but no block with fewer queries than threads
-  const int q_blocks = std::max(
-      1, std::min(std::min(csm::cdiv(4 * sms, chunks),
-                           csm::cdiv(s.q, kSplatThreads)),
-                  65535));
-  const int q_per_block = csm::cdiv(s.q, q_blocks);
-  const dim3 blocks(chunks, csm::cdiv(s.q, q_per_block));
-  if (smem) {
-    const size_t bytes = static_cast<size_t>(cells_per_chunk) * cell_bytes;
-    auto* kernel = &splat_o_kernel<D, true>;
-    err = csm::allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kSplatThreads, bytes, stream>>>(
-        gout, grid, out, s, cells_per_chunk, q_per_block, p);
-  } else {
-    splat_o_kernel<D, false><<<blocks, kSplatThreads, 0, stream>>>(
-        gout, grid, out, s, cells_per_chunk, q_per_block, p);
+  const int64_t cell_elems = static_cast<int64_t>(s.c) * s.texels;
+  if (cells < 0 || q_blocks < 1 || q_blocks > 65535 || q_per_block < 1 ||
+      static_cast<int64_t>(q_blocks) * q_per_block < s.q ||
+      (cells > 0 && stride < cell_elems) || (cells == 0 && lanes != 1))
+    return cudaErrorInvalidValue;
+  // bulk reductions take 16-byte aligned addresses and sizes
+  const bool bulk = cell_elems % 4 == 0 && stride % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const SplatGeom g{cells, stride, q_per_block, bulk};
+  if (cells == 0)
+    return launch_splat_kernel<D, 1, false>(gout, grid, out, s, g, q_blocks,
+                                            p, stream);
+  switch (lanes) {
+    case 1:
+      return launch_splat_kernel<D, 1, true>(gout, grid, out, s, g, q_blocks,
+                                             p, stream);
+    case 2:
+      return launch_splat_kernel<D, 2, true>(gout, grid, out, s, g, q_blocks,
+                                             p, stream);
+    case 4:
+      return launch_splat_kernel<D, 4, true>(gout, grid, out, s, g, q_blocks,
+                                             p, stream);
+    case 8:
+      return launch_splat_kernel<D, 8, true>(gout, grid, out, s, g, q_blocks,
+                                             p, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -211,10 +287,13 @@ int blend_o(const void* input, const void* grid, void* out, int dim, int n,
                   : launch_blend<3>(in, gr, o, s, p, st);
 }
 
-// out (N, C, *S) must be zeroed.
+// The geometry (cells, lanes, stride, q_per_block, q_blocks) of
+// ops/cuda/blend_splat.py splat_geometry; cells 0: global atomics.  out
+// (N, C, *S) must be zeroed.
 int splat_o(const void* gout, const void* grid, void* out, int dim, int n,
             int c, int d, int h, int w, int q, int grid_batch, int ox, int oy,
-            int oz, int kernel, int padding, int align, int multicell,
+            int oz, int cells, int lanes, int stride, int q_per_block,
+            int q_blocks, int kernel, int padding, int align, int multicell,
             int strict, float off_step, float off_stop, void* stream) {
   if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz))
     return cudaErrorInvalidValue;
@@ -226,8 +305,10 @@ int splat_o(const void* gout, const void* grid, void* out, int dim, int n,
   const auto* gr = static_cast<const float*>(grid);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_splat<2>(g, gr, o, s, p, st)
-                  : launch_splat<3>(g, gr, o, s, p, st);
+  return dim == 2 ? launch_splat<2>(g, gr, o, s, cells, lanes, stride,
+                                    q_per_block, q_blocks, p, st)
+                  : launch_splat<3>(g, gr, o, s, cells, lanes, stride,
+                                    q_per_block, q_blocks, p, st);
 }
 
 }  // extern "C"

@@ -60,6 +60,39 @@ __device__ __forceinline__ const float* pair_coords(const PairShape& s,
          (static_cast<int64_t>(s.grid_batch == 1 ? 0 : ni) * s.q + qi) * D;
 }
 
+// The per-axis floor corners and weights of one (cell, query) pair.
+template <int D>
+__device__ __forceinline__ void pair_axes(const PairShape& s,
+                                          const float* grid, int ni, int qi,
+                                          const SamplerParams& p,
+                                          AxisWeights a[D]) {
+  const float offset = cell_offset(ni, s.n, p);
+  const float* g = pair_coords<D>(s, grid, ni, qi);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+    a[i] = axis_weights(g[i], s.size[i], offset, s.order[i], p);
+}
+
+// Whether corner k takes axis i's ceil corner: corner bit D-1-i, the
+// itertools.product order.
+template <int D>
+__device__ __forceinline__ int corner_up(int k, int i) {
+  return (k >> (D - 1 - i)) & 1;
+}
+
+// The weight of corner k: the axes' weights multiplied in axis order.
+template <int D>
+__device__ __forceinline__ float corner_weight(const AxisWeights a[D],
+                                               int k) {
+  float w = 1.0f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const float wi = corner_up<D>(k, i) ? a[i].w1 : a[i].w0;
+    w = i == 0 ? wi : w * wi;
+  }
+  return w;
+}
+
 // Corner offsets (flat texel index) and weights of one (cell, query) pair;
 // an out-of-bounds corner gets weight 0 and offset 0.
 template <int D>
@@ -68,28 +101,20 @@ __device__ __forceinline__ void pair_corners(const PairShape& s,
                                              int qi, const SamplerParams& p,
                                              int off[1 << D],
                                              float wgt[1 << D]) {
-  const float offset = cell_offset(ni, s.n, p);
-  const float* g = pair_coords<D>(s, grid, ni, qi);
   AxisWeights a[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-    a[i] = axis_weights(g[i], s.size[i], offset, s.order[i], p);
-  // corner bit D-1-i selects axis i's ceil corner: itertools.product order
+  pair_axes<D>(s, grid, ni, qi, p, a);
 #pragma unroll
   for (int k = 0; k < (1 << D); ++k) {
     int idx = 0;
-    float w = 1.0f;
     bool ok = true;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      const int up = (k >> (D - 1 - i)) & 1;
-      const int ci = a[i].i0 + up;
+      const int ci = a[i].i0 + corner_up<D>(k, i);
       ok = ok && ci >= 0 && ci < s.size[i];
       idx += ci * s.stride[i];
-      w = i == 0 ? (up ? a[i].w1 : a[i].w0) : w * (up ? a[i].w1 : a[i].w0);
     }
     off[k] = ok ? idx : 0;
-    wgt[k] = ok ? w : 0.0f;
+    wgt[k] = ok ? corner_weight<D>(a, k) : 0.0f;
   }
 }
 

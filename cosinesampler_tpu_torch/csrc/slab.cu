@@ -45,16 +45,12 @@
 //   leaves no room for the barrier) are copied by the block's threads.
 //   A block whose bin is empty stages nothing.  The splat stores its slab
 //   with 1D bulk async copies from shared memory where the rows allow.
-// * slab_bins is a counting sort with no host sync: a histogram of
-//   (cell, row) keys, each block counting 2048 queries of one cell in
-//   shared memory and adding each row's count to the global one once
-//   (one global atomic a pair took most of the build's time), the
-//   atomics' return values giving each pair's rank in its bin; one
-//   block's scan of the counts; and a scatter.  The floor is
-//   csrc/pair_corners.cuh's, the one the blend and splat walk, so a
-//   pair's bin always holds its corner rows.  The rank makes the order
-//   within a bin that of the atomics: not deterministic, which moves no
-//   blend value and only the splat's (already unordered) summation.
+// * slab_bins is csrc/pair_bins.cuh's counting sort with no host sync,
+//   keyed by the (cell, row) of csrc/pair_corners.cuh's floor, the one
+//   the blend and splat walk, so a pair's bin always holds its corner
+//   rows.  Its order within a bin is that of its atomics: not
+//   deterministic, which moves no blend value and only the splat's
+//   (already unordered) summation.
 // * The TPU kernels' one-hot MXU contractions, sublane-multiple slab
 //   heights, zero-initialised accumulation over a sequential grid axis and
 //   evaluation of every query against every slab do not carry over.
@@ -65,7 +61,9 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "launch.cuh"
+#include "pair_bins.cuh"
 #include "pair_corners.cuh"
 
 namespace {
@@ -74,77 +72,9 @@ constexpr int kSlabThreads = 512;
 // a splat block that has an SM to itself (over half its shared memory)
 // takes twice the threads, to hide its gathers' latency
 constexpr int kWideSplatThreads = 1024;
-constexpr int kBinThreads = 256;
-// queries of one cell a histogram block counts, kBinPerThread a thread
-constexpr int kBinPerThread = 8;
-constexpr int kBinQueries = kBinThreads * kBinPerThread;
-constexpr int kScanThreads = 1024;
 // dynamic shared memory ahead of the blend's window: its mbarrier, padded
 // so that the window stays 16-byte aligned for the bulk copies
 constexpr int kBarrierBytes = 16;
-
-// --- bulk async copies (TMA) and their mbarrier -------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-  // make the initialised barrier visible to the async proxy
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void barrier_expect(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// global -> shared, completing `bytes` of the barrier's transaction count
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// shared -> global in one bulk group
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(smem_addr(src)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
 
 // --- the block's slab and its slots -------------------------------------
 
@@ -203,11 +133,11 @@ __global__ void __launch_bounds__(kSlabThreads)
                      static_cast<int64_t>(b.z0) * b.row;
   if (bulk) {
     if (threadIdx.x == 0) {
-      barrier_init(bar);
+      csm::barrier_init(bar);
       const uint32_t bytes = static_cast<uint32_t>(win_elems) * 4u;
-      barrier_expect(bar, bytes * b.cn);
+      csm::barrier_expect(bar, bytes * b.cn);
       for (int c = 0; c < b.cn; ++c)
-        bulk_load(win + c * win_elems, src + static_cast<int64_t>(c) * s.texels,
+        csm::bulk_load(win + c * win_elems, src + static_cast<int64_t>(c) * s.texels,
                   bytes, bar);
     }
     __syncthreads();
@@ -240,7 +170,7 @@ __global__ void __launch_bounds__(kSlabThreads)
       }
     }
     if (!staged) {
-      barrier_wait(bar, 0);
+      csm::barrier_wait(bar, 0);
       staged = true;
     }
     float* dst = dst_cell + qi;
@@ -312,10 +242,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (threadIdx.x == 0) {
       for (int c = 0; c < b.cn; ++c)
-        bulk_store(dst + static_cast<int64_t>(c) * s.texels,
+        csm::bulk_store(dst + static_cast<int64_t>(c) * s.texels,
                    acc + c * slab_elems,
                    static_cast<uint32_t>(slab_elems) * 4u);
-      bulk_store_wait();
+      csm::bulk_store_wait();
     }
   } else {
     __syncthreads();
@@ -327,95 +257,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // --- the bins: a counting sort of the pairs by (cell, floor row) ---------
 
-// Each pair's key (cell, clamped floor row) and its rank among the pairs
-// of its key.  A block counts kBinQueries queries of one cell in a
-// shared-memory histogram of the cell's rows (the ranks within the block)
-// and adds each row's count to the global one once (the block's base).
+// A pair's key: the floor row of the leading axis, clamped to the cell's
+// rows (csrc/pair_bins.cuh).
 template <int D>
-__global__ void __launch_bounds__(kBinThreads)
-    slab_bin_count_kernel(const float* __restrict__ grid, int* __restrict__ key,
-                          int* __restrict__ rank, int* __restrict__ counts,
-                          csm::PairShape s, csm::SamplerParams p) {
-  extern __shared__ int hist[];
-  const int ni = blockIdx.y;
-  const int depth = s.size[D - 1];
-  int* cell_counts = counts + ni * depth;
-  for (int r = threadIdx.x; r < depth; r += blockDim.x) hist[r] = 0;
-  __syncthreads();
-  const int q0 = blockIdx.x * kBinQueries + threadIdx.x;
-  int row[kBinPerThread], local[kBinPerThread];
-#pragma unroll
-  for (int i = 0; i < kBinPerThread; ++i) {
-    const int qi = q0 + i * kBinThreads;
-    row[i] = -1;
-    if (qi < s.q) {
-      const int f = csm::pair_floor<D>(s, grid, ni, qi, D - 1, p);
-      row[i] = min(max(f, 0), depth - 1);
-      local[i] = atomicAdd(hist + row[i], 1);
-    }
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < depth; r += blockDim.x) {
-    const int c = hist[r];
-    if (c != 0) hist[r] = atomicAdd(cell_counts + r, c);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kBinPerThread; ++i) {
-    if (row[i] < 0) continue;
-    const int pair = ni * s.q + q0 + i * kBinThreads;
-    key[pair] = ni * depth + row[i];
-    rank[pair] = local[i] + hist[row[i]];
-  }
-}
+struct RowKey {
+  int keys;  // rows of the leading axis
 
-// counts[0, m) -> their exclusive prefix sums in place, counts[m] = total:
-// one block, each thread over a contiguous chunk
-__global__ void __launch_bounds__(kScanThreads)
-    slab_bin_scan_kernel(int* __restrict__ counts, int m) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int per = (m + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, m), hi = min(lo + per, m);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += counts[i];
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
+  __device__ int operator()(const csm::PairShape& s, const float* grid,
+                            int ni, int qi, const csm::SamplerParams& p) const {
+    const int f = csm::pair_floor<D>(s, grid, ni, qi, D - 1, p);
+    return min(max(f, 0), keys - 1);
   }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += v;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int run = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts[i];
-    counts[i] = run;
-    run += c;
-  }
-  if (t == kScanThreads - 1) counts[m] = run;
-}
-
-__global__ void __launch_bounds__(kBinThreads)
-    slab_bin_scatter_kernel(const int* __restrict__ key,
-                            const int* __restrict__ rank,
-                            const int* __restrict__ starts,
-                            int* __restrict__ perm, int pairs) {
-  const int pair = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pair >= pairs) return;
-  perm[__ldg(starts + key[pair]) + rank[pair]] = pair;
-}
+};
 
 // --- launches --------------------------------------------------------------
 
@@ -485,35 +338,6 @@ int slab_entry(const void* src, const void* grid, const void* perm,
              : launch_slab<3, kBlend>(in, gr, pm, st, o, s, dz, cc, p, cs);
 }
 
-template <int D>
-cudaError_t launch_bins(const float* grid, int* key, int* rank, int* starts,
-                        int* perm, const csm::PairShape& s,
-                        const csm::SamplerParams& p, cudaStream_t stream) {
-  const int depth = s.size[D - 1];
-  if (s.n == 0 || s.q == 0) return cudaGetLastError();
-  csm::DeviceLimits lim;
-  cudaError_t err = csm::device_limits(&lim);
-  if (err != cudaSuccess) return err;
-  // the histogram of a cell's rows lives in shared memory
-  const int64_t hist_bytes = static_cast<int64_t>(depth) * sizeof(int);
-  if (hist_bytes > lim.smem_optin) return cudaErrorInvalidValue;
-  err = csm::allow_smem(&slab_bin_count_kernel<D>,
-                        static_cast<size_t>(hist_bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 count_blocks(csm::cdiv(s.q, kBinQueries), s.n);
-  slab_bin_count_kernel<D><<<count_blocks, kBinThreads, hist_bytes, stream>>>(
-      grid, key, rank, starts, s, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  slab_bin_scan_kernel<<<1, kScanThreads, 0, stream>>>(starts, s.n * depth);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int pairs = s.n * s.q;
-  slab_bin_scatter_kernel<<<csm::cdiv(pairs, kBinThreads), kBinThreads, 0,
-                            stream>>>(key, rank, starts, perm, pairs);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -564,8 +388,11 @@ int slab_bins(const void* grid, void* key, void* rank, void* starts,
   auto* st = static_cast<int*>(starts);
   auto* pm = static_cast<int*>(perm);
   auto cs = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_bins<2>(gr, k, r, st, pm, s, p, cs)
-                  : launch_bins<3>(gr, k, r, st, pm, s, p, cs);
+  return dim == 2
+             ? csm::bins::sort_pairs(gr, k, r, st, pm, s, p,
+                                     RowKey<2>{s.size[1]}, cs)
+             : csm::bins::sort_pairs(gr, k, r, st, pm, s, p,
+                                     RowKey<3>{s.size[2]}, cs);
 }
 
 }  // extern "C"

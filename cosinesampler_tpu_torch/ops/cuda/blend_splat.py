@@ -19,7 +19,7 @@ package's v1 kernels do (HIGHEST-precision contractions).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,10 +27,11 @@ from ..config import SamplerConfig, effective_align
 from ..coords import offset_lattice
 from ..generic import blend as plain_blend
 from ..generic import splat as plain_splat
-from .build import check, load_kernels
+from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import KERNEL_IDS, PADDING_IDS, cuda_device
 
-__all__ = ["blend", "launch_pairs", "plain_blend", "plain_splat", "splat"]
+__all__ = ["SplatGeometry", "blend", "launch_pairs", "launch_splat",
+           "plain_blend", "plain_splat", "splat", "splat_geometry"]
 
 
 def _check_tensors(*tensors: torch.Tensor) -> None:
@@ -64,7 +65,7 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
                  extra=()) -> None:
     """Call ``entry``, a C entry point of the blend_o / splat_o family
     (blend_o, splat_o, percell_*, slab_*), on the current stream of the
-    device of ``pointers[-1]``: the data pointers (None for a null one),
+    device of ``pointers[0]``: the data pointers (None for a null one),
     then dim, n, c, d, h, w, q, grid batch, three orders, ``extra``
     (ints), the config flags, the offset lattice and the stream."""
     lib = load_kernels()
@@ -74,7 +75,7 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
     d, h, w = (1, *spatial) if cfg.dim == 2 else spatial
     ox, oy, oz = (*orders, 0) if cfg.dim == 2 else orders
     step, stop = offset_lattice(n, cfg.multicell)
-    device = pointers[-1].device
+    device = pointers[0].device
     with torch.cuda.device(device):
         err = getattr(lib, entry)(
             *(0 if t is None else t.data_ptr() for t in pointers), cfg.dim,
@@ -106,6 +107,78 @@ def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
     return out
 
 
+class SplatGeometry(NamedTuple):
+    """One splat_o launch's geometry (csrc/blend_splat.cu): ``cells`` a
+    block accumulates in shared memory (0: none, global atomics into out),
+    ``lanes`` of them a warp's lanes split over, ``stride`` floats a cell
+    in shared memory, and ``q_blocks`` blocks of ``q_per_block`` queries
+    along the queries."""
+    cells: int
+    lanes: int
+    stride: int
+    q_per_block: int
+    q_blocks: int
+
+
+# the H100 SXM's SMs, and the shared memory of one of them with the 1 KB
+# the card reserves a block
+H100_SMS = 132
+SM_SMEM_BYTES = 228 * 1024
+RESERVED_SMEM_BYTES = 1024
+# waves of the blocks that fit the card at once a splat_o launch takes
+# (chip_smoke.py splat_sweep_phase, PERF.md section 6: on the 3D main
+# path ~2.9 waves beat half and twice as many query blocks; on the 2D
+# main path 1.5, 3 and 6 waves read within a run's spread of each other)
+SPLAT_WAVES = 3
+
+
+def splat_geometry(n: int, c: int, spatial, q: int,
+                   sms: int = H100_SMS) -> SplatGeometry:
+    """The geometry of splat_o over (N, C, *S) cells and Q queries on a
+    card of ``sms`` SMs.
+
+    A cell over a block's BLOCK_SMEM_BYTES takes global atomics, in blocks
+    of at least 256 queries, about four a SM.  Otherwise a block holds
+    ``lanes`` cells, the most (a power of two up to 8, and up to N) whose
+    strides fit a third of an SM's shared memory, each stride padded to 4
+    floats past a multiple of 32 when there are several (8 cells then sit
+    in 8 distinct bank quads); and its blocks along the queries (at least
+    256 queries each) make SPLAT_WAVES waves of the blocks that fit the
+    card at once."""
+    cell_elems = c * math.prod(spatial)
+    if 4 * cell_elems > BLOCK_SMEM_BYTES:
+        q_blocks = max(1, min(4 * sms, -(-q // 256), 65535))
+        qpb = -(-q // q_blocks)
+        return SplatGeometry(0, 1, cell_elems, qpb, -(-q // qpb))
+    padded = (cell_elems + 27) // 32 * 32 + 4
+    lanes = 1
+    while (lanes < 8 and 2 * lanes <= n
+           and 4 * 2 * lanes * padded <= SM_SMEM_BYTES // 3):
+        lanes *= 2
+    stride = cell_elems if lanes == 1 else padded
+    # blocks an SM holds: by shared memory, and 2048 threads
+    per_sm = max(1, min(8, SM_SMEM_BYTES
+                        // (4 * lanes * stride + RESERVED_SMEM_BYTES)))
+    chunks = -(-n // lanes)
+    q_blocks = max(1, min(SPLAT_WAVES * per_sm * sms // chunks,
+                          -(-q // 256), 65535))
+    qpb = -(-q // q_blocks)
+    return SplatGeometry(lanes, lanes, stride, qpb, -(-q // qpb))
+
+
+def launch_splat(gout: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
+                 in_spatial, orders, geom: SplatGeometry) -> torch.Tensor:
+    """splat_o of ``gout`` at ``grid`` with the launch geometry ``geom``:
+    (N, C, *in_spatial), on the card."""
+    n, c = gout.shape[:2]
+    out = torch.zeros((n, c, *in_spatial), dtype=torch.float32,
+                      device=gout.device)
+    launch_pairs("splat_o", (gout, grid, out), cfg, n, c, tuple(in_spatial),
+                 math.prod(gout.shape[2:]), grid.shape[0], orders,
+                 cfg.align_corners, extra=tuple(geom))
+    return out
+
+
 def splat(gout: torch.Tensor, grid: torch.Tensor,
           in_spatial: Tuple[int, ...], cfg: SamplerConfig,
           orders: Tuple[int, ...]) -> torch.Tensor:
@@ -120,11 +193,9 @@ def splat(gout: torch.Tensor, grid: torch.Tensor,
     if math.prod(gout.shape[2:]) != q:
         raise ValueError(f"gout {tuple(gout.shape)} does not match the grid "
                          f"{tuple(grid.shape)}")
-    out = torch.zeros((n, c, *in_spatial),
-                      dtype=torch.promote_types(gout.dtype, grid.dtype),
-                      device=device)
-    launch_pairs("splat_o", (gout, grid, out), cfg, n, c, tuple(in_spatial),
-                 q, grid.shape[0], orders, cfg.align_corners)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = launch_splat(gout, grid, cfg, in_spatial, orders,
+                       splat_geometry(n, c, in_spatial, q, sms))
     splat.launches += 1
     return out
 

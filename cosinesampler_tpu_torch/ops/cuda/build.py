@@ -142,17 +142,22 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # lattice's step and stop; the stream
     lib.mega2w_step.argtypes = [ptr] * 9 + [i32] * 12 + [f32, f32, ptr]
     lib.mega2w_step.restype = i32
-    for fn in (lib.blend_o, lib.splat_o):
-        # 3 data pointers; dim, n, c, d, h, w, q, grid batch, 3 orders,
-        # kernel, padding, align, multicell, strict; the offset lattice's
-        # step and stop; the stream
-        fn.argtypes = [ptr, ptr, ptr] + [i32] * 16 + [f32, f32, ptr]
-        fn.restype = i32
-    for fn in (lib.percell_blend, lib.percell_blend_query_order,
-               lib.percell_splat):
-        # input or gout, grid, perm, out; then as blend_o
-        fn.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
-        fn.restype = i32
+    # input, grid, out; dim, n, c, d, h, w, q, grid batch, 3 orders,
+    # kernel, padding, align, multicell, strict; the offset lattice's step
+    # and stop; the stream
+    lib.blend_o.argtypes = [ptr, ptr, ptr] + [i32] * 16 + [f32, f32, ptr]
+    lib.blend_o.restype = i32
+    # gout, grid, out; then as blend_o, with the launch geometry (cells,
+    # lanes, stride, q_per_block, q_blocks) after the orders
+    lib.splat_o.argtypes = [ptr] * 3 + [i32] * 21 + [f32, f32, ptr]
+    lib.splat_o.restype = i32
+    # input, grid, perm, starts, out; then as blend_o, with the tile's z
+    # rows dz, y rows ty, channels cc and staged after the orders
+    lib.percell_blend.argtypes = [ptr] * 5 + [i32] * 20 + [f32, f32, ptr]
+    lib.percell_blend.restype = i32
+    # gout, grid, perm, out; then as blend_o
+    lib.percell_splat.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
+    lib.percell_splat.restype = i32
     for fn in (lib.slab_blend, lib.slab_splat):
         # input or gout, grid, perm, starts, out; then as blend_o, with the
         # slab rows dz and channels cc after the orders
@@ -163,6 +168,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stop; the stream
     lib.slab_bins.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
     lib.slab_bins.restype = i32
+    # grid, key, rank, starts, perm; n, d, h, w, q, grid batch, dz, ty,
+    # padding, align, multicell, strict; the offset lattice's step and
+    # stop; the stream
+    lib.percell_plan.argtypes = [ptr] * 5 + [i32] * 12 + [f32, f32, ptr]
+    lib.percell_plan.restype = i32
     lib.csm_error_string.argtypes = [i32]
     lib.csm_error_string.restype = ctypes.c_char_p
     return lib

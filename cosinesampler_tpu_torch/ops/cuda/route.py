@@ -34,8 +34,8 @@ switches after a failed build or launch.
 ``GridPlans`` carries percell's pair plan and slab's bins along one
 autograd chain: the nested 3D trainer makes 40 blends and 40 splats on
 one grid a step, and all of them take the bins built at the chain's
-first slab launch (0.077 ms a build at 1.6 M pairs, PERF.md section
-6).
+first slab launch (0.031 ms of device time a build at 1.6 M pairs,
+PERF.md section 6).
 """
 
 from __future__ import annotations
@@ -60,8 +60,10 @@ STACK_L2_BYTES = 50 * 10**6
 # 16 x 4 x 128^3 2^18 won and 131 072 lost, on 1024 x 4 x 16^3 and 4 x 4
 # x 1024^2 2^18 won (the 2D volume lost at 65 536).  percell, its plan
 # reused, lost to slab at every point at 2^18 pairs or more, and beat
-# blend_o / splat_o where slab cannot stage two rows (8 x 4 x 32 x 256^2:
-# won at 2^20, tied at 65 536; PERF.md section 4)
+# blend_o / splat_o where slab cannot stage two rows at 2^20 pairs (8 x 4
+# x 32 x 256^2: 0.855 vs 1.40 ms); at 2^18 there it lost by 6% (0.507 vs
+# 0.478) and at 65 536 by 24%, so the crossover lies between 2^18 and
+# 2^20 and the rule sends 2^18 to the slower route (PERF.md section 4)
 MIN_PAIRS = 1 << 18
 # the kernels index with 32-bit ints: a tensor of this many elements or
 # more takes the plain route
@@ -261,7 +263,7 @@ class GridPlans:
     def _key(grid: torch.Tensor, cells_shape, cfg: SamplerConfig):
         return (grid.device, grid.data_ptr(), tuple(grid.shape),
                 tuple(grid.stride()), grid.dtype, grid._version,
-                cells_shape[0], tuple(cells_shape[2:]), cfg.padding_mode,
+                tuple(cells_shape), cfg.padding_mode,
                 cfg.align_corners, cfg.multicell, cfg.strict_reference)
 
     def percell(self, grid: torch.Tensor, cells_shape,

@@ -9,6 +9,7 @@
     python scripts/profile_port_step.py --fused3b [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
     python scripts/profile_port_step.py --slab [--reps R]
+    python scripts/profile_port_step.py --sampler [--reps R]
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
@@ -32,7 +33,10 @@ median of ``--reps`` calls (CUDA events) after 3 warm-up calls;
 5's volume at 100 000 shared points (cosine, and linear without
 multicell, the setting of grid_sample) and on 1024 x 4 x 16^3 cells at
 2^18 and 2^20 per-cell pairs, each with the bins (where the checkout's
-kernels take bins) built once before the timed calls.
+kernels take bins) built once before the timed calls; ``--sampler`` so
+times splat_o and blend_o at the 2D and 3D main paths' shapes and the
+percell route's blend, splat and plan build on config 5's volume at the
+nested trainer's points and on 8 x 4 x 32 x 256^2 cells at 2^20 pairs.
 ``--cell-dim`` sets C (4 by default) for these and for the main-path
 steps (at C = 16 the megakernel step of a checkout whose mega2w takes at
 most 8 channels is its autograd fallback).  Prints the
@@ -247,6 +251,62 @@ def _slab_kernels(card, reps):
     return 0
 
 
+def _sampler_kernels(card, reps):
+    """Median ms of splat_o and blend_o at the 2D and 3D main paths'
+    shapes (shared 100 000 points), and of the percell route's blend,
+    splat and plan build on the nested volume (16 x 4 x 128^3, the nested
+    trainer's 100 000 shared points; cosine, and linear without multicell,
+    the setting of grid_sample) and on 8 x 4 x 32 x 256^2 cells at 2^20
+    per-cell pairs."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    medians = {}
+    q = 100_000
+    for dim, n in ((2, 96), (3, 50)):
+        cfg = SamplerConfig(dim=dim)
+        spatial = (16,) * dim
+        lead = (1,) * (dim - 1)
+        x = torch.rand((n, 4, *spatial), generator=gen, device="cuda")
+        grid = torch.rand((1, *lead, q, dim), generator=gen,
+                          device="cuda") * 2 - 1
+        gout = torch.randn((n, 4, *lead, q), generator=gen, device="cuda")
+        o = (0,) * dim
+        medians[f"{dim}D splat_o"] = _median_ms(
+            lambda: blend_splat.splat(gout, grid, spatial, cfg, o), reps)
+        medians[f"{dim}D blend_o"] = _median_ms(
+            lambda: blend_splat.blend(x, grid, cfg, o), reps)
+    with PointGenerator(q, 3, seed=7) as pgen:
+        shared = torch.from_numpy(pgen.batch(0)).cuda().reshape(
+            1, 1, 1, -1, 3)
+    wide = torch.rand((8, 1, 1, 1 << 17, 3), generator=gen,
+                      device="cuda") * 2 - 1
+    for what, shape, grid in (("nested 16x4x128^3", (16, 4, 128, 128, 128),
+                               shared),
+                              ("8x4x32x256^2 2^20 pairs", (8, 4, 32, 256, 256),
+                               wide)):
+        x = torch.rand(shape, generator=gen, device="cuda")
+        gout = torch.randn((shape[0], 4, *grid.shape[1:-1]), generator=gen,
+                           device="cuda")
+        for name, cfg in (("cosine", SamplerConfig(dim=3)),
+                          ("linear", SamplerConfig(dim=3, kernel="linear",
+                                                   multicell=False))):
+            o = (0, 0, 0)
+            plan = percell.make_plan(grid, shape, cfg)
+            medians[f"{what} {name} percell plan"] = _median_ms(
+                lambda: percell.make_plan(grid, shape, cfg), reps)
+            medians[f"{what} {name} percell blend"] = _median_ms(
+                lambda: percell.blend(x, grid, cfg, o, plan), reps)
+            medians[f"{what} {name} percell splat"] = _median_ms(
+                lambda: percell.splat(gout, grid, shape[2:], cfg, o, plan),
+                reps)
+        del x, gout
+        torch.cuda.empty_cache()
+    print(f"{card}; sampler kernels, median of {reps}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items()),
+          flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nested", action="store_true",
@@ -266,11 +326,14 @@ def main(argv=None):
                     help="time fused3b's kernels alone at config 5")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed calls of each --fused3b / --kernels / "
-                         "--slab kernel")
+                         "--slab / --sampler kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="time fused2w, fused3w and mega2w alone")
     ap.add_argument("--slab", action="store_true",
                     help="time the slab route's blend and splat alone")
+    ap.add_argument("--sampler", action="store_true",
+                    help="time splat_o, blend_o and the percell route "
+                         "alone")
     ap.add_argument("--cell-dim", type=int, default=4,
                     help="channels of --kernels and the main-path steps")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
@@ -288,6 +351,8 @@ def main(argv=None):
         return _main_kernels(card, args.cell_dim, args.reps)
     if args.slab:
         return _slab_kernels(card, args.reps)
+    if args.sampler:
+        return _sampler_kernels(card, args.reps)
     if args.config5:
         run, pts = _config5_step(args.config5)
         batches = [pts] * (3 + args.steps)

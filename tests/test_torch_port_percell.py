@@ -128,44 +128,55 @@ def test_plain_percell_matches_generic_f64(kw, orders, per_cell):
 @pytest.mark.parametrize("per_cell", [True, False], ids=["per-cell",
                                                          "shared"])
 def test_plan_invariants_and_keys(kw, per_cell):
-    """Every pair sits in exactly one slot, and ``back`` gives each
-    query's slot within its cell; the slots run through the keys in order; the pairs of one key keep their (cell, query) order (a
-    stable sort); and each pair's key is (cell, floor(z)) on the JAX
-    package's compute_source_coords with the cell's own shift, clamped to
-    the cell's rows (ops/pallas/percell.py _bin_pairs, one row a bin)."""
+    """Every pair sits in exactly one slot, each cell's pairs in that
+    cell's slots; the starts are monotone from 0 to N*Q and the slots run
+    through the (cell, tile) keys in order; the pairs of one key keep their
+    query order (a stable sort); and each pair's key is (cell, z tile, y
+    band) of its floor corner on the JAX package's compute_source_coords
+    with the cell's own shift, clamped to the cell's rows (the JAX route's
+    (cell, z row) bins, cut into y bands)."""
     cells, grid, _ = _data(3, per_cell, -1.7, 1.7)
     tcfg, jcfg = TConfig(dim=3, **kw), JConfig(dim=3, **kw)
-    plan = percell.make_plan(torch.from_numpy(grid), cells.shape, tcfg)
+    plan = percell.make_plan(torch.from_numpy(grid), cells.shape, tcfg,
+                             tile=(3, 5))
     perm = plan.perm.numpy().astype(np.int64)
+    starts = plan.starts.numpy().astype(np.int64)
     pairs = N_CELL * Q
-    assert plan.perm.dtype == torch.int32 and perm.shape == (pairs,)
-    assert (plan.n, plan.q) == (N_CELL, Q)
+    d, h = SHAPE[:2]
+    tiles = -(-d // 3) * -(-h // 5)
+    assert plan.perm.dtype == plan.starts.dtype == torch.int32
+    assert perm.shape == (pairs,) and starts.shape == (N_CELL * tiles + 1,)
+    assert (plan.n, plan.q, plan.dz, plan.ty) == (N_CELL, Q, 3, 5)
     np.testing.assert_array_equal(np.sort(perm), np.arange(pairs))
-    back = plan.back.numpy()
-    assert back.shape == (N_CELL, 1, Q)
-    first = np.arange(N_CELL)[:, None] * Q
-    np.testing.assert_array_equal(perm[first + back[:, 0]],
-                                  first + np.arange(Q))
+    np.testing.assert_array_equal(perm // Q, np.repeat(np.arange(N_CELL), Q))
+    assert starts[0] == 0 and starts[-1] == pairs
+    assert np.all(np.diff(starts) >= 0)
 
-    d = SHAPE[0]
     offsets = jcoords.multicell_offsets(N_CELL, jcfg.multicell, jnp.float32)
-    z = jnp.asarray(grid[:, :, 0, 2])
-    base, _ = jcoords.compute_source_coords(
-        z, d, jcfg.padding_mode, jcfg.align_corners, jcfg.multicell,
-        offsets[:, None], strict=jcfg.strict_reference)
-    fz = np.floor(np.asarray(base)).astype(np.int64)
-    row = np.clip(np.broadcast_to(fz, (N_CELL, Q)), 0, d - 1)
-    key = (np.arange(N_CELL)[:, None] * d + row).reshape(-1)
-    skey = key[perm]
-    assert np.all(np.diff(skey) >= 0)
-    same_key = np.diff(skey) == 0
+
+    def floor(axis, size):
+        base, _ = jcoords.compute_source_coords(
+            jnp.asarray(grid[:, :, 0, axis]), size, jcfg.padding_mode,
+            jcfg.align_corners, jcfg.multicell, offsets[:, None],
+            strict=jcfg.strict_reference)
+        fz = np.floor(np.asarray(base)).astype(np.int64)
+        return np.clip(np.broadcast_to(fz, (N_CELL, Q)), 0, size - 1)
+
+    tile = floor(2, d) // 3 * -(-h // 5) + floor(1, h) // 5
+    key = (np.arange(N_CELL)[:, None] * tiles + tile).reshape(-1)
+    slot_key = np.repeat(np.arange(N_CELL * tiles), np.diff(starts))
+    np.testing.assert_array_equal(key[perm], slot_key)
+    same_key = np.diff(slot_key) == 0
     assert np.all(np.diff(perm)[same_key] > 0)
 
 
-def test_grid_plans_never_serve_a_stale_plan():
+def test_grid_plans_never_serve_a_stale_plan(monkeypatch):
     """GridPlans reuses its plan for the same grid only: another grid, the
     same grid changed in place and another cell shape or config each get
-    a plan built anew, equal to make_plan's."""
+    a plan built anew, equal to make_plan's (tiles of a small shared-memory
+    budget, so that a cell has many)."""
+    monkeypatch.setattr(percell, "TILE_BYTES", 2000)
+    assert percell.geometry(C, SHAPE) == (2, 2)
     cfg = TConfig(dim=3)
     _, a, _ = _data(4)
     _, b, _ = _data(5)
