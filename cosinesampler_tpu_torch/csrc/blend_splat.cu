@@ -55,11 +55,11 @@
 //   and blocks along the queries make three waves of the blocks the card
 //   holds at once.  A cell above the card's per-block shared memory (227
 //   KB on the H100) takes global atomics directly.  Tried and dropped
-//   (PERF.md section 6): a channel-interleaved (texel, C) layout with
-//   64- and 128-bit compare-and-swap of a corner's channels (slower: the
-//   wide CAS serialises on the same banks), partial sums in a scratch
-//   summed by a second kernel (no faster than the bulk reduction), and
-//   32 cells a warp (one block an SM, too few warps).
+//   as slower (PERF.md section 6): a channel-interleaved (texel, C)
+//   layout with 64- and 128-bit compare-and-swap of a corner's channels,
+//   partial sums in a scratch summed by a second kernel, 32 cells a warp
+//   (one block an SM), and for 64 KB 3D cells a per-block counting sort
+//   of the queries by texel before the adds.
 // * The TPU splat was deterministic (a sequential accumulation over query
 //   blocks).  This one is not: f32 atomics add in an order that changes
 //   from run to run, so results agree with the plain version to rounding,
@@ -121,8 +121,14 @@ struct SplatGeom {
 // add one query's corners into 8 cells whose strides put them in 8
 // distinct banks, and a cell's lanes read 8 consecutive cotangents (one
 // sector).
+//
+// In 2D with lanes over cells the registers are capped (40 a thread) so
+// that six blocks, the most a 33 KB chunk of 8 cells lets an SM hold, run
+// on an SM instead of four: more warps to hide the compare-and-swap
+// loops' latency (PERF.md section 6).
 template <int D, int kLanes, bool kSmem>
-__global__ void __launch_bounds__(kSplatThreads)
+__global__ void __launch_bounds__(kSplatThreads,
+                                  D == 2 && kLanes > 1 ? 6 : 1)
     splat_o_kernel(const float* __restrict__ gout,
                    const float* __restrict__ grid, float* __restrict__ out,
                    csm::PairShape s, SplatGeom g, csm::SamplerParams p) {
