@@ -25,9 +25,11 @@ sparse case, a 4 x 4 x 1024^2 2D volume and a stack of 1024 x 4 x 16^3
 cells go through their routes too, and percell, slab, the percell plan
 and the slab bins are held to their plain versions at all those shapes,
 at a skewed and a sparse cloud on config 5's volume and (percell) on 8 x
-4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles and splat_o's launch
-geometry are each timed against their alternatives (the sweeps behind
-percell.geometry and blend_splat.splat_geometry).  At 16 feature channels the 2D
+4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles, splat_o's and
+blend_o's launch geometries and mega2w's work units are each timed
+against their alternatives (the sweeps behind percell.geometry,
+blend_splat.splat_geometry, blend_splat.blend_geometry and
+mega2w.geometry).  At 16 feature channels the 2D
 trainer (20 steps) and the 3D trainer (5) go through the routed
 channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
 versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
@@ -397,6 +399,47 @@ def compare_v1(name, cfg, n, c, spatial, q, orders_list, seed=0,
     return worst
 
 
+# orders that put each of 0..3 on every axis
+STAGED_ORDERS = {2: [(0, 0), (1, 2), (2, 3), (3, 1)],
+                 3: [(0, 0, 0), (1, 2, 3), (2, 3, 0), (3, 0, 1)]}
+
+
+def staged_blend_checks():
+    """blend_o alone against generic.blend at orders 0..3 on every axis,
+    shared and per-cell grids, all three paddings: on the 3D main shape and
+    a 2D stack (staged, channels interleaved), at 3 channels (staged,
+    channel planes) and on a stack too large to stage (unstaged)."""
+    cases = [(3, N3, C, (S3,) * 3, Q), (2, 24, C, (H, W), 20_000),
+             (2, 10, 3, (12, 20), 4099), (3, 2, C, (32, 32, 32), 4096)]
+    for dim, n, c, spatial, q in cases:
+        geom = blend_splat.blend_geometry(n, c, spatial, q)
+        worst = 0.0
+        for padding in ("zeros", "border", "reflection"):
+            cfg = SamplerConfig(dim=dim, padding_mode=padding)
+            for grid_batch in (1, n):
+                x, grid, _ = _v1_inputs(dim, n, c, spatial, q, seed=21,
+                                        grid_batch=grid_batch, lo=-1.2,
+                                        hi=1.2)
+                for orders in STAGED_ORDERS[dim]:
+                    out = blend_splat.blend(x, grid, cfg, orders)
+                    ref = blend_splat.plain_blend(x, grid, cfg, orders)
+                    if not torch.isfinite(out).all():
+                        raise RuntimeError("blend_o: non-finite output")
+                    _, rel = _rel_err(out.reshape(1, -1), ref.reshape(1, -1))
+                    worst = max(worst, rel)
+                    if not rel <= REL_TOL:
+                        raise RuntimeError(
+                            f"blend_o {n}x{c}x{spatial} {padding} grid batch "
+                            f"{grid_batch} orders {orders}: rel {rel:.3e}")
+                del x, grid
+        print(f"compare blend_o {n}x{c}x{'x'.join(map(str, spatial))}, Q={q} "
+              f"(geometry {tuple(geom)}): 3 paddings x grid batch 1 and {n} "
+              f"x orders {STAGED_ORDERS[dim]}: worst rel {worst:.3e} "
+              f"(tolerance {REL_TOL:g})", flush=True)
+    if blend_splat.blend_geometry(2, C, (32, 32, 32), 4096).cells != 0:
+        raise RuntimeError("blend_o: the 512 KB cell is staged")
+
+
 def _expect_raise(what, exc, fn):
     try:
         fn()
@@ -453,6 +496,8 @@ def v1_kernel_phase():
                [(0, 0), (0, 1)], seed=4, **wide)
     compare_v1("3d-large-cell", SamplerConfig(dim=3), 2, 4, (32, 32, 32), 4096,
                [(0, 0, 0), (1, 0, 0)], seed=5, **wide)
+
+    staged_blend_checks()
 
     cfg = SamplerConfig(dim=2)
     x, grid, _ = _v1_inputs(2, 8, 3, (12, 10), 64, seed=6)
@@ -552,6 +597,25 @@ def mega_kernel_phase():
     compare_mega("q-1000", main, 8, 3, 12, 10, 1000, seed=4)
     # a cell too large for the shared-memory chunk: global atomics
     compare_mega("large-cell", main, 2, 4, 128, 128, 4096, seed=5)
+    # the staged units' edges: N not a multiple of the chunks (7 cells in
+    # one chunk, 97 in three of 25 and one of 22), fewer queries than slices
+    # (100 and 1), and the largest cell one block stages (4 x 120 x 120)
+    # beside the smallest it cannot (4 x 121 x 120: the global path)
+    for name, args in [("n-7", (7, 4, 16, 16, Q)), ("n-97", (97, 4, 16, 16, Q)),
+                       ("q-100", (N, 4, 16, 16, 100)),
+                       ("q-1", (N, 4, 16, 16, 1)),
+                       ("staging-limit", (2, 4, 120, 120, 4096)),
+                       ("past-staging-limit", (2, 4, 121, 120, 4096)),
+                       # 189 floats a cell: staged and flushed without
+                       # bulk copies (not a multiple of 16 bytes)
+                       ("odd-cell", (5, 3, 7, 9, 4099))]:
+        geom = mega2w.geometry(*args, HIDDEN)
+        print(f"mega2w {name}: work units {tuple(geom)}", flush=True)
+        compare_mega(name, main, *args, seed=7)
+    if (mega2w.geometry(2, 4, 120, 120, 4096, HIDDEN).chunks == 0
+            or mega2w.geometry(2, 4, 121, 120, 4096, HIDDEN).chunks != 0):
+        raise RuntimeError("mega2w: the staging limit moved; the cases "
+                           "above no longer straddle it")
     # w1 scaled so |pre-activation| reaches ~40: tanh saturates and d1 -> 0;
     # the outputs must stay finite (the errors are printed, not checked:
     # d1 = 1 - h^2 keeps only a few bits there)
@@ -3042,6 +3106,22 @@ def v1_time_phase():
                   f"({n}x{C}x{'x'.join(map(str, spatial))}, Q={Q}): kernel "
                   f"{ms:.4f} ms, library {lib_ms:.4f} ms (rel diff "
                   f"{err:.2e})", flush=True)
+    # blend_o at the 3D main shape (the nested 3D step's 40 launches)
+    cfg3 = SamplerConfig(dim=3)
+    x, grid, _ = _v1_inputs(3, N3, C, (S3,) * 3, Q, seed=11)
+    ms3, plain3 = _in_turns(lambda: blend_splat.blend(x, grid, cfg3, (0,) * 3),
+                            lambda: blend_splat.plain_blend(x, grid, cfg3,
+                                                            (0,) * 3))
+    bound3 = _bound(4 * (N3 * C * S3 ** 3 + 3 * Q + N3 * C * Q),
+                    2 * 8 * C * N3 * Q)
+    times["blend_o"].update(ms_3d=ms3, plain_ms_3d=plain3,
+                            bound_ms_3d=bound3[0],
+                            library_ms_3d=lib[("blend_o", 3)][1],
+                            ms_3d_at_library_setting=lib[("blend_o", 3)][0])
+    print(f"time blend_o at the 3D main shape ({N3}x{C}x{S3}^3, Q={Q}, "
+          f"cosine, multicell, order 0): kernel {ms3:.4f} ms, plain "
+          f"{plain3:.4f} ms, bound {bound3[0]:.4f} ms ({bound3[1]}), "
+          f"{bound3[0] / ms3:.1%} of it", flush=True)
     for name, t in times.items():
         t["library_ms"] = lib[(name, 2)][1]
         t["ms_at_library_setting"] = lib[(name, 2)][0]
@@ -3103,6 +3183,105 @@ def splat_sweep_phase():
                   for k, v in ms.items()), flush=True)
         del grid, gout, want
         torch.cuda.empty_cache()
+
+
+def _sweep(what, runs, geoms, want, reps=10):
+    """Each of ``runs`` held to ``want`` within REL_TOL, then timed in turns
+    (the list, then reversed); prints each geometry's ms."""
+    for name, fn in runs.items():
+        _, err = _rel_err(fn().reshape(1, -1), want.reshape(1, -1))
+        if not err <= REL_TOL:
+            raise RuntimeError(f"{what} {name} geometry: disagrees with the "
+                               f"rule's ({err:.3e})")
+    ms = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        ms[k].append(_time_ms(runs[k], reps))
+    print(f"{what}: " + "; ".join(f"{k} {tuple(geoms[k])} {sum(v) / 2:.4f} ms"
+                                  for k, v in ms.items()), flush=True)
+
+
+def blend_sweep_phase():
+    """The measurement behind blend_splat.blend_geometry: blend_o at the 2D
+    and 3D main paths' shapes (shared points, order 0) over launch
+    geometries, each held to the rule's output and timed in turns: the
+    rule's, channel planes instead of interleaved channels, half and twice
+    its query blocks, fewer cells a block (2D), and the unstaged kernel
+    (the design before staging); and staged against unstaged on the stack
+    of 1024 x 4 x 16^3 cells at 256, 1024 and 4096 per-cell queries."""
+    for dim, n, spatial in ((2, N, (H, W)), (3, N3, (S3,) * 3)):
+        cfg = SamplerConfig(dim=dim)
+        x, grid, _ = _v1_inputs(dim, n, C, spatial, Q, seed=13)
+        o = (0,) * dim
+        rule = blend_splat.blend_geometry(n, C, spatial, Q)
+
+        def q_blocks(geom, blocks):
+            qpb = -(-Q // blocks)
+            return geom._replace(q_per_block=qpb, q_blocks=-(-Q // qpb))
+
+        geoms = {
+            "rule": rule,
+            "channel planes": rule._replace(interleave=False),
+            "half the query blocks": q_blocks(rule, max(1, rule.q_blocks // 2)),
+            "twice the query blocks": q_blocks(rule, 2 * rule.q_blocks),
+            "unstaged": blend_splat.BlendGeometry(
+                0, False, C * math.prod(spatial), 256, -(-Q // 256)),
+        }
+        if rule.cells > 1:
+            geoms["a quarter of the cells"] = q_blocks(
+                rule._replace(cells=rule.cells // 4), 4 * rule.q_blocks)
+        runs = {k: functools.partial(blend_splat.launch_blend, x, grid, cfg,
+                                     o, g) for k, g in geoms.items()}
+        _sweep(f"blend_o sweep {dim}D ({n}x{C}x"
+               f"{'x'.join(map(str, spatial))}, Q={Q})", runs, geoms,
+               runs["rule"]())
+        del x, grid
+        torch.cuda.empty_cache()
+    # the staging bound (STAGE_QUERIES_PER_TEXEL) on the route sweep's
+    # stack of small cells over L2, 256, 1024 and 4096 per-cell queries
+    # (2^18, 2^20 and 2^22 pairs): staged and unstaged
+    cfg = SamplerConfig(dim=3)
+    for q in (256, 1024, 4096):
+        x, grid, _ = _per_cell_inputs(3, NS, (SS,) * 3, (1, 1, q), 28)
+        staged = blend_splat.BlendGeometry(1, True, C * SS ** 3, q, 1)
+        geoms = {"rule": blend_splat.blend_geometry(NS, C, (SS,) * 3, q),
+                 "staged": staged,
+                 "unstaged": blend_splat.BlendGeometry(0, False, C * SS ** 3,
+                                                       256, -(-q // 256))}
+        runs = {k: functools.partial(blend_splat.launch_blend, x, grid, cfg,
+                                     (0, 0, 0), g) for k, g in geoms.items()}
+        _sweep(f"blend_o sweep 3D per-cell ({NS}x{C}x{SS}^3, Q={q} a cell)",
+               runs, geoms, runs["rule"]())
+        del x, grid
+        torch.cuda.empty_cache()
+
+
+def mega_sweep_phase():
+    """The measurement behind mega2w.geometry at the 2D main path: its
+    work units against lanes over 4 cells, twice the chunks, half the
+    slices, and the global path that takes cells too large to stage, each
+    held to the rule's cells gradient and timed in turns."""
+    main = SamplerConfig(dim=2)
+    gen = torch.Generator().manual_seed(13)
+    cells = torch.rand((N, C, H, W), generator=gen).cuda()
+    pts = (torch.rand((Q, 2), generator=gen) * 2 - 1).cuda()
+    mlp = _mlp(C, HIDDEN, gen)
+    rule = mega2w.geometry(N, C, H, W, Q, HIDDEN)
+    half = max(1, rule.slices // 2)
+    geoms = {
+        "rule": rule,
+        "lanes over 4 cells": rule._replace(lanes=4),
+        "twice the chunks": rule._replace(
+            chunks=2 * rule.chunks, cells=-(-N // (2 * rule.chunks)),
+            slices=half, q_per_slice=-(-Q // half)),
+        "half the slices": rule._replace(slices=half,
+                                         q_per_slice=-(-Q // half)),
+        "global path (cells too large to stage)": mega2w.GLOBAL_PATH,
+    }
+    runs = {k: (lambda g=g: mega2w.launch_step(
+        cells, *mlp, pts, main, "allen_cahn", g)[1]["cells"])
+        for k, g in geoms.items()}
+    _sweep(f"mega2w sweep ({N}x{C}x{H}x{W}, Q={Q}, hidden {HIDDEN})", runs,
+           geoms, runs["rule"]())
 
 
 def mega_fused3w_time_phase():
@@ -3470,6 +3649,8 @@ def main():
     _timed(reference_phase)
     times.update(_timed(v1_time_phase))
     _timed(splat_sweep_phase)
+    _timed(blend_sweep_phase)
+    _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))
     times.update(_timed(ghost_time_phase))

@@ -25,14 +25,30 @@
 // * The TPU kernels build per-axis one-hot corner matrices and contract
 //   them on the MXU, because the TPU has no per-lane gather and no
 //   atomics; its (8, 128) blocks and VMEM-resident cell block do not carry
-//   over.  Here each thread owns one (cell, query) pair.
-// * blend_o writes N*C*Q floats and reads a cell stack that sits in the
-//   50 MB L2 (96 x 4 x 16 x 16 f32 is 393 KB): at the main path it is
-//   bound by writing the 154 MB output (~46 us at 3.35 TB/s).  A thread
-//   computes the 2^d corner offsets and weights once and loops over the
-//   channels, so there is no channel cap; consecutive threads take
-//   consecutive queries of one cell, so the output stores coalesce and a
-//   warp's gathers fall in one cell.
+//   over.  Here threads own (cell, query) pairs.
+// * blend_o writes N*C*Q floats (154 MB at the 2D main path, ~46 us at
+//   3.35 TB/s; 80 MB at the 3D main shape, 50 x 4 x 16^3, ~24 us) and
+//   reads a cell stack that sits in the 50 MB L2.  Its first design, one
+//   thread per (cell, query) pair gathering the 2^d x C corner values
+//   through L1/L2 (blend_o_kernel), took 0.146 ms in 2D and 0.209 in 3D
+//   (H100 80GB HBM3, 700.00 W), where a pair makes 32 scalar gathers.  Where a cell fits a block's
+//   shared memory and has enough queries (blend_o_staged_kernel), a block
+//   stages its cells (8 of the 2D main path's 4 KB cells, one 64 KB 3D
+//   cell) and walks a slice of the queries: a thread takes one query of a
+//   round and its cells, the corners come from shared memory, and the
+//   stores of a warp fall on consecutive queries of one cell.  Channels
+//   are interleaved per texel where C is a multiple of 4 (staged with
+//   128-bit reads), so one 128-bit shared load serves a corner's 4
+//   channels: 8 loads a 3D pair instead of 32 (other C: channel planes,
+//   staged with bulk async copies).  Blocks of 512 threads, two an SM, in
+//   one wave: 0.107 ms in 2D and 0.101 in 3D (the same card; PERF.md
+//   section 6, chip_smoke.py blend_sweep_phase).  What bounds it
+//   now: in 2D the stores, which alone take 0.093 ms against 0.050 for
+//   a fill of the same 154 MB (a block writes 32 rows of the (N, C, Q)
+//   output at once; streaming stores read the same); in 3D the per-pair
+//   coordinate math (0.13 ms without the stores at 256 threads a block).
+//   Cells that do not fit, or have fewer queries than texels (where the
+//   gathers touch less than a whole cell), keep the first design.
 // * splat_o reads the N*C*Q cotangent once (154 MB at the main path,
 //   ~46 us).  Its naive form, one global atomicAdd per (pair, corner,
 //   channel), piles onto the few thousand texels of each cell.  A block
@@ -204,16 +220,188 @@ __global__ void __launch_bounds__(kSplatThreads,
     }
 }
 
+// dynamic shared memory ahead of the staged blend's cells: its mbarrier,
+// padded so that the cells stay 16-byte aligned for the bulk copies
+constexpr int kBarrierBytes = 16;
+// the staged blend's threads a block, and the blocks an SM that its
+// registers allow (64 a thread); shared memory may allow fewer
+// (ops/cuda/blend_splat.py blend_geometry)
+constexpr int kStagedThreads = 512;
+constexpr int kStagedBlocksPerSm = 2;
+
+// One staged blend_o launch's geometry (ops/cuda/blend_splat.py
+// blend_geometry).
+struct BlendGeom {
+  int cells;        // cells a block stages
+  int stride;       // floats of one cell in shared memory (a multiple of 4)
+  int q_per_block;
+  bool bulk;        // planes staged by bulk async copies (16-byte aligned)
+};
+
+// Block (bx, by) stages cells [bx * g.cells, ...) in shared memory and
+// blends queries [by * g.q_per_block, ...) of each: a thread takes one
+// query of a round and walks the block's cells, so the stores of a warp
+// fall on consecutive queries of one cell.  V 0: channel planes as in
+// global memory (bulk-copied where aligned); V 4: the channels of a texel
+// side by side (C a multiple of 4), one 128-bit shared load a corner and
+// 4 channels.
+template <int D, int V>
+__global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSm)
+    blend_o_staged_kernel(const float* __restrict__ input,
+                          const float* __restrict__ grid,
+                          float* __restrict__ out, csm::PairShape s,
+                          BlendGeom g, csm::SamplerParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* scells = reinterpret_cast<float*>(smem + kBarrierBytes);
+  const int cell_elems = s.c * s.texels;
+  const int n0 = blockIdx.x * g.cells;
+  const int n1 = min(s.n, n0 + g.cells);
+  const int q0 = blockIdx.y * g.q_per_block;
+  const int q1 = min(s.q, q0 + g.q_per_block);
+  const float* src = input + static_cast<int64_t>(n0) * cell_elems;
+  const bool bulk = V == 0 && g.bulk;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      csm::barrier_init(bar);
+      const uint32_t bytes = static_cast<uint32_t>(cell_elems) * 4u;
+      csm::barrier_expect(bar, bytes * (n1 - n0));
+      for (int ln = 0; ln < n1 - n0; ++ln)
+        csm::bulk_load(scells + ln * g.stride,
+                       src + static_cast<int64_t>(ln) * cell_elems, bytes,
+                       bar);
+    }
+  } else if (V == 0) {
+    for (int e = threadIdx.x; e < (n1 - n0) * cell_elems; e += blockDim.x) {
+      const int ln = e / cell_elems;
+      scells[ln * g.stride + (e - ln * cell_elems)] = __ldg(src + e);
+    }
+  } else {
+    // 128-bit reads of 4 consecutive elements (C % 4 == 0, so a cell's
+    // elements and src are 16-byte aligned), several in flight a thread,
+    // written texel-major
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+#pragma unroll 4
+    for (int e4 = threadIdx.x; e4 < (n1 - n0) * cell_elems / 4;
+         e4 += blockDim.x) {
+      const float4 v = __ldg(src4 + e4);
+      const int ln = 4 * e4 / cell_elems;
+      const int r = 4 * e4 - ln * cell_elems;
+      int c = r / s.texels;
+      int t = r - c * s.texels;
+      float* dst = scells + ln * g.stride;
+      const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dst[t * s.c + c] = vals[j];
+        if (++t == s.texels) {
+          t = 0;
+          ++c;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // every thread waits for the copies before its first shared load
+  bool staged = !bulk;
+  for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
+    for (int ln = 0; ln < n1 - n0; ++ln) {
+      const int ni = n0 + ln;
+      int off[1 << D];
+      float wgt[1 << D];
+      csm::pair_corners<D>(s, grid, ni, qi, p, off, wgt);
+      if (!staged) {
+        csm::barrier_wait(bar, 0);
+        staged = true;
+      }
+      const float* cell = scells + ln * g.stride;
+      float* dst = out + static_cast<int64_t>(ni) * s.c * s.q + qi;
+      if (V == 0) {
+        for (int c = 0; c < s.c; ++c) {
+          const float* src_c = cell + c * s.texels;
+          float acc = 0.0f;
+#pragma unroll
+          for (int k = 0; k < (1 << D); ++k)
+            acc = fmaf(wgt[k], src_c[off[k]], acc);
+          dst[static_cast<int64_t>(c) * s.q] = acc;
+        }
+      } else {
+        for (int c = 0; c < s.c; c += 4) {
+          float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int k = 0; k < (1 << D); ++k) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(cell + off[k] * s.c + c);
+            acc.x = fmaf(wgt[k], v.x, acc.x);
+            acc.y = fmaf(wgt[k], v.y, acc.y);
+            acc.z = fmaf(wgt[k], v.z, acc.z);
+            acc.w = fmaf(wgt[k], v.w, acc.w);
+          }
+          dst[static_cast<int64_t>(c) * s.q] = acc.x;
+          dst[static_cast<int64_t>(c + 1) * s.q] = acc.y;
+          dst[static_cast<int64_t>(c + 2) * s.q] = acc.z;
+          dst[static_cast<int64_t>(c + 3) * s.q] = acc.w;
+        }
+      }
+    }
+  }
+  // a block whose threads had no pair must not exit with copies in flight
+  if (!staged) csm::barrier_wait(bar, 0);
+}
+
+template <int D, int V>
+cudaError_t launch_blend_staged(const float* input, const float* grid,
+                                float* out, const csm::PairShape& s,
+                                const BlendGeom& g, int q_blocks,
+                                const csm::SamplerParams& p,
+                                cudaStream_t stream) {
+  auto* kernel = &blend_o_staged_kernel<D, V>;
+  const size_t bytes = kBarrierBytes +
+                       static_cast<size_t>(g.cells) * g.stride * sizeof(float);
+  cudaError_t err = csm::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(csm::cdiv(s.n, g.cells), q_blocks), kStagedThreads, bytes,
+           stream>>>(input, grid, out, s, g, p);
+  return cudaGetLastError();
+}
+
+// cells 0: the unstaged kernel (one thread per pair, corners gathered
+// through L1/L2); otherwise the staged kernel in the given layout.
 template <int D>
 cudaError_t launch_blend(const float* input, const float* grid, float* out,
-                         const csm::PairShape& s,
+                         const csm::PairShape& s, int cells, int interleave,
+                         int stride, int q_per_block, int q_blocks,
                          const csm::SamplerParams& p, cudaStream_t stream) {
   const int pairs = s.n * s.q;
   if (pairs == 0 || s.c == 0) return cudaGetLastError();
-  blend_o_kernel<D>
-      <<<csm::cdiv(pairs, kBlendThreads), kBlendThreads, 0, stream>>>(
-          input, grid, out, s, p);
-  return cudaGetLastError();
+  if (cells == 0) {
+    blend_o_kernel<D>
+        <<<csm::cdiv(pairs, kBlendThreads), kBlendThreads, 0, stream>>>(
+            input, grid, out, s, p);
+    return cudaGetLastError();
+  }
+  const int64_t cell_elems = static_cast<int64_t>(s.c) * s.texels;
+  csm::DeviceLimits lim;
+  cudaError_t err = csm::device_limits(&lim);
+  if (err != cudaSuccess) return err;
+  if (cells < 0 || stride < cell_elems || stride % 4 != 0 || q_blocks < 1 ||
+      q_blocks > 65535 || q_per_block < 1 ||
+      static_cast<int64_t>(q_blocks) * q_per_block < s.q ||
+      (interleave && s.c % 4 != 0) ||
+      kBarrierBytes + 4 * static_cast<int64_t>(cells) * stride >
+          lim.smem_optin)
+    return cudaErrorInvalidValue;
+  // bulk copies take 16-byte aligned addresses and sizes
+  const bool bulk = cell_elems % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(input) % 16 == 0;
+  if (interleave && reinterpret_cast<uintptr_t>(input) % 16 != 0)
+    interleave = 0;  // the channels' 128-bit reads take aligned cells
+  const BlendGeom g{cells, stride, q_per_block, bulk};
+  return interleave ? launch_blend_staged<D, 4>(input, grid, out, s, g,
+                                                q_blocks, p, stream)
+                    : launch_blend_staged<D, 0>(input, grid, out, s, g,
+                                                q_blocks, p, stream);
 }
 
 template <int D, int kLanes, bool kSmem>
@@ -274,10 +462,13 @@ cudaError_t launch_splat(const float* gout, const float* grid, float* out,
 
 extern "C" {
 
-// d is ignored for dim == 2; orders (ox, oy, oz) per grid axis.
+// d is ignored for dim == 2; orders (ox, oy, oz) per grid axis.  The
+// geometry (cells, interleave, stride, q_per_block, q_blocks) of
+// ops/cuda/blend_splat.py blend_geometry; cells 0: the unstaged kernel.
 int blend_o(const void* input, const void* grid, void* out, int dim, int n,
             int c, int d, int h, int w, int q, int grid_batch, int ox, int oy,
-            int oz, int kernel, int padding, int align, int multicell,
+            int oz, int cells, int interleave, int stride, int q_per_block,
+            int q_blocks, int kernel, int padding, int align, int multicell,
             int strict, float off_step, float off_stop, void* stream) {
   if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz))
     return cudaErrorInvalidValue;
@@ -289,8 +480,10 @@ int blend_o(const void* input, const void* grid, void* out, int dim, int n,
   const auto* gr = static_cast<const float*>(grid);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  return dim == 2 ? launch_blend<2>(in, gr, o, s, p, st)
-                  : launch_blend<3>(in, gr, o, s, p, st);
+  return dim == 2 ? launch_blend<2>(in, gr, o, s, cells, interleave, stride,
+                                    q_per_block, q_blocks, p, st)
+                  : launch_blend<3>(in, gr, o, s, cells, interleave, stride,
+                                    q_per_block, q_blocks, p, st);
 }
 
 // The geometry (cells, lanes, stride, q_per_block, q_blocks) of

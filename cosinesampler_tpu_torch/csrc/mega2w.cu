@@ -34,23 +34,38 @@
 //   keeps out of HBM, the (5C, Q) feature block, is 8 MB here (~2.4 us):
 //   what one launch saves on this card is the launches and eager
 //   operations of the two-kernel step around it.
-// * Block b owns queries [b * tile, (b + 1) * tile), tile chosen so that
-//   the blocks fill the SMs once, 512 threads each.  Stage 1: a thread
-//   blends its query over all cells into 5C registers (as fused2w_blend).
-//   Stage 2: the MLP forward, the residual and the backward above, in
-//   registers; the MLP gradients and the loss are summed over each warp
-//   with shuffles and over the block with shared-memory atomics.  The
-//   query's feature cotangent goes to shared memory.  Stage 3: the block
-//   splats its cotangents into the cells one chunk of cells at a time,
-//   with shared-memory atomics, flushing each chunk with global atomicAdd
-//   (fused2w_bwd's scheme with the chunk loop inside the block).  The
-//   block's gradient row is added into the output with global atomicAdd.
-// * Shared memory: the MLP and its gradient row, the block's 5C x tile
-//   cotangents (at most half of the opted-in 227 KB) and the chunk.  A
-//   cell larger than what is left takes global atomics directly.
-// * A thread-block cluster whose blocks' shared memory together hold the
-//   whole 393 KB cotangent of the main path would flush once per cluster
-//   instead of once per block; that is a later design.
+// * Measured on the parent's design (one block of 512 an SM, each over
+//   its own queries; H100 80GB HBM3, 700.00 W, PERF.md section 6): of its
+//   ~1.18 ms at the main path, the splat took ~0.92 (shared-memory f32
+//   atomicAdd compiles to a compare-and-swap loop, and a warp's lanes sat
+//   on random texels of one 4 KB cell), the blend from L2 ~0.22, the MLP
+//   ~0.04, and the per-block global-atomic flush of the 393 KB stack read
+//   as nothing.
+// * So cells a block can stage (mega2w_staged_kernel) take three phases
+//   over work units of (chunk of cells, query slice), one unit a block,
+//   with grid-wide barriers between them (a cooperative launch; two
+//   blocks of 512 an SM up to 4 channels).  Phase 1: a unit stages its
+//   chunk with bulk async copies (TMA) and blends its slice over the
+//   chunk from shared memory into partial rows, stored to a scratch in
+//   query order (chunks x 5C x Q floats: 32 MB at the main path, in L2).
+//   Phase 2: a thread a query sums its partial rows and runs the MLP
+//   forward, the residual and the backward above in registers; the MLP
+//   gradients and the loss are summed over each warp with shuffles and
+//   over the block with shared-memory atomics, and the feature cotangents
+//   go to a second scratch (5C x Q).  Phase 3: a unit zeroes its chunk in
+//   shared memory and splats its slice's cotangents with splat_o's
+//   layout (csrc/blend_splat.cu): a warp's lanes split over up to 8 cells
+//   whose strides (4 floats past a multiple of 32) put them in distinct
+//   bank quads, so no two lanes of one compare-and-swap share a bank;
+//   then one bulk async reduction a cell adds the chunk into the output
+//   (12.7 MB of L2 adds at the main path).  The work units come from the
+//   host (ops/cuda/mega2w.py geometry: 4 chunks of 24 cells x 66 slices
+//   of 1 516 queries at the main path, 0.4552 ms against 1.18; the sweep
+//   in chip_smoke.py times the alternatives).  What bounds it now is the
+//   splat's compare-and-swap adds, as in splat_o.
+// * A cell over a block's shared memory takes mega2w_global_kernel: a
+//   block over its own queries, the blend gathered through L1/L2 and the
+//   splat added with global atomics.
 // * Above 8 channels (mega2w_wide_kernel; JAX's kernel takes any C with
 //   C + 4 <= 128) a thread cannot hold the 5C feature rows and their
 //   cotangents in registers.  Stage 1 blends one channel group of at most
@@ -78,6 +93,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
 #include "fused_rows.cuh"
 
 namespace {
@@ -104,52 +120,184 @@ __host__ __device__ inline int row_len(int c, int hidden) {
   return (c + 2) * hidden + 2;
 }
 
-template <int C, bool SMEM>
-__global__ void __launch_bounds__(kThreads, 1)
-    mega2w_kernel(const float* __restrict__ cells,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const float* __restrict__ points, float* __restrict__ dcells,
-                  float* __restrict__ grads, int n, csm::CellGeom<2> geom,
-                  int q, int hidden, int pde, int tile, int cells_per_chunk,
-                  csm::SamplerParams p) {
-  extern __shared__ float smem[];
-  const int len = row_len(C, hidden);
-  float* s_w1 = smem;                 // (C, Hd)
-  float* s_b1 = s_w1 + C * hidden;
-  float* s_w2 = s_b1 + hidden;
-  const float bias2 = __ldg(b2);
-  float* s_grad = smem + len;         // gradient row
-  float* s_dw1 = s_grad;
-  float* s_db1 = s_dw1 + C * hidden;
-  float* s_dw2 = s_db1 + hidden;
-  float* s_db2 = s_dw2 + hidden;
-  float* s_loss = s_db2 + 1;
-  float* s_gf = smem + 2 * len;       // (5 * C, tile) feature cotangents
-  float* s_chunk = s_gf + 5 * C * tile;
+// The MLP and its gradient row in shared memory.
+struct Mlp {
+  const float* w1;  // (C, Hd)
+  const float* b1;
+  const float* w2;
+  float bias2;
+  float* dw1;
+  float* db1;
+  float* dw2;
+  float* db2;
+  float* loss;
+};
 
-  for (int i = threadIdx.x; i < C * hidden; i += blockDim.x) s_w1[i] = w1[i];
+// Stages the MLP at smem[0, len) and zeroes the gradient row at smem[len,
+// 2 len); the caller syncs the block before use.
+__device__ __forceinline__ Mlp stage_mlp(float* smem, int c, int hidden,
+                                         const float* __restrict__ w1,
+                                         const float* __restrict__ b1,
+                                         const float* __restrict__ w2,
+                                         const float* __restrict__ b2) {
+  const int len = row_len(c, hidden);
+  Mlp m;
+  float* s_w1 = smem;
+  float* s_b1 = s_w1 + c * hidden;
+  float* s_w2 = s_b1 + hidden;
+  for (int i = threadIdx.x; i < c * hidden; i += blockDim.x) s_w1[i] = w1[i];
   for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
     s_b1[i] = b1[i];
     s_w2[i] = w2[i];
   }
-  for (int i = threadIdx.x; i < len; i += blockDim.x) s_grad[i] = 0.0f;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) smem[len + i] = 0.0f;
+  m.w1 = s_w1;
+  m.b1 = s_b1;
+  m.w2 = s_w2;
+  m.bias2 = __ldg(b2);
+  m.dw1 = smem + len;
+  m.db1 = m.dw1 + c * hidden;
+  m.dw2 = m.db1 + hidden;
+  m.db2 = m.dw2 + hidden;
+  m.loss = m.db2 + 1;
+  return m;
+}
+
+// Stage 2 for one query with feature rows f: the MLP forward, the residual
+// and the backward of the header note, in registers.  Adds the query's
+// MLP gradients and loss into the block's row (every lane of the warp must
+// call it; an invalid lane adds zeros) and returns the feature cotangent
+// in gf.
+template <int C>
+__device__ __forceinline__ void mlp_query(const Mlp& m, int hidden, int pde,
+                                          float inv_q, bool valid,
+                                          const float (&f)[5][C],
+                                          float (&gf)[5][C]) {
+  // forward: u, u_k, u_kk (k = x, y)
+  float u = m.bias2, ud[2] = {0.0f, 0.0f}, udd[2] = {0.0f, 0.0f};
+  for (int j = 0; j < hidden; ++j) {
+    float pre = m.b1[j], a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float wc = m.w1[c * hidden + j];
+      pre = fmaf(wc, f[0][c], pre);
+      a[0] = fmaf(wc, f[1][c], a[0]);
+      a[1] = fmaf(wc, f[2][c], a[1]);
+      b[0] = fmaf(wc, f[3][c], b[0]);
+      b[1] = fmaf(wc, f[4][c], b[1]);
+    }
+    const float h = tanhf(pre);
+    const float d1 = 1.0f - h * h;
+    const float d2 = -2.0f * h * d1;
+    const float w2j = m.w2[j];
+    u += w2j * h;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      ud[k] += w2j * (d1 * a[k]);
+      udd[k] += w2j * (d2 * a[k] * a[k] + d1 * b[k]);
+    }
+  }
+
+  // residual and its cotangents
+  float r, gu, gud[2] = {0.0f, 0.0f}, gudd[2];
+  if (pde == kAllenCahn) {
+    r = 2.0f * ud[1] + 5.0f * u * u * u - 5.0f * u - 1e-4f * udd[0];
+  } else {
+    r = udd[0] + udd[1] + u;
+  }
+  const float gr = valid ? 2.0f * r * inv_q : 0.0f;
+  if (pde == kAllenCahn) {
+    gu = gr * (15.0f * u * u - 5.0f);
+    gud[1] = 2.0f * gr;
+    gudd[0] = -1e-4f * gr;
+    gudd[1] = 0.0f;
+  } else {
+    gu = gr;
+    gudd[0] = gr;
+    gudd[1] = gr;
+  }
+
+  // backward through the MLP
+#pragma unroll
+  for (int rr = 0; rr < 5; ++rr)
+#pragma unroll
+    for (int c = 0; c < C; ++c) gf[rr][c] = 0.0f;
+  for (int j = 0; j < hidden; ++j) {
+    float pre = m.b1[j], a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float wc = m.w1[c * hidden + j];
+      pre = fmaf(wc, f[0][c], pre);
+      a[0] = fmaf(wc, f[1][c], a[0]);
+      a[1] = fmaf(wc, f[2][c], a[1]);
+      b[0] = fmaf(wc, f[3][c], b[0]);
+      b[1] = fmaf(wc, f[4][c], b[1]);
+    }
+    const float h = tanhf(pre);
+    const float d1 = 1.0f - h * h;
+    const float d2 = -2.0f * h * d1;
+    const float d3 = (6.0f * h * h - 2.0f) * d1;
+    const float w2j = m.w2[j];
+    float inner = gu * d1, dw2 = gu * h, ga[2], gb[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      inner += gud[k] * d2 * a[k] + gudd[k] * (d3 * a[k] * a[k] + d2 * b[k]);
+      dw2 += gud[k] * d1 * a[k] + gudd[k] * (d2 * a[k] * a[k] + d1 * b[k]);
+      ga[k] = w2j * (gud[k] * d1 + 2.0f * gudd[k] * d2 * a[k]);
+      gb[k] = w2j * (gudd[k] * d1);
+    }
+    const float gpre = w2j * inner;
+    block_add(m.db1 + j, gpre);
+    block_add(m.dw2 + j, dw2);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float wc = m.w1[c * hidden + j];
+      block_add(m.dw1 + c * hidden + j,
+                f[0][c] * gpre + f[1][c] * ga[0] + f[2][c] * ga[1] +
+                    f[3][c] * gb[0] + f[4][c] * gb[1]);
+      gf[0][c] = fmaf(wc, gpre, gf[0][c]);
+      gf[1][c] = fmaf(wc, ga[0], gf[1][c]);
+      gf[2][c] = fmaf(wc, ga[1], gf[2][c]);
+      gf[3][c] = fmaf(wc, gb[0], gf[3][c]);
+      gf[4][c] = fmaf(wc, gb[1], gf[4][c]);
+    }
+  }
+  block_add(m.db2, gu);
+  block_add(m.loss, valid ? r * r * inv_q : 0.0f);
+}
+
+// Cells too large to stage: block b owns queries [b * tile, (b + 1) *
+// tile), blends each over all cells through L1/L2 into registers (stage
+// 1), runs the MLP (stage 2), keeps the feature cotangents in shared
+// memory and splats them with global atomics (stage 3).
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    mega2w_global_kernel(const float* __restrict__ cells,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ points,
+                         float* __restrict__ dcells, float* __restrict__ grads,
+                         int n, csm::CellGeom<2> geom, int q, int hidden,
+                         int pde, int tile, csm::SamplerParams p) {
+  extern __shared__ float smem[];
+  const int len = row_len(C, hidden);
+  const Mlp m = stage_mlp(smem, C, hidden, w1, b1, w2, b2);
+  float* s_gf = smem + 2 * len;       // (5 * C, tile) feature cotangents
   __syncthreads();
 
   const int q0 = blockIdx.x * tile;
   const int nq = min(q, q0 + tile) - q0;
   const float inv_q = 1.0f / static_cast<float>(q);
-
   // stages 1 and 2; every thread runs every round (the warp sums need all
   // lanes), a lane past the block's queries with a zero cotangent
   for (int s = threadIdx.x; s - static_cast<int>(threadIdx.x) < tile;
        s += blockDim.x) {
     const bool valid = s < nq;
     float f[5][C];
-    float pt[2] = {0.0f, 0.0f};
     if (valid) {
-      pt[0] = points[2 * (q0 + s)];
-      pt[1] = points[2 * (q0 + s) + 1];
+      const float pt[2] = {points[2 * (q0 + s)], points[2 * (q0 + s) + 1]};
       csm::blend_query<2, C>(cells, geom, n, pt, p, f);
     } else {
 #pragma unroll
@@ -157,99 +305,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int c = 0; c < C; ++c) f[r][c] = 0.0f;
     }
-
-    // forward: u, u_k, u_kk (k = x, y)
-    float u = bias2, ud[2] = {0.0f, 0.0f}, udd[2] = {0.0f, 0.0f};
-    for (int j = 0; j < hidden; ++j) {
-      float pre = s_b1[j], a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float wc = s_w1[c * hidden + j];
-        pre = fmaf(wc, f[0][c], pre);
-        a[0] = fmaf(wc, f[1][c], a[0]);
-        a[1] = fmaf(wc, f[2][c], a[1]);
-        b[0] = fmaf(wc, f[3][c], b[0]);
-        b[1] = fmaf(wc, f[4][c], b[1]);
-      }
-      const float h = tanhf(pre);
-      const float d1 = 1.0f - h * h;
-      const float d2 = -2.0f * h * d1;
-      const float w2j = s_w2[j];
-      u += w2j * h;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        ud[k] += w2j * (d1 * a[k]);
-        udd[k] += w2j * (d2 * a[k] * a[k] + d1 * b[k]);
-      }
-    }
-
-    // residual and its cotangents
-    float r, gu, gud[2] = {0.0f, 0.0f}, gudd[2];
-    if (pde == kAllenCahn) {
-      r = 2.0f * ud[1] + 5.0f * u * u * u - 5.0f * u - 1e-4f * udd[0];
-    } else {
-      r = udd[0] + udd[1] + u;
-    }
-    const float gr = valid ? 2.0f * r * inv_q : 0.0f;
-    if (pde == kAllenCahn) {
-      gu = gr * (15.0f * u * u - 5.0f);
-      gud[1] = 2.0f * gr;
-      gudd[0] = -1e-4f * gr;
-      gudd[1] = 0.0f;
-    } else {
-      gu = gr;
-      gudd[0] = gr;
-      gudd[1] = gr;
-    }
-
-    // backward through the MLP
     float gf[5][C];
-#pragma unroll
-    for (int rr = 0; rr < 5; ++rr)
-#pragma unroll
-      for (int c = 0; c < C; ++c) gf[rr][c] = 0.0f;
-    for (int j = 0; j < hidden; ++j) {
-      float pre = s_b1[j], a[2] = {0.0f, 0.0f}, b[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float wc = s_w1[c * hidden + j];
-        pre = fmaf(wc, f[0][c], pre);
-        a[0] = fmaf(wc, f[1][c], a[0]);
-        a[1] = fmaf(wc, f[2][c], a[1]);
-        b[0] = fmaf(wc, f[3][c], b[0]);
-        b[1] = fmaf(wc, f[4][c], b[1]);
-      }
-      const float h = tanhf(pre);
-      const float d1 = 1.0f - h * h;
-      const float d2 = -2.0f * h * d1;
-      const float d3 = (6.0f * h * h - 2.0f) * d1;
-      const float w2j = s_w2[j];
-      float inner = gu * d1, dw2 = gu * h, ga[2], gb[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        inner += gud[k] * d2 * a[k] + gudd[k] * (d3 * a[k] * a[k] + d2 * b[k]);
-        dw2 += gud[k] * d1 * a[k] + gudd[k] * (d2 * a[k] * a[k] + d1 * b[k]);
-        ga[k] = w2j * (gud[k] * d1 + 2.0f * gudd[k] * d2 * a[k]);
-        gb[k] = w2j * (gudd[k] * d1);
-      }
-      const float gpre = w2j * inner;
-      block_add(s_db1 + j, gpre);
-      block_add(s_dw2 + j, dw2);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float wc = s_w1[c * hidden + j];
-        block_add(s_dw1 + c * hidden + j,
-                  f[0][c] * gpre + f[1][c] * ga[0] + f[2][c] * ga[1] +
-                      f[3][c] * gb[0] + f[4][c] * gb[1]);
-        gf[0][c] = fmaf(wc, gpre, gf[0][c]);
-        gf[1][c] = fmaf(wc, ga[0], gf[1][c]);
-        gf[2][c] = fmaf(wc, ga[1], gf[2][c]);
-        gf[3][c] = fmaf(wc, gb[0], gf[3][c]);
-        gf[4][c] = fmaf(wc, gb[1], gf[4][c]);
-      }
-    }
-    block_add(s_db2, gu);
-    block_add(s_loss, valid ? r * r * inv_q : 0.0f);
+    mlp_query<C>(m, hidden, pde, inv_q, valid, f, gf);
     if (valid) {
 #pragma unroll
       for (int rr = 0; rr < 5; ++rr)
@@ -259,40 +316,221 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // stage 3: splat the block's feature cotangents, one chunk of cells at a
-  // time
-  const int cell_elems = C * geom.texels;
-  for (int n0 = 0; n0 < n; n0 += cells_per_chunk) {
-    const int n1 = min(n, n0 + cells_per_chunk);
-    const int chunk_elems = (n1 - n0) * cell_elems;
-    float* chunk_out = dcells + static_cast<int64_t>(n0) * cell_elems;
-    float* acc = SMEM ? s_chunk : chunk_out;
-    if (SMEM) {
-      for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x)
-        s_chunk[e] = 0.0f;
-      __syncthreads();
-    }
-    for (int s = threadIdx.x; s < nq; s += blockDim.x) {
-      float gv[5][C];
+  for (int s = threadIdx.x; s < nq; s += blockDim.x) {
+    float gv[5][C];
 #pragma unroll
-      for (int rr = 0; rr < 5; ++rr)
+    for (int rr = 0; rr < 5; ++rr)
 #pragma unroll
-        for (int c = 0; c < C; ++c) gv[rr][c] = s_gf[(rr * C + c) * tile + s];
-      const float pt[2] = {points[2 * (q0 + s)], points[2 * (q0 + s) + 1]};
-      csm::splat_query<2, C>(acc, geom, n0, n1, n, pt, p, gv);
-    }
-    if (SMEM) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) {
-        const float v = s_chunk[e];
-        if (v != 0.0f) atomicAdd(chunk_out + e, v);
-      }
-      __syncthreads();
-    }
+      for (int c = 0; c < C; ++c) gv[rr][c] = s_gf[(rr * C + c) * tile + s];
+    const float pt[2] = {points[2 * (q0 + s)], points[2 * (q0 + s) + 1]};
+    csm::splat_query<2, C>(dcells, geom, 0, n, n, pt, p, gv);
   }
 
   for (int i = threadIdx.x; i < len; i += blockDim.x)
-    atomicAdd(grads + i, s_grad[i]);
+    atomicAdd(grads + i, m.dw1[i]);
+}
+
+// One staged launch's work units (ops/cuda/mega2w.py geometry): chunk k
+// of `cells` cells (the last may hold fewer) over query slice s of
+// q_per_slice queries, unit k + chunks * s.
+struct MegaGeom {
+  int chunks;
+  int cells;
+  int stride;       // floats of one cell in shared memory (a multiple of 4)
+  int slices;
+  int q_per_slice;
+  int lanes;        // cells a warp's lanes split over in the splat
+  bool bulk;        // bulk copies and reductions (16-byte aligned cells)
+};
+
+// Floats of shared memory ahead of a staged block's cells: the MLP, its
+// gradient row, and the mbarrier (4 floats), 16-byte aligned.
+__host__ __device__ inline int staged_head(int c, int hidden) {
+  return (2 * row_len(c, hidden) + 3) / 4 * 4 + 4;
+}
+
+// The register path over cells that a block can stage, in three phases
+// separated by grid-wide barriers (a cooperative launch, all blocks
+// resident).  Phase 1: a unit stages its chunk (bulk copies) and blends
+// its slice's queries over the chunk from shared memory into partial rows
+// (partial: chunks x 5C x Q floats, query order).  Phase 2: a thread a
+// query sums its partial rows and runs the MLP; the feature cotangents go
+// to gfeats (5C x Q).  Phase 3: a unit zeroes its chunk in shared memory,
+// splats its slice's cotangents with a warp's lanes split over `lanes`
+// cells (strides in distinct bank quads) and flushes each cell with one
+// bulk reduction.  Two blocks an SM up to 4 channels (64 registers a
+// thread), one above.
+template <int C>
+__global__ void __launch_bounds__(kThreads, C <= 4 ? 2 : 1)
+    mega2w_staged_kernel(const float* __restrict__ cells,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ points,
+                         float* __restrict__ dcells, float* __restrict__ grads,
+                         float* __restrict__ partial,
+                         float* __restrict__ gfeats, int n,
+                         csm::CellGeom<2> geom, int q, int hidden, int pde,
+                         MegaGeom g, csm::SamplerParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int len = row_len(C, hidden);
+  const Mlp m = stage_mlp(smem, C, hidden, w1, b1, w2, b2);
+  const int head = staged_head(C, hidden);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + head - 4);
+  float* s_cells = smem + head;
+  if (threadIdx.x == 0 && g.bulk) csm::barrier_init(bar);
+  __syncthreads();
+
+  const int cell_elems = C * geom.texels;
+  const int units = g.chunks * g.slices;
+  const int64_t rows_q = static_cast<int64_t>(5 * C) * q;
+  uint32_t parity = 0;
+  // phase 1: partial rows of each unit
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int k = u % g.chunks;
+    const int n0 = k * g.cells;
+    const int n1 = min(n, n0 + g.cells);
+    const int qa = u / g.chunks * g.q_per_slice;
+    const int qb = min(q, qa + g.q_per_slice);
+    const float* src = cells + static_cast<int64_t>(n0) * cell_elems;
+    if (g.bulk) {
+      if (threadIdx.x == 0) {
+        // the previous unit's shared loads are done (the block synced)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t bytes = static_cast<uint32_t>(cell_elems) * 4u;
+        csm::barrier_expect(bar, bytes * (n1 - n0));
+        for (int ln = 0; ln < n1 - n0; ++ln)
+          csm::bulk_load(s_cells + ln * g.stride,
+                         src + static_cast<int64_t>(ln) * cell_elems, bytes,
+                         bar);
+      }
+      csm::barrier_wait(bar, parity);
+      parity ^= 1u;
+    } else {
+      for (int e = threadIdx.x; e < (n1 - n0) * cell_elems; e += blockDim.x) {
+        const int ln = e / cell_elems;
+        s_cells[ln * g.stride + (e - ln * cell_elems)] = __ldg(src + e);
+      }
+      __syncthreads();
+    }
+    float* part = partial + k * rows_q;
+    for (int qi = qa + threadIdx.x; qi < qb; qi += blockDim.x) {
+      const float pt[2] = {points[2 * qi], points[2 * qi + 1]};
+      float f[5][C];
+#pragma unroll
+      for (int r = 0; r < 5; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) f[r][c] = 0.0f;
+      csm::blend_query_range<2, C>(s_cells, g.stride, geom, n0, n1, n, C, pt,
+                                   p, f);
+#pragma unroll
+      for (int r = 0; r < 5; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          part[static_cast<int64_t>(r * C + c) * q + qi] = f[r][c];
+    }
+    __syncthreads();
+  }
+  cooperative_groups::this_grid().sync();
+
+  // phase 2: the MLP of each query; every thread of a block runs every
+  // round (the warp sums need all lanes)
+  const float inv_q = 1.0f / static_cast<float>(q);
+  for (int base = blockIdx.x * kThreads; base < q;
+       base += gridDim.x * kThreads) {
+    const int qi = base + threadIdx.x;
+    const bool valid = qi < q;
+    float f[5][C];
+#pragma unroll
+    for (int r = 0; r < 5; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) f[r][c] = 0.0f;
+    if (valid) {
+      for (int k = 0; k < g.chunks; ++k)
+#pragma unroll
+        for (int r = 0; r < 5; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            f[r][c] += partial[k * rows_q +
+                               static_cast<int64_t>(r * C + c) * q + qi];
+    }
+    float gf[5][C];
+    mlp_query<C>(m, hidden, pde, inv_q, valid, f, gf);
+    if (valid) {
+#pragma unroll
+      for (int r = 0; r < 5; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          gfeats[static_cast<int64_t>(r * C + c) * q + qi] = gf[r][c];
+    }
+  }
+  cooperative_groups::this_grid().sync();
+
+  // phase 3: each unit's splat, accumulated in shared memory
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int li = lane % g.lanes, lj = lane / g.lanes;
+  const int runs = 32 / g.lanes;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int k = u % g.chunks;
+    const int n0 = k * g.cells;
+    const int n1 = min(n, n0 + g.cells);
+    const int qa = u / g.chunks * g.q_per_slice;
+    const int qb = min(q, qa + g.q_per_slice);
+    float4* acc4 = reinterpret_cast<float4*>(s_cells);
+    for (int e = threadIdx.x; e < (n1 - n0) * g.stride / 4; e += blockDim.x)
+      acc4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+    for (int qi = qa + warp * runs + lj; qi < qb;
+         qi += (kThreads / 32) * runs) {
+      float gv[5][C];
+#pragma unroll
+      for (int r = 0; r < 5; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          gv[r][c] = gfeats[static_cast<int64_t>(r * C + c) * q + qi];
+      const float pt[2] = {points[2 * qi], points[2 * qi + 1]};
+      for (int ni = n0 + li; ni < n1; ni += g.lanes) {
+        float* cell = s_cells + (ni - n0) * g.stride;
+        csm::for_each_corner<2>(
+            geom, pt, ni, n, p, [&](int idx, const float (&wr)[5]) {
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                float v = 0.0f;
+#pragma unroll
+                for (int r = 0; r < 5; ++r) v = fmaf(wr[r], gv[r][c], v);
+                atomicAdd(cell + c * geom.texels + idx, v);
+              }
+            });
+      }
+    }
+    float* dst = dcells + static_cast<int64_t>(n0) * cell_elems;
+    if (g.bulk) {
+      // the shared-memory atomics are generic-proxy writes: fence them
+      // before the async proxy reads the chunk; one bulk reduction a cell
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int ln = 0; ln < n1 - n0; ++ln)
+          csm::bulk_reduce_add(dst + static_cast<int64_t>(ln) * cell_elems,
+                               s_cells + ln * g.stride,
+                               static_cast<uint32_t>(cell_elems) * 4u);
+        csm::bulk_store_wait();
+      }
+    } else {
+      __syncthreads();
+      for (int e = threadIdx.x; e < (n1 - n0) * cell_elems; e += blockDim.x) {
+        const int ln = e / cell_elems;
+        const float v = s_cells[ln * g.stride + (e - ln * cell_elems)];
+        if (v != 0.0f) atomicAdd(dst + e, v);
+      }
+    }
+    // the chunk is read out before the next unit zeroes it
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    atomicAdd(grads + i, m.dw1[i]);
 }
 
 // Hidden units per pass of the wide kernel's stage 2.
@@ -318,24 +556,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int HB = kHiddenBlock;
   extern __shared__ float smem[];
   const int len = row_len(c, hidden);
-  float* s_w1 = smem;                 // (C, Hd)
-  float* s_b1 = s_w1 + c * hidden;
-  float* s_w2 = s_b1 + hidden;
-  const float bias2 = __ldg(b2);
-  float* s_grad = smem + len;         // gradient row
-  float* s_dw1 = s_grad;
-  float* s_db1 = s_dw1 + c * hidden;
-  float* s_dw2 = s_db1 + hidden;
-  float* s_db2 = s_dw2 + hidden;
-  float* s_loss = s_db2 + 1;
+  const Mlp m = stage_mlp(smem, c, hidden, w1, b1, w2, b2);
+  const float* s_w1 = m.w1;
+  const float* s_b1 = m.b1;
+  const float* s_w2 = m.w2;
+  const float bias2 = m.bias2;
+  float* s_grad = m.dw1;              // gradient row
+  float* s_dw1 = m.dw1;
+  float* s_db1 = m.db1;
+  float* s_dw2 = m.dw2;
+  float* s_db2 = m.db2;
+  float* s_loss = m.loss;
   float* s_chunk = smem + 2 * len;
-
-  for (int i = threadIdx.x; i < c * hidden; i += blockDim.x) s_w1[i] = w1[i];
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
-    s_b1[i] = b1[i];
-    s_w2[i] = w2[i];
-  }
-  for (int i = threadIdx.x; i < len; i += blockDim.x) s_grad[i] = 0.0f;
   __syncthreads();
 
   const int q0 = blockIdx.x * tile;
@@ -609,12 +841,15 @@ cudaError_t launch_wide(const float* cells, const float* w1, const float* b1,
                                      bytes, stream);
 }
 
+// chunks 0: the global path; otherwise the staged kernel over the given
+// work units, with scratch holding chunks x 5C x Q partial rows and then
+// 5C x Q feature cotangents.
 template <int C>
 cudaError_t launch(const float* cells, const float* w1, const float* b1,
                    const float* w2, const float* b2, const float* points,
-                   float* dcells, float* grads, int n, int h, int w, int q,
-                   int hidden, int pde, const csm::SamplerParams& p,
-                   cudaStream_t stream) {
+                   float* dcells, float* grads, float* scratch, int n, int h,
+                   int w, int q, int hidden, int pde, MegaGeom g,
+                   const csm::SamplerParams& p, cudaStream_t stream) {
   if (q == 0 || n == 0 || h == 0 || w == 0) return cudaGetLastError();
   csm::DeviceLimits lim;
   cudaError_t err = csm::device_limits(&lim);
@@ -623,39 +858,62 @@ cudaError_t launch(const float* cells, const float* w1, const float* b1,
   geom.size[0] = w;
   geom.size[1] = h;
   geom.texels = h * w;
+  const int cell_elems = C * geom.texels;
 
-  const int64_t head = 2 * static_cast<int64_t>(row_len(C, hidden)) * 4;
-  const int64_t per_query = 5 * C * 4;
-  // one block per SM, each at least one round of threads, its cotangent
-  // tile within half of the opted-in shared memory
-  const int max_tile =
-      static_cast<int>((lim.smem_optin / 2 - head) / per_query);
-  const int tile =
-      std::min(max_tile, std::max(csm::cdiv(q, lim.sms), kThreads));
-  const int blocks = csm::cdiv(q, tile);
-  const int64_t space = lim.smem_optin - head - tile * per_query;
-  const int64_t cell_bytes = static_cast<int64_t>(C) * geom.texels * 4;
-  const bool smem = cell_bytes <= space;
-  const int cells_per_chunk =
-      smem ? static_cast<int>(std::min<int64_t>(n, space / cell_bytes)) : n;
-  const size_t bytes = static_cast<size_t>(
-      head + tile * per_query + (smem ? cells_per_chunk * cell_bytes : 0));
-  if (smem) {
-    auto* kernel = &mega2w_kernel<C, true>;
+  if (g.chunks == 0) {
+    const int64_t head = 2 * static_cast<int64_t>(row_len(C, hidden)) * 4;
+    const int64_t per_query = 5 * C * 4;
+    // one block per SM, each at least one round of threads, its cotangent
+    // tile within the opted-in shared memory
+    const int max_tile =
+        static_cast<int>((lim.smem_optin - head) / per_query);
+    const int tile =
+        std::min(max_tile, std::max(csm::cdiv(q, lim.sms), kThreads));
+    const size_t bytes = static_cast<size_t>(head + tile * per_query);
+    auto* kernel = &mega2w_global_kernel<C>;
     err = csm::allow_smem(kernel, bytes);
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, bytes, stream>>>(
+    kernel<<<csm::cdiv(q, tile), kThreads, bytes, stream>>>(
         cells, w1, b1, w2, b2, points, dcells, grads, n, geom, q, hidden, pde,
-        tile, cells_per_chunk, p);
-  } else {
-    auto* kernel = &mega2w_kernel<C, false>;
-    err = csm::allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, bytes, stream>>>(
-        cells, w1, b1, w2, b2, points, dcells, grads, n, geom, q, hidden, pde,
-        tile, cells_per_chunk, p);
+        tile, p);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+
+  const size_t bytes =
+      (static_cast<size_t>(staged_head(C, hidden)) +
+       static_cast<size_t>(g.cells) * g.stride) * sizeof(float);
+  if (scratch == nullptr || g.chunks < 1 || g.cells < 1 ||
+      static_cast<int64_t>(g.chunks) * g.cells < n ||
+      static_cast<int64_t>(g.chunks - 1) * g.cells >= n || g.slices < 1 ||
+      g.q_per_slice < 1 ||
+      static_cast<int64_t>(g.slices) * g.q_per_slice < q ||
+      g.stride < cell_elems || g.stride % 4 != 0 ||
+      (g.lanes != 1 && g.lanes != 2 && g.lanes != 4 && g.lanes != 8) ||
+      bytes > static_cast<size_t>(lim.smem_optin))
+    return cudaErrorInvalidValue;
+  // bulk copies and reductions take 16-byte aligned addresses and sizes
+  g.bulk = cell_elems % 4 == 0 &&
+           reinterpret_cast<uintptr_t>(cells) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(dcells) % 16 == 0;
+  auto* kernel = &mega2w_staged_kernel<C>;
+  err = csm::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  // a cooperative launch: as many blocks as the card holds at once
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int blocks = per_sm * lim.sms;
+  float* partial = scratch;
+  float* gfeats = scratch + static_cast<int64_t>(g.chunks) * 5 * C * q;
+  void* args[] = {&cells,   &w1,     &b1,    &w2,      &b2,
+                  &points,  &dcells, &grads, &partial, &gfeats,
+                  &n,       &geom,   &q,     &hidden,  &pde,
+                  &g,       const_cast<csm::SamplerParams*>(&p)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(blocks), dim3(kThreads), args,
+                                     bytes, stream);
 }
 
 }  // namespace
@@ -663,14 +921,19 @@ cudaError_t launch(const float* cells, const float* w1, const float* b1,
 extern "C" {
 
 // dcells (N, C, H, W) and grads ((C + 2) * Hd + 2 floats: dW1 (C, Hd),
-// db1, dw2, db2, loss) must be zeroed.  scratch: 10 * C * Q floats above
-// kMaxChannels channels (uninitialized), unused (may be null) up to it.
+// db1, dw2, db2, loss) must be zeroed.  The work units (chunks, cells,
+// stride, slices, q_per_slice, lanes) of ops/cuda/mega2w.py geometry;
+// chunks 0: the global path, and above kMaxChannels channels the wide
+// kernel, which ignores them.  scratch (uninitialized): 10 * C * Q floats
+// above kMaxChannels channels, (chunks + 1) * 5 * C * Q on the staged
+// path, unused (may be null) on the global path.
 int mega2w_step(const void* cells, const void* w1, const void* b1,
                 const void* w2, const void* b2, const void* points,
                 void* dcells, void* grads, void* scratch, int n, int c, int h,
-                int w, int q, int hidden, int pde, int kernel, int padding,
-                int align, int multicell, int strict, float off_step,
-                float off_stop, void* stream) {
+                int w, int q, int hidden, int pde, int chunks, int cells_per,
+                int stride, int slices, int q_per_slice, int lanes,
+                int kernel, int padding, int align, int multicell, int strict,
+                float off_step, float off_stop, void* stream) {
   if (hidden < 1 || hidden > kMaxHidden || (pde != kAllenCahn &&
                                             pde != kHelmholtz))
     return cudaErrorInvalidValue;
@@ -703,13 +966,16 @@ int mega2w_step(const void* cells, const void* w1, const void* b1,
               });
         });
   }
+  const MegaGeom g{chunks, cells_per, stride, slices, q_per_slice, lanes,
+                   false};
   return csm::dispatch_channels(c, [&](auto cc) {
     return launch<decltype(cc)::value>(
         static_cast<const float*>(cells), static_cast<const float*>(w1),
         static_cast<const float*>(b1), static_cast<const float*>(w2),
         static_cast<const float*>(b2), static_cast<const float*>(points),
-        static_cast<float*>(dcells), static_cast<float*>(grads), n, h, w, q,
-        hidden, pde, p, static_cast<cudaStream_t>(stream));
+        static_cast<float*>(dcells), static_cast<float*>(grads),
+        static_cast<float*>(scratch), n, h, w, q, hidden, pde, g, p,
+        static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -49,9 +49,14 @@ def reflect_coordinates(coord, twice_low: int, twice_high: int):
     shifted = coord - mn
     sign = torch.where(shifted < 0.0, -1.0, 1.0).to(coord.dtype)
     mag = torch.abs(shifted)
-    # torch.fmod is the exact C fmod (torch.remainder is not); mag >= 0
+    # torch.fmod is the exact C fmod (torch.remainder is not); mag >= 0.
+    # The quotient divides by a tensor: on the card torch divides by a
+    # Python scalar as a product with its rounded reciprocal, which can
+    # floor mag just under a multiple of span to the next fold (one pair
+    # in 5 M at 50 x 16^3 in reflection: a corner off by the span) where
+    # the kernels and the JAX package divide correctly rounded
     extra = torch.fmod(mag, span)
-    flips = torch.floor(mag / span)
+    flips = torch.floor(mag / torch.full_like(mag, span))
     even = torch.fmod(flips, 2.0) == 0.0
     out = torch.where(even, extra + mn, span - extra + mn)
     mult = torch.where(even, sign, -sign)

@@ -30,8 +30,9 @@ from ..generic import splat as plain_splat
 from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import KERNEL_IDS, PADDING_IDS, cuda_device
 
-__all__ = ["SplatGeometry", "blend", "launch_pairs", "launch_splat",
-           "plain_blend", "plain_splat", "splat", "splat_geometry"]
+__all__ = ["BlendGeometry", "SplatGeometry", "blend", "blend_geometry",
+           "launch_blend", "launch_pairs", "launch_splat", "plain_blend",
+           "plain_splat", "splat", "splat_geometry"]
 
 
 def _check_tensors(*tensors: torch.Tensor) -> None:
@@ -87,6 +88,95 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
     check(lib, err, f"{entry} launch")
 
 
+# the H100 SXM's SMs, and the shared memory of one of them with the 1 KB
+# the card reserves a block
+H100_SMS = 132
+SM_SMEM_BYTES = 228 * 1024
+RESERVED_SMEM_BYTES = 1024
+# the staged blend's mbarrier ahead of its cells (csrc/blend_splat.cu
+# kBarrierBytes)
+BARRIER_BYTES = 16
+
+
+class BlendGeometry(NamedTuple):
+    """One blend_o launch's geometry (csrc/blend_splat.cu): ``cells`` a
+    block stages in shared memory (0: none, the unstaged kernel gathers
+    the corners through L1 and L2), their layout there (``interleave``:
+    the channels of a texel side by side, else channel planes), ``stride``
+    floats a cell there, and ``q_blocks`` blocks of ``q_per_block``
+    queries along the queries."""
+    cells: int
+    interleave: bool
+    stride: int
+    q_per_block: int
+    q_blocks: int
+
+
+# blend_o's threads a block (unstaged), and the staged kernel's threads a
+# block and blocks an SM its registers allow (csrc/blend_splat.cu
+# kBlendThreads, kStagedThreads, kStagedBlocksPerSm)
+BLEND_THREADS = 256
+STAGED_THREADS = 512
+STAGED_BLOCKS_PER_SM = 2
+# the shared memory of a staged block's cells: up to 32 KB of small cells
+# (8 of the 2D main path's 4 KB cells), or one larger cell
+BLEND_CELL_BYTES = 32 * 1024
+# waves of the blocks that fit the card at once a staged blend_o launch
+# takes (chip_smoke.py blend_sweep_phase, PERF.md section 6)
+BLEND_WAVES = 1
+# a cell is staged when it has at least this many queries a texel: on
+# 1024 x 4 x 16^3 cells staged against unstaged read 0.050 / 0.033 ms at
+# a sixteenth of a query a texel, within 6% either way at a quarter,
+# 0.116 / 0.222 at one (chip_smoke.py blend_sweep_phase, PERF.md
+# section 6)
+STAGE_QUERIES_PER_TEXEL = 1
+
+
+def blend_geometry(n: int, c: int, spatial, q: int,
+                   sms: int = H100_SMS) -> BlendGeometry:
+    """The geometry of blend_o over (N, C, *S) cells and Q queries a cell
+    on a card of ``sms`` SMs.
+
+    A cell over a block's BLOCK_SMEM_BYTES, or with fewer than
+    STAGE_QUERIES_PER_TEXEL queries a texel, takes the unstaged kernel.
+    Otherwise a block stages the most cells that BLEND_CELL_BYTES hold
+    (at least one), channels interleaved where C is a multiple of 4 (one
+    128-bit shared load serves a corner's 4 channels), and its blocks
+    along the queries (at least STAGED_THREADS queries each) make
+    BLEND_WAVES waves of the blocks that fit the card at once."""
+    texels = math.prod(spatial)
+    stride = -(-c * texels // 4) * 4
+    cell_bytes = 4 * stride
+    if (BARRIER_BYTES + cell_bytes > BLOCK_SMEM_BYTES
+            or q < STAGE_QUERIES_PER_TEXEL * texels):
+        qpb = -(-q // max(1, -(-q // BLEND_THREADS)))
+        return BlendGeometry(0, False, c * texels, qpb, -(-q // qpb))
+    cells = max(1, min(n, BLEND_CELL_BYTES // cell_bytes))
+    # blocks an SM holds: by shared memory, and by registers
+    per_sm = max(1, min(STAGED_BLOCKS_PER_SM, SM_SMEM_BYTES // (
+        BARRIER_BYTES + cells * cell_bytes + RESERVED_SMEM_BYTES)))
+    chunks = -(-n // cells)
+    q_blocks = max(1, min(BLEND_WAVES * per_sm * sms // chunks,
+                          -(-q // STAGED_THREADS), 65535))
+    qpb = -(-q // q_blocks)
+    return BlendGeometry(cells, c % 4 == 0, stride, qpb, -(-q // qpb))
+
+
+def launch_blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
+                 orders, geom: BlendGeometry) -> torch.Tensor:
+    """blend_o of ``input`` at ``grid`` with the launch geometry ``geom``:
+    (N, C, *out_spatial), on the card."""
+    n, c, *spatial = input.shape
+    out = torch.empty((n, c, *grid.shape[1:-1]), dtype=torch.float32,
+                      device=input.device)
+    # the strict-mode 2D align quirk applies to the order-0 gather only
+    launch_pairs("blend_o", (input, grid, out), cfg, n, c, tuple(spatial),
+                 math.prod(grid.shape[1:-1]), grid.shape[0], orders,
+                 effective_align(cfg, orders),
+                 extra=(geom.cells, int(geom.interleave), *geom[2:]))
+    return out
+
+
 def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
           orders: Tuple[int, ...]) -> torch.Tensor:
     """(N, C, *out_spatial): generic.blend of (N, C, *S) cells at the grid
@@ -97,12 +187,9 @@ def blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
     _check_tensors(input, grid)
     n, c, *spatial = input.shape
     q = _check_shapes(cfg, n, spatial, grid, orders)
-    out = torch.empty((n, c, *grid.shape[1:-1]),
-                      dtype=torch.promote_types(input.dtype, grid.dtype),
-                      device=device)
-    # the strict-mode 2D align quirk applies to the order-0 gather only
-    launch_pairs("blend_o", (input, grid, out), cfg, n, c, spatial, q,
-                 grid.shape[0], orders, effective_align(cfg, orders))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = launch_blend(input, grid, cfg, orders,
+                       blend_geometry(n, c, spatial, q, sms))
     blend.launches += 1
     return out
 
@@ -120,11 +207,6 @@ class SplatGeometry(NamedTuple):
     q_blocks: int
 
 
-# the H100 SXM's SMs, and the shared memory of one of them with the 1 KB
-# the card reserves a block
-H100_SMS = 132
-SM_SMEM_BYTES = 228 * 1024
-RESERVED_SMEM_BYTES = 1024
 # waves of the blocks that fit the card at once a splat_o launch takes
 # (chip_smoke.py splat_sweep_phase, PERF.md section 6: on the 3D main
 # path ~2.9 waves beat half and twice as many query blocks; on the 2D

@@ -138,29 +138,34 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused3b_ghost_fold.argtypes = [ptr] * 3 + [i32] * 11 + [ptr]
     lib.fused3b_ghost_fold.restype = i32
     # cells, w1, b1, w2, b2, points, dcells, grads, scratch; n, c, h, w,
-    # q, hidden, pde, kernel, padding, align, multicell, strict; the offset
-    # lattice's step and stop; the stream
-    lib.mega2w_step.argtypes = [ptr] * 9 + [i32] * 12 + [f32, f32, ptr]
+    # q, hidden, pde, the work units (chunks, cells, stride, slices,
+    # q_per_slice, lanes), kernel, padding, align, multicell, strict; the
+    # offset lattice's step and stop; the stream
+    lib.mega2w_step.argtypes = [ptr] * 9 + [i32] * 18 + [f32, f32, ptr]
     lib.mega2w_step.restype = i32
-    # input, grid, out; dim, n, c, d, h, w, q, grid batch, 3 orders,
+    # input, grid, out; dim, n, c, d, h, w, q, grid batch, 3 orders, the
+    # launch geometry (cells, interleave, stride, q_per_block, q_blocks),
     # kernel, padding, align, multicell, strict; the offset lattice's step
     # and stop; the stream
-    lib.blend_o.argtypes = [ptr, ptr, ptr] + [i32] * 16 + [f32, f32, ptr]
+    lib.blend_o.argtypes = [ptr, ptr, ptr] + [i32] * 21 + [f32, f32, ptr]
     lib.blend_o.restype = i32
-    # gout, grid, out; then as blend_o, with the launch geometry (cells,
-    # lanes, stride, q_per_block, q_blocks) after the orders
+    # gout, grid, out; then as blend_o, with splat_o's launch geometry
+    # (cells, lanes, stride, q_per_block, q_blocks) after the orders
     lib.splat_o.argtypes = [ptr] * 3 + [i32] * 21 + [f32, f32, ptr]
     lib.splat_o.restype = i32
-    # input, grid, perm, starts, out; then as blend_o, with the tile's z
-    # rows dz, y rows ty, channels cc and staged after the orders
+    # input, grid, perm, starts, out; then as percell_splat below, with
+    # the tile's z rows dz, y rows ty, channels cc and staged after the
+    # orders
     lib.percell_blend.argtypes = [ptr] * 5 + [i32] * 20 + [f32, f32, ptr]
     lib.percell_blend.restype = i32
-    # gout, grid, perm, out; then as blend_o
+    # gout, grid, perm, out; dim, n, c, d, h, w, q, grid batch, 3 orders,
+    # kernel, padding, align, multicell, strict; the offset lattice's step
+    # and stop; the stream
     lib.percell_splat.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
     lib.percell_splat.restype = i32
     for fn in (lib.slab_blend, lib.slab_splat):
-        # input or gout, grid, perm, starts, out; then as blend_o, with the
-        # slab rows dz and channels cc after the orders
+        # input or gout, grid, perm, starts, out; then as percell_splat,
+        # with the slab rows dz and channels cc after the orders
         fn.argtypes = [ptr] * 5 + [i32] * 18 + [f32, f32, ptr]
         fn.restype = i32
     # grid, key, rank, starts, perm; dim, n, d, h, w, q, grid batch,

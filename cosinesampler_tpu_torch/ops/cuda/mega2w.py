@@ -20,16 +20,18 @@ package's ``pack_mlp`` is a TPU VMEM tile layout and has no counterpart.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..config import SamplerConfig
-from .build import check, load_kernels
+from .blend_splat import H100_SMS, RESERVED_SMEM_BYTES, SM_SMEM_BYTES
+from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
 
-__all__ = ["mega2w_step", "plain_mega2w_step", "supports"]
+__all__ = ["MegaGeometry", "geometry", "launch_step", "mega2w_step",
+           "plain_mega2w_step", "supports"]
 
 PDE_IDS = {"allen_cahn": 0, "helmholtz": 1}
 # the JAX kernel's bounds: C + 4 <= 128 (its MLP tile) and 32 hidden rows
@@ -39,6 +41,81 @@ MAX_HIDDEN = 32
 # csrc/fused_rows.cuh kMaxChannels: above it the kernel keeps the feature
 # rows and their cotangents in a scratch of 10 * C * Q floats
 REGISTER_CHANNELS = 8
+# the register path's blocks an SM (csrc/mega2w.cu mega2w_staged_kernel's
+# launch bounds: 64 registers a thread up to this many channels, 128 above)
+TWO_BLOCKS_CHANNELS = 4
+# the staged path's scratch (partial rows and cotangents) at most: above
+# it, the global path
+SCRATCH_LIMIT_BYTES = 1 << 30
+# the fewest queries of a slice: one round of the kernel's 512 threads
+MIN_SLICE_QUERIES = 512
+
+
+class MegaGeometry(NamedTuple):
+    """One mega2w launch's work units (csrc/mega2w.cu MegaGeom): ``chunks``
+    of ``cells`` cells (0 chunks: the global path, corners gathered through
+    L1/L2 and the splat added with global atomics), ``stride`` floats a
+    cell in shared memory, ``slices`` of ``q_per_slice`` queries, and the
+    ``lanes`` cells a warp's lanes split over in the splat."""
+    chunks: int
+    cells: int
+    stride: int
+    slices: int
+    q_per_slice: int
+    lanes: int
+
+
+GLOBAL_PATH = MegaGeometry(0, 0, 0, 0, 0, 0)
+
+
+def _head_bytes(c: int, hidden: int) -> int:
+    """Shared memory ahead of a staged block's cells: the MLP, its gradient
+    row and the mbarrier (csrc/mega2w.cu staged_head)."""
+    row = (c + 2) * hidden + 2
+    return 4 * ((2 * row + 3) // 4 * 4 + 4)
+
+
+def geometry(n: int, c: int, h: int, w: int, q: int, hidden: int,
+             sms: int = H100_SMS) -> MegaGeometry:
+    """The work units of mega2w over (N, C, H, W) cells and Q queries on a
+    card of ``sms`` SMs.
+
+    Above REGISTER_CHANNELS channels the wide kernel takes the call
+    (GLOBAL_PATH, ignored).  Otherwise a block (two an SM up to
+    TWO_BLOCKS_CHANNELS channels) stages the most cells its share of the
+    SM's shared memory holds, each stride padded to 4 floats past a
+    multiple of 32 when several fit (8 cells then sit in 8 distinct bank
+    quads); the cells split into as few chunks as that allows, of equal
+    size but the last, and the queries into as many slices (of at least
+    MIN_SLICE_QUERIES) as leave one unit a block.  A cell that no block
+    can stage, or a scratch over SCRATCH_LIMIT_BYTES, takes the global
+    path."""
+    if c > REGISTER_CHANNELS:
+        return GLOBAL_PATH
+    cell = c * h * w
+    head = _head_bytes(c, hidden)
+    padded = (cell + 27) // 32 * 32 + 4
+    for per_sm in ((2, 1) if c <= TWO_BLOCKS_CHANNELS else (1,)):
+        budget = min(BLOCK_SMEM_BYTES,
+                     SM_SMEM_BYTES // per_sm - RESERVED_SMEM_BYTES) - head
+        stride = padded if 2 * 4 * padded <= budget else -(-cell // 4) * 4
+        most = budget // (4 * stride)
+        if most >= 1:
+            break
+    else:
+        return GLOBAL_PATH
+    chunks = -(-n // most)
+    cells = -(-n // chunks)
+    chunks = -(-n // cells)
+    if 4 * (chunks + 1) * 5 * c * q > SCRATCH_LIMIT_BYTES:
+        return GLOBAL_PATH
+    slices = max(1, min(per_sm * sms // chunks, q // MIN_SLICE_QUERIES))
+    q_per_slice = -(-max(q, 1) // slices)
+    lanes = 1
+    while lanes < 8 and 2 * lanes <= cells:
+        lanes *= 2
+    return MegaGeometry(chunks, cells, stride, -(-max(q, 1) // q_per_slice),
+                        q_per_slice, lanes)
 
 
 def supports(cfg: SamplerConfig, cells_shape, pde: str, hidden: int) -> bool:
@@ -150,14 +227,36 @@ def mega2w_step(cells, w1, b1, w2, b2, points, cfg: SamplerConfig,
     if cells.numel() >= 2**31:
         raise ValueError("cell stack too large for the kernel's 32-bit "
                          "indexing")
+    geom = GLOBAL_PATH
+    if c <= REGISTER_CHANNELS:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        geom = geometry(n, c, h, w, points.shape[0], hidden, sms)
+    loss, grads = launch_step(cells, w1, b1, w2, b2, points, cfg, pde, geom)
+    mega2w_step.launches += 1
+    return loss, grads
+
+
+def launch_step(cells, w1, b1, w2, b2, points, cfg: SamplerConfig, pde: str,
+                geom: MegaGeometry):
+    """mega2w of checked CUDA inputs with the work units ``geom``: (loss,
+    grads) as ``mega2w_step`` gives them, on the card."""
+    n, c, h, w = cells.shape
+    hidden = w1.shape[-1]
     q = points.shape[0]
+    device = cells.device
     # one zeroed buffer: the cells gradient, then the gradient row dW1
     # (C, Hd), db1, dw2, db2 and the loss (csrc/mega2w.cu)
     ncell = cells.numel()
     out = torch.zeros((ncell + (c + 2) * hidden + 2,), dtype=torch.float32,
                       device=device)
-    scratch = (torch.empty((10 * c * q,), dtype=torch.float32, device=device)
-               if c > REGISTER_CHANNELS else None)
+    if c > REGISTER_CHANNELS:
+        scratch = torch.empty((10 * c * q,), dtype=torch.float32,
+                              device=device)
+    elif geom.chunks:
+        scratch = torch.empty(((geom.chunks + 1) * 5 * c * q,),
+                              dtype=torch.float32, device=device)
+    else:
+        scratch = None
     lib = load_kernels()
     with torch.cuda.device(device):
         err = lib.mega2w_step(
@@ -165,9 +264,8 @@ def mega2w_step(cells, w1, b1, w2, b2, points, cfg: SamplerConfig,
             b2.data_ptr(), points.data_ptr(), out.data_ptr(),
             out[ncell:].data_ptr(),
             None if scratch is None else scratch.data_ptr(), n, c, h, w, q,
-            hidden, PDE_IDS[pde], *sampler_args(cfg, n, device))
+            hidden, PDE_IDS[pde], *geom, *sampler_args(cfg, n, device))
     check(lib, err, "mega2w_step launch")
-    mega2w_step.launches += 1
     row = out[ncell:]
     ch = c * hidden
     grads = {
