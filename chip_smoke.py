@@ -3205,30 +3205,30 @@ def blend_sweep_phase():
     and 3D main paths' shapes (shared points, order 0) over launch
     geometries, each held to the rule's output and timed in turns: the
     rule's, channel planes instead of interleaved channels, half and twice
-    its query blocks, fewer cells a block (2D), and the unstaged kernel
-    (the design before staging); and staged against unstaged on the stack
+    its query blocks, twice and half the cells a block (2D), and the
+    unstaged kernel (the design before staging); and staged against
+    unstaged on the stack
     of 1024 x 4 x 16^3 cells at 256, 1024 and 4096 per-cell queries."""
     for dim, n, spatial in ((2, N, (H, W)), (3, N3, (S3,) * 3)):
         cfg = SamplerConfig(dim=dim)
         x, grid, _ = _v1_inputs(dim, n, C, spatial, Q, seed=13)
         o = (0,) * dim
         rule = blend_splat.blend_geometry(n, C, spatial, Q)
-
-        def q_blocks(geom, blocks):
-            qpb = -(-Q // blocks)
-            return geom._replace(q_per_block=qpb, q_blocks=-(-Q // qpb))
-
         geoms = {
             "rule": rule,
             "channel planes": rule._replace(interleave=False),
-            "half the query blocks": q_blocks(rule, max(1, rule.q_blocks // 2)),
-            "twice the query blocks": q_blocks(rule, 2 * rule.q_blocks),
+            "half the query blocks": rule._replace(
+                q_blocks=max(1, rule.q_blocks // 2)),
+            "twice the query blocks": rule._replace(
+                q_blocks=2 * rule.q_blocks),
             "unstaged": blend_splat.BlendGeometry(
-                0, False, C * math.prod(spatial), 256, -(-Q // 256)),
+                0, False, C * math.prod(spatial), 1),
         }
         if rule.cells > 1:
-            geoms["a quarter of the cells"] = q_blocks(
-                rule._replace(cells=rule.cells // 4), 4 * rule.q_blocks)
+            geoms["twice the cells"] = rule._replace(
+                cells=2 * rule.cells, q_blocks=max(1, rule.q_blocks // 2))
+            geoms["half the cells"] = rule._replace(
+                cells=rule.cells // 2, q_blocks=2 * rule.q_blocks)
         runs = {k: functools.partial(blend_splat.launch_blend, x, grid, cfg,
                                      o, g) for k, g in geoms.items()}
         _sweep(f"blend_o sweep {dim}D ({n}x{C}x"
@@ -3242,11 +3242,10 @@ def blend_sweep_phase():
     cfg = SamplerConfig(dim=3)
     for q in (256, 1024, 4096):
         x, grid, _ = _per_cell_inputs(3, NS, (SS,) * 3, (1, 1, q), 28)
-        staged = blend_splat.BlendGeometry(1, True, C * SS ** 3, q, 1)
         geoms = {"rule": blend_splat.blend_geometry(NS, C, (SS,) * 3, q),
-                 "staged": staged,
+                 "staged": blend_splat.BlendGeometry(1, True, C * SS ** 3, 1),
                  "unstaged": blend_splat.BlendGeometry(0, False, C * SS ** 3,
-                                                       256, -(-q // 256))}
+                                                       1)}
         runs = {k: functools.partial(blend_splat.launch_blend, x, grid, cfg,
                                      (0, 0, 0), g) for k, g in geoms.items()}
         _sweep(f"blend_o sweep 3D per-cell ({NS}x{C}x{SS}^3, Q={q} a cell)",

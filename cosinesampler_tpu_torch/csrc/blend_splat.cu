@@ -31,24 +31,29 @@
 //   reads a cell stack that sits in the 50 MB L2.  Its first design, one
 //   thread per (cell, query) pair gathering the 2^d x C corner values
 //   through L1/L2 (blend_o_kernel), took 0.146 ms in 2D and 0.209 in 3D
-//   (H100 80GB HBM3, 700.00 W), where a pair makes 32 scalar gathers.  Where a cell fits a block's
-//   shared memory and has enough queries (blend_o_staged_kernel), a block
-//   stages its cells (8 of the 2D main path's 4 KB cells, one 64 KB 3D
-//   cell) and walks a slice of the queries: a thread takes one query of a
-//   round and its cells, the corners come from shared memory, and the
-//   stores of a warp fall on consecutive queries of one cell.  Channels
-//   are interleaved per texel where C is a multiple of 4 (staged with
-//   128-bit reads), so one 128-bit shared load serves a corner's 4
-//   channels: 8 loads a 3D pair instead of 32 (other C: channel planes,
-//   staged with bulk async copies).  Blocks of 512 threads, two an SM, in
-//   one wave: 0.107 ms in 2D and 0.101 in 3D (the same card; PERF.md
-//   section 6, chip_smoke.py blend_sweep_phase).  What bounds it
-//   now: in 2D the stores, which alone take 0.093 ms against 0.050 for
-//   a fill of the same 154 MB (a block writes 32 rows of the (N, C, Q)
-//   output at once; streaming stores read the same); in 3D the per-pair
-//   coordinate math (0.13 ms without the stores at 256 threads a block).
-//   Cells that do not fit, or have fewer queries than texels (where the
-//   gathers touch less than a whole cell), keep the first design.
+//   (H100 80GB HBM3, 700.00 W), where a pair makes 32 scalar gathers.
+//   Where a cell fits a block's shared memory and has enough queries
+//   (blend_o_staged_kernel), a block
+//   stages its cells (4 of the 2D main path's 4 KB cells, one 64 KB 3D
+//   cell) and takes every q_blocks-th round of 512 queries: a thread
+//   takes one query of a round and its cells, the corners come from
+//   shared memory, and the stores of a warp fall on consecutive queries
+//   of one cell.  Channels are interleaved per texel where C is a
+//   multiple of 4 (staged with 128-bit reads), so one 128-bit shared load
+//   serves a corner's 4 channels: 8 loads a 3D pair instead of 32 (other
+//   C: channel planes, staged with bulk async copies).  Blocks of 512
+//   threads, two an SM, in one wave.  What bounds it: in 2D the stores,
+//   which alone took 0.093 ms against 0.050 for a fill of the same 154 MB
+//   (the same card): a block writes 16 rows of the (N, C, Q) output at
+//   once.  Rounds interleaved across the blocks along the queries, so
+//   that the card's stores at any moment fall in a narrow window of each
+//   row, read 4% faster than contiguous query slices; streaming stores,
+//   runs of queries a warp and other block sizes read the same or
+//   slower.  In 3D the per-pair coordinate math bounds it (0.13 ms
+//   without the stores at 256 threads a block).  PERF.md section 6 has
+//   the times (chip_smoke.py blend_sweep_phase).  Cells that do not fit,
+//   or have fewer queries than texels (where the gathers touch less than
+//   a whole cell), keep the first design.
 // * splat_o reads the N*C*Q cotangent once (154 MB at the main path,
 //   ~46 us).  Its naive form, one global atomicAdd per (pair, corner,
 //   channel), piles onto the few thousand texels of each cell.  A block
@@ -234,14 +239,15 @@ constexpr int kStagedBlocksPerSm = 2;
 struct BlendGeom {
   int cells;        // cells a block stages
   int stride;       // floats of one cell in shared memory (a multiple of 4)
-  int q_per_block;
   bool bulk;        // planes staged by bulk async copies (16-byte aligned)
 };
 
 // Block (bx, by) stages cells [bx * g.cells, ...) in shared memory and
-// blends queries [by * g.q_per_block, ...) of each: a thread takes one
-// query of a round and walks the block's cells, so the stores of a warp
-// fall on consecutive queries of one cell.  V 0: channel planes as in
+// blends rounds by, by + gridDim.y, ... of kStagedThreads queries of
+// each (the blocks along the queries interleave, so the card's stores at
+// any moment fall in a narrow window of each output row): a thread takes
+// one query of a round and walks the block's cells, so the stores of a
+// warp fall on consecutive queries of one cell.  V 0: channel planes as in
 // global memory (bulk-copied where aligned); V 4: the channels of a texel
 // side by side (C a multiple of 4), one 128-bit shared load a corner and
 // 4 channels.
@@ -257,8 +263,6 @@ __global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSm)
   const int cell_elems = s.c * s.texels;
   const int n0 = blockIdx.x * g.cells;
   const int n1 = min(s.n, n0 + g.cells);
-  const int q0 = blockIdx.y * g.q_per_block;
-  const int q1 = min(s.q, q0 + g.q_per_block);
   const float* src = input + static_cast<int64_t>(n0) * cell_elems;
   const bool bulk = V == 0 && g.bulk;
   if (bulk) {
@@ -305,7 +309,8 @@ __global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSm)
 
   // every thread waits for the copies before its first shared load
   bool staged = !bulk;
-  for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
+  for (int qi = blockIdx.y * blockDim.x + threadIdx.x; qi < s.q;
+       qi += gridDim.y * blockDim.x) {
     for (int ln = 0; ln < n1 - n0; ++ln) {
       const int ni = n0 + ln;
       int off[1 << D];
@@ -371,7 +376,7 @@ cudaError_t launch_blend_staged(const float* input, const float* grid,
 template <int D>
 cudaError_t launch_blend(const float* input, const float* grid, float* out,
                          const csm::PairShape& s, int cells, int interleave,
-                         int stride, int q_per_block, int q_blocks,
+                         int stride, int q_blocks,
                          const csm::SamplerParams& p, cudaStream_t stream) {
   const int pairs = s.n * s.q;
   if (pairs == 0 || s.c == 0) return cudaGetLastError();
@@ -386,9 +391,7 @@ cudaError_t launch_blend(const float* input, const float* grid, float* out,
   cudaError_t err = csm::device_limits(&lim);
   if (err != cudaSuccess) return err;
   if (cells < 0 || stride < cell_elems || stride % 4 != 0 || q_blocks < 1 ||
-      q_blocks > 65535 || q_per_block < 1 ||
-      static_cast<int64_t>(q_blocks) * q_per_block < s.q ||
-      (interleave && s.c % 4 != 0) ||
+      q_blocks > 65535 || (interleave && s.c % 4 != 0) ||
       kBarrierBytes + 4 * static_cast<int64_t>(cells) * stride >
           lim.smem_optin)
     return cudaErrorInvalidValue;
@@ -397,7 +400,7 @@ cudaError_t launch_blend(const float* input, const float* grid, float* out,
                     reinterpret_cast<uintptr_t>(input) % 16 == 0;
   if (interleave && reinterpret_cast<uintptr_t>(input) % 16 != 0)
     interleave = 0;  // the channels' 128-bit reads take aligned cells
-  const BlendGeom g{cells, stride, q_per_block, bulk};
+  const BlendGeom g{cells, stride, bulk};
   return interleave ? launch_blend_staged<D, 4>(input, grid, out, s, g,
                                                 q_blocks, p, stream)
                     : launch_blend_staged<D, 0>(input, grid, out, s, g,
@@ -463,13 +466,13 @@ cudaError_t launch_splat(const float* gout, const float* grid, float* out,
 extern "C" {
 
 // d is ignored for dim == 2; orders (ox, oy, oz) per grid axis.  The
-// geometry (cells, interleave, stride, q_per_block, q_blocks) of
+// geometry (cells, interleave, stride, q_blocks) of
 // ops/cuda/blend_splat.py blend_geometry; cells 0: the unstaged kernel.
 int blend_o(const void* input, const void* grid, void* out, int dim, int n,
             int c, int d, int h, int w, int q, int grid_batch, int ox, int oy,
-            int oz, int cells, int interleave, int stride, int q_per_block,
-            int q_blocks, int kernel, int padding, int align, int multicell,
-            int strict, float off_step, float off_stop, void* stream) {
+            int oz, int cells, int interleave, int stride, int q_blocks,
+            int kernel, int padding, int align, int multicell, int strict,
+            float off_step, float off_stop, void* stream) {
   if (csm::bad_pair_args(dim, grid_batch, n, ox, oy, oz))
     return cudaErrorInvalidValue;
   const csm::PairShape s =
@@ -481,9 +484,9 @@ int blend_o(const void* input, const void* grid, void* out, int dim, int n,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   return dim == 2 ? launch_blend<2>(in, gr, o, s, cells, interleave, stride,
-                                    q_per_block, q_blocks, p, st)
+                                    q_blocks, p, st)
                   : launch_blend<3>(in, gr, o, s, cells, interleave, stride,
-                                    q_per_block, q_blocks, p, st);
+                                    q_blocks, p, st);
 }
 
 // The geometry (cells, lanes, stride, q_per_block, q_blocks) of

@@ -60,9 +60,10 @@
 //   then one bulk async reduction a cell adds the chunk into the output
 //   (12.7 MB of L2 adds at the main path).  The work units come from the
 //   host (ops/cuda/mega2w.py geometry: 4 chunks of 24 cells x 66 slices
-//   of 1 516 queries at the main path, 0.4552 ms against 1.18; the sweep
-//   in chip_smoke.py times the alternatives).  What bounds it now is the
-//   splat's compare-and-swap adds, as in splat_o.
+//   of 1 516 queries at the main path, 0.455-0.457 ms against 1.18 on
+//   the same card; the sweep in chip_smoke.py times the alternatives).
+//   What bounds it now is the splat's compare-and-swap adds, as in
+//   splat_o (~0.28 ms of it), then the blend from shared memory (~0.14).
 // * A cell over a block's shared memory takes mega2w_global_kernel: a
 //   block over its own queries, the blend gathered through L1/L2 and the
 //   splat added with global atomics.

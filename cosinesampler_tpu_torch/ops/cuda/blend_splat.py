@@ -103,12 +103,11 @@ class BlendGeometry(NamedTuple):
     block stages in shared memory (0: none, the unstaged kernel gathers
     the corners through L1 and L2), their layout there (``interleave``:
     the channels of a texel side by side, else channel planes), ``stride``
-    floats a cell there, and ``q_blocks`` blocks of ``q_per_block``
-    queries along the queries."""
+    floats a cell there, and ``q_blocks`` blocks along the queries, block
+    y taking rounds y, y + q_blocks, ... of STAGED_THREADS queries."""
     cells: int
     interleave: bool
     stride: int
-    q_per_block: int
     q_blocks: int
 
 
@@ -118,16 +117,16 @@ class BlendGeometry(NamedTuple):
 BLEND_THREADS = 256
 STAGED_THREADS = 512
 STAGED_BLOCKS_PER_SM = 2
-# the shared memory of a staged block's cells: up to 32 KB of small cells
-# (8 of the 2D main path's 4 KB cells), or one larger cell
-BLEND_CELL_BYTES = 32 * 1024
+# the shared memory of a staged block's cells: up to 16 KB of small cells
+# (4 of the 2D main path's 4 KB cells), or one larger cell
+BLEND_CELL_BYTES = 16 * 1024
 # waves of the blocks that fit the card at once a staged blend_o launch
 # takes (chip_smoke.py blend_sweep_phase, PERF.md section 6)
 BLEND_WAVES = 1
 # a cell is staged when it has at least this many queries a texel: on
-# 1024 x 4 x 16^3 cells staged against unstaged read 0.050 / 0.033 ms at
-# a sixteenth of a query a texel, within 6% either way at a quarter,
-# 0.116 / 0.222 at one (chip_smoke.py blend_sweep_phase, PERF.md
+# 1024 x 4 x 16^3 cells staged against unstaged read 0.050 / 0.033-0.045
+# ms at a sixteenth of a query a texel, within 10% either way at a
+# quarter, 0.117 / 0.222 at one (chip_smoke.py blend_sweep_phase, PERF.md
 # section 6)
 STAGE_QUERIES_PER_TEXEL = 1
 
@@ -142,15 +141,15 @@ def blend_geometry(n: int, c: int, spatial, q: int,
     Otherwise a block stages the most cells that BLEND_CELL_BYTES hold
     (at least one), channels interleaved where C is a multiple of 4 (one
     128-bit shared load serves a corner's 4 channels), and its blocks
-    along the queries (at least STAGED_THREADS queries each) make
-    BLEND_WAVES waves of the blocks that fit the card at once."""
+    along the queries (no more than rounds of STAGED_THREADS queries)
+    make BLEND_WAVES waves of the blocks that fit the card at once.  The
+    unstaged kernel takes no geometry: one thread a pair."""
     texels = math.prod(spatial)
     stride = -(-c * texels // 4) * 4
     cell_bytes = 4 * stride
     if (BARRIER_BYTES + cell_bytes > BLOCK_SMEM_BYTES
             or q < STAGE_QUERIES_PER_TEXEL * texels):
-        qpb = -(-q // max(1, -(-q // BLEND_THREADS)))
-        return BlendGeometry(0, False, c * texels, qpb, -(-q // qpb))
+        return BlendGeometry(0, False, c * texels, 1)
     cells = max(1, min(n, BLEND_CELL_BYTES // cell_bytes))
     # blocks an SM holds: by shared memory, and by registers
     per_sm = max(1, min(STAGED_BLOCKS_PER_SM, SM_SMEM_BYTES // (
@@ -158,8 +157,7 @@ def blend_geometry(n: int, c: int, spatial, q: int,
     chunks = -(-n // cells)
     q_blocks = max(1, min(BLEND_WAVES * per_sm * sms // chunks,
                           -(-q // STAGED_THREADS), 65535))
-    qpb = -(-q // q_blocks)
-    return BlendGeometry(cells, c % 4 == 0, stride, qpb, -(-q // qpb))
+    return BlendGeometry(cells, c % 4 == 0, stride, q_blocks)
 
 
 def launch_blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
@@ -173,7 +171,8 @@ def launch_blend(input: torch.Tensor, grid: torch.Tensor, cfg: SamplerConfig,
     launch_pairs("blend_o", (input, grid, out), cfg, n, c, tuple(spatial),
                  math.prod(grid.shape[1:-1]), grid.shape[0], orders,
                  effective_align(cfg, orders),
-                 extra=(geom.cells, int(geom.interleave), *geom[2:]))
+                 extra=(geom.cells, int(geom.interleave), geom.stride,
+                        geom.q_blocks))
     return out
 
 

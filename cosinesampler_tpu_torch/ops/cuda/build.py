@@ -144,13 +144,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mega2w_step.argtypes = [ptr] * 9 + [i32] * 18 + [f32, f32, ptr]
     lib.mega2w_step.restype = i32
     # input, grid, out; dim, n, c, d, h, w, q, grid batch, 3 orders, the
-    # launch geometry (cells, interleave, stride, q_per_block, q_blocks),
-    # kernel, padding, align, multicell, strict; the offset lattice's step
-    # and stop; the stream
-    lib.blend_o.argtypes = [ptr, ptr, ptr] + [i32] * 21 + [f32, f32, ptr]
+    # launch geometry (cells, interleave, stride, q_blocks), kernel,
+    # padding, align, multicell, strict; the offset lattice's step and
+    # stop; the stream
+    lib.blend_o.argtypes = [ptr, ptr, ptr] + [i32] * 20 + [f32, f32, ptr]
     lib.blend_o.restype = i32
     # gout, grid, out; then as blend_o, with splat_o's launch geometry
-    # (cells, lanes, stride, q_per_block, q_blocks) after the orders
+    # (cells, lanes, stride, q_per_block, q_blocks) in place of blend_o's
     lib.splat_o.argtypes = [ptr] * 3 + [i32] * 21 + [f32, f32, ptr]
     lib.splat_o.restype = i32
     # input, grid, perm, starts, out; then as percell_splat below, with

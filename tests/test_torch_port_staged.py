@@ -69,34 +69,36 @@ def test_blend_geometry_units(n, c, spatial, q):
             <= build.BLOCK_SMEM_BYTES)
     staged = fits and q >= blend_splat.STAGE_QUERIES_PER_TEXEL * texels
     assert (g.cells > 0) == staged
-    assert g.q_blocks * g.q_per_block >= q > (g.q_blocks - 1) * g.q_per_block
     if not staged:
         return
+    rounds = -(-q // blend_splat.STAGED_THREADS)
+    assert 1 <= g.q_blocks <= min(rounds, 65535)
     assert g.interleave == (c % 4 == 0)
     assert g.stride >= c * texels and g.stride % 4 == 0
     assert blend_splat.BARRIER_BYTES + 4 * g.cells * g.stride \
         <= build.BLOCK_SMEM_BYTES
     assert g.cells == 1 or 4 * g.cells * g.stride \
         <= blend_splat.BLEND_CELL_BYTES
-    assert g.q_blocks <= 65535
+    # block (b, y) takes rounds y, y + q_blocks, ... of STAGED_THREADS
+    t = blend_splat.STAGED_THREADS
     chunks = -(-n // g.cells)
     hits = _cover(n, q, (((b * g.cells, min(n, (b + 1) * g.cells)),
-                          (y * g.q_per_block,
-                           min(q, (y + 1) * g.q_per_block)))
-                         for b in range(chunks) for y in range(g.q_blocks)))
+                          (r * t, min(q, (r + 1) * t)))
+                         for b in range(chunks) for y in range(g.q_blocks)
+                         for r in range(y, rounds, g.q_blocks)))
     assert (hits == 1).all()
 
 
 def test_blend_geometry_main_paths():
     """The main paths' geometry on the H100's 132 SMs, two blocks of 512
-    an SM (by registers): in 2D 8 cells of 4 KB a block, one wave of 22
-    query blocks of the 12 chunks; in 3D one 64 KB cell a block, 5 query
+    an SM (by registers): in 2D 4 cells of 4 KB a block, one wave of 11
+    query blocks of the 24 chunks; in 3D one 64 KB cell a block, 5 query
     blocks of the 50 cells; both interleaved."""
     bg = blend_splat.BlendGeometry
     assert blend_splat.blend_geometry(96, 4, (16, 16), 100_000) == bg(
-        8, True, 1024, 4546, 22)
+        4, True, 1024, 11)
     assert blend_splat.blend_geometry(50, 4, (16, 16, 16), 100_000) == bg(
-        1, True, 16384, 20000, 5)
+        1, True, 16384, 5)
 
 
 @pytest.mark.parametrize("n,c,h,w,q,hidden", MEGA_SHAPES)
