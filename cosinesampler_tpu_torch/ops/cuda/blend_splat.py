@@ -111,10 +111,8 @@ class BlendGeometry(NamedTuple):
     q_blocks: int
 
 
-# blend_o's threads a block (unstaged), and the staged kernel's threads a
-# block and blocks an SM its registers allow (csrc/blend_splat.cu
-# kBlendThreads, kStagedThreads, kStagedBlocksPerSm)
-BLEND_THREADS = 256
+# the staged blend_o's threads a block and the blocks an SM its registers
+# allow (csrc/blend_splat.cu kStagedThreads, kStagedBlocksPerSm)
 STAGED_THREADS = 512
 STAGED_BLOCKS_PER_SM = 2
 # the shared memory of a staged block's cells: up to 16 KB of small cells
