@@ -34,7 +34,7 @@
 //   keeps out of HBM, the (5C, Q) feature block, is 8 MB here (~2.4 us):
 //   what one launch saves on this card is the launches and eager
 //   operations of the two-kernel step around it.
-// * Measured on the parent's design (one block of 512 an SM, each over
+// * Measured on the first design (one block of 512 an SM, each over
 //   its own queries; H100 80GB HBM3, 700.00 W, PERF.md section 6): of its
 //   ~1.18 ms at the main path, the splat took ~0.92 (shared-memory f32
 //   atomicAdd compiles to a compare-and-swap loop, and a warp's lanes sat
