@@ -26,11 +26,12 @@ cells go through their routes too, and percell, slab, the percell plan
 and the slab bins are held to their plain versions at all those shapes,
 at a skewed and a sparse cloud on config 5's volume and (percell) on 8 x
 4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles, splat_o's and
-blend_o's launch geometries and mega2w's work units are each timed
+blend_o's launch geometries, mega2w's work units and the lane layouts
+of fused3b_bwd's and fused3s_bwd's shared scatter are each timed
 against their alternatives (the sweeps behind percell.geometry,
-blend_splat.splat_geometry, blend_splat.blend_geometry and
-mega2w.geometry).  At 16 feature channels the 2D
-trainer (20 steps) and the 3D trainer (5) go through the routed
+blend_splat.splat_geometry, blend_splat.blend_geometry,
+mega2w.geometry and scatter.scatter_geometry).  At 16 feature channels
+the 2D trainer (20 steps) and the 3D trainer (5) go through the routed
 channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
 versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
 through mega2w's channel groups; fused2w's and fused3w's channel groups
@@ -92,7 +93,7 @@ from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
 from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2d,
                                               fused2w, fused3b, fused3d,
                                               fused3s, fused3w, mega2w,
-                                              percell, route, slab)
+                                              percell, route, scatter, slab)
 from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
@@ -728,10 +729,16 @@ def _trainer_points(q, dim, seed=0):
         return torch.from_numpy(gen.batch(0)).cuda()
 
 
+# the cells and channels of the scatter cases of fused3b_bwd and
+# fused3s_bwd (csrc/texel_scatter.cuh)
+SCATTER_CELLS, SCATTER_CHANNELS = (1, 3, 6, 50), (1, 3, 8, 16)
+
+
 def fused3b_kernel_phase():
     """fused3b at config 5 (the vol-resident trainer's 1 000 000 points and
-    so its plan) and in variants; the layout round trip; the slot rows
-    against fused3w's at the same points."""
+    so its plan) and in variants, the bwd's scatter at N in {1, 3, 6, 50}
+    x C in {1, 3, 8, 16}; the layout round trip; the slot rows against
+    fused3w's at the same points."""
     main = SamplerConfig(dim=3)
     pts5 = _trainer_points(Q5, 3)
     errs = compare_3b("config-5", main, N5, C, (S5,) * 3, Q5, pts=pts5)
@@ -753,6 +760,12 @@ def fused3b_kernel_phase():
     compare_3b("non-cubic-20x28x36", main, 6, 4, (20, 28, 36), 8192, seed=3)
     # 9^3: 11 z slabs x 6 y groups = 66 bins; the route takes Q >= 132
     compare_3b("q-133", main, 6, 3, (9, 9, 9), 133, seed=4)
+    # the scatter's lanes (ops/cuda/scatter.py): one cell (32 queries a
+    # warp), 3 and 6 cells (not divisors of 32), 50 (more cells than
+    # lanes), each at C in {1, 3, 8, 16}
+    for n, c in itertools.product(SCATTER_CELLS, SCATTER_CHANNELS):
+        compare_3b(f"scatter N={n} C={c}", main, n, c, (9, 9, 9), 4099,
+                   seed=6)
 
     cells, vol, pts, plan = _vol_case(N5, C, (S5,) * 3, Q5, 5, cfg=main,
                                       pts=pts5)
@@ -1642,8 +1655,10 @@ def fused3ds_kernel_phase():
     group; fused3s at path (c)'s large volume (16 x 4 x 128^3, Q =
     100 000), where its launches come from, the mid volume (16 x 4 x
     32^3, Q = 4096), JAX's 2 x 2 x 32^3 at 2048 and 16 x 4 x 64^3 at
-    16384; both in each variant each takes, at C in {1, 3, 8, 12} (two
-    channel groups), points to +-1.4 and on the texel ticks."""
+    16384, and the unplanned config-5 step's 1 000 000 points; both in
+    each variant each takes, at C in {1, 3, 8, 12} (two channel groups),
+    points to +-1.4 and on the texel ticks; fused3s's scatter at N in
+    {1, 3, 6, 50} x C in {1, 3, 8, 16}."""
     main = SamplerConfig(dim=3)
     worst = {}
 
@@ -1661,6 +1676,11 @@ def fused3ds_kernel_phase():
         track("fused3s", compare_fused("fused3s", "path (c)", main, n, c,
                                        (s,) * 3, q, seed=21, lo=-1.0,
                                        hi=1.0))
+    # the unplanned config-5 step's own points (the trainer's first batch
+    # of 1 000 000): every table block full, the dense 256-thread layout
+    track("fused3s", compare_fused("fused3s", "config-5 unplanned", main, N5,
+                                   C, (S5,) * 3, Q5, seed=27,
+                                   pts=_trainer_points(Q5, 3)))
     compare_fused("fused3d", "opt-in 8x16^3 group", main, 8, 8, (S3,) * 3,
                   1500, seed=22, **WIDE)
     for kind in ("fused3d", "fused3s"):
@@ -1674,6 +1694,9 @@ def fused3ds_kernel_phase():
                           seed=24, **WIDE)
         compare_fused(kind, "texel-ticks", main, 5, 3, (6,) * 3, 1000,
                       seed=25, pts=_tick_points(1000, 6, 25))
+    for n, c in itertools.product(SCATTER_CELLS, SCATTER_CHANNELS):
+        compare_fused("fused3s", f"scatter N={n} C={c}", main, n, c,
+                      (7, 8, 9), 2053, seed=26, **WIDE)
     return worst
 
 
@@ -1822,11 +1845,14 @@ def _fused3b_with_plan(cells, pts, g, cfg):
 SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 6144, 8192, Q)]
             + [(8, C, S3, q) for q in (6144, 8192)]
             + [(2, 2, 32, 2048)]
-            + [(16, C, 32, q) for q in (2048, 9000, Q)]
-            + [(16, C, 64, q) for q in (16384, 81920, Q)]
+            + [(16, C, 24, Q)]
+            + [(16, C, 32, q) for q in (2048, 9000, 32768, 65536, Q)]
+            + [(16, C, 64, q)
+               for q in (16384, 32768, 49152, 65536, 81920, Q)]
             + [(8, C, 80, Q)]
             + [(16, c, 96, Q) for c in (2, 3, C)]
-            + [(N5, C, S5, q) for q in (65536, 81920, Q, Q5)]
+            + [(N5, C, S5, q)
+               for q in (32768, 40960, 49152, 65536, 81920, Q, Q5)]
             + [(n, C, S5, Q) for n in (4, 6)])
 
 
@@ -1951,8 +1977,9 @@ def fused3ds_time_phase():
     """fused3d at path (c)'s small cloud (50 x 4 x 16^3, Q = 1024) and
     fused3s at its large volume (16 x 4 x 128^3, Q = 100 000): kernel and
     plain ms in turns (CUDA events; fused3s's each include a z sort),
-    device ms (torch.profiler), bounds, and the z sort alone; fused3b at
-    C = 16 on config 5 beside its bound."""
+    device ms (torch.profiler), bounds, and the z sort alone; fused3s_bwd
+    at 1 000 000 points beside its bound; fused3b at C = 16 on config 5
+    beside its bound."""
     times = {}
     cfg = SamplerConfig(dim=3)
     for kind, n, s, q in (("fused3d", N3, S3, Q_SMALL3),
@@ -1993,6 +2020,23 @@ def fused3ds_time_phase():
                   f" ms", flush=True)
         del cells, pts, g
         torch.cuda.empty_cache()
+    # fused3s_bwd at the unplanned config-5 step's 1 000 000 fresh points
+    spatial = (S5,) * 3
+    gen = _cuda_gen(33)
+    pts = torch.rand((Q5, 3), generator=gen, device="cuda") * 2 - 1
+    g = torch.randn((7, C, Q5), generator=gen, device="cuda")
+    bound_ms, bound_by = _bound(4 * (7 * C * Q5 + 3 * Q5 + N5 * C * S5 ** 3),
+                                2 * 7 * 8 * N5 * C * Q5)
+    bwd = functools.partial(fused3s.fused_bwd, g, pts, spatial, cfg, N5)
+    ms = _time_ms(bwd, 5)
+    dev_ms = _device_ms(bwd, reps=5)
+    sort_ms = _device_ms(lambda: fused3s.zsort(pts, S5, cfg), reps=5)
+    print(f"time fused3s_bwd ({N5}x{C}x{S5}^3, Q={Q5}): kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f}, its z sort {sort_ms:.4f}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it",
+          flush=True)
+    del pts, g
+    torch.cuda.empty_cache()
     spatial = (S5,) * 3
     pts = _trainer_points(Q5, 3)
     cells = torch.rand((N5, C_WIDE, *spatial), generator=_cuda_gen(31),
@@ -3254,6 +3298,43 @@ def blend_sweep_phase():
         torch.cuda.empty_cache()
 
 
+def scatter_sweep_phase():
+    """The measurement behind scatter.scatter_geometry: fused3b_bwd at
+    config 5 (the trainer's 1 000 000 points and plan) at C = 4, 8, 12
+    and 16 (the two sides of scatter.FULL_BLOCKS_PER_SM), and fused3s_bwd
+    on config 5's volume at 100 000 and 1 000 000 fresh points, each over
+    the layouts of scatter.scatter_alternatives, each held to the rule's
+    result and timed in turns; the wrapper's zero fill (and fused3s's
+    transpose) included, the z sort made once outside."""
+    cfg = SamplerConfig(dim=3)
+    spatial = (S5,) * 3
+    pts5 = _trainer_points(Q5, 3)
+    for c in (C, 8, 12, C_WIDE):
+        plan = tfused.make_vol_plan(pts5, (N5, c, *spatial), cfg)
+        g_p = torch.randn((7, c, plan[1].shape[0]), generator=_cuda_gen(40),
+                          device="cuda")
+        geoms = scatter.scatter_alternatives(N5, c)
+        runs = {k: functools.partial(fused3b.launch_bwd, g_p, plan, spatial,
+                                     cfg, N5, v) for k, v in geoms.items()}
+        _sweep(f"fused3b_bwd scatter sweep (config 5, {N5}x{c}x{S5}^3, "
+               f"Q={Q5})", runs, geoms, runs["rule"](), reps=5)
+        del plan, g_p, runs
+        torch.cuda.empty_cache()
+    for q in (Q, Q5):
+        gen = _cuda_gen(41)
+        pts = torch.rand((q, 3), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((7, C, q), generator=gen, device="cuda")
+        order = fused3s.zsort(pts, S5, cfg)
+        geoms = scatter.scatter_alternatives(N5, C, dense=True)
+        runs = {k: functools.partial(fused3s.launch_bwd, g, pts, spatial,
+                                     cfg, N5, order, v)
+                for k, v in geoms.items()}
+        _sweep(f"fused3s_bwd scatter sweep ({N5}x{C}x{S5}^3, Q={q})", runs,
+               geoms, runs["rule"](), reps=5)
+        del pts, g, order, runs
+        torch.cuda.empty_cache()
+
+
 def mega_sweep_phase():
     """The measurement behind mega2w.geometry at the 2D main path: its
     work units against lanes over 4 cells, twice the chunks, half the
@@ -3649,6 +3730,7 @@ def main():
     times.update(_timed(v1_time_phase))
     _timed(splat_sweep_phase)
     _timed(blend_sweep_phase)
+    _timed(scatter_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

@@ -34,31 +34,42 @@
 // * The layout keeps one texel's N * C values together, so a query reads
 //   a cell's C channels at a corner as one 16-byte load at C = 4 (and adds
 //   them back with one vector atomic in the bwd).
-// * Channels: grid axis y walks channel groups of at most 8
-//   (fused_rows.cuh channel_groups / group_width, as csrc/fused.cu), whose
-//   rows a thread keeps in registers; one group, the whole stack, up to 8
-//   channels.  A group of a multiple of 4 channels in a stack of a
-//   multiple of 4 starts 16-byte aligned and keeps the vector loads and
-//   atomics (C = 16: two groups of 8).
+// * Channels: the blend's grid axis y walks channel groups of at most 8
+//   (fused_rows.cuh channel_groups / group_width, as csrc/fused.cu),
+//   whose rows a thread keeps in registers; one group, the whole stack,
+//   up to 8 channels.  A group of a multiple of 4 channels in a stack of
+//   a multiple of 4 starts 16-byte aligned and keeps the vector loads
+//   (C = 16: two groups of 8).  The bwd's channel groups and lanes:
+//   ops/cuda/scatter.py scatter_geometry.
 // * blend: one CUDA block per plan block, one thread per slot, looping
 //   over the N cells with the per-query corner walk of fused_rows.cuh in
 //   its FMA order (the slot's rows equal fused3w_blend's for the same
 //   point).  1M x 16 x 8 corners x 4 ch x 7 rows FMAs: bound by
 //   operations near 0.1 ms; the volume read once is 0.16 ms.
-// * bwd: the same walk, each corner's C sums added to global memory with
-//   one float4 atomicAdd (sm_90) at C % 4 == 0, scalar atomics otherwise.
-//   A shared-memory brick accumulator saves few of them here: a bin is
-//   one z slab thick while its window spans three, and at 3.8
-//   contributions per (cell, texel) a block's flush of the entries it
-//   touched would still be 64% of the direct atomics (a z slab's, 50%;
-//   scripts/count_brick_flush.py), after as many shared-memory atomics
-//   and a zeroed 3 x 4 x W x N window per block.  f32 atomics: not
-//   deterministic.
+// * bwd (csrc/texel_scatter.cuh, shared with fused3s_bwd): a block per
+//   plan block compacts its real slots (pad slots cost nothing: 30% of
+//   QP at config 5) and stages their points and cotangents, and a warp's
+//   lanes run over (query, cell): 2 queries x 16 cells at config 5.  Each
+//   lane adds its cell's corners with float4 atomics (sm_90) at
+//   C % 4 == 0, scalar ones otherwise; neighbouring lanes add
+//   neighbouring 16-byte records of one texel, so a warp's reductions
+//   share L2 sectors: 75 M sectors for 128 M reductions at config 5,
+//   where a thread a slot over its cells (the design before) took 124 M
+//   (scripts/count_brick_flush.py).  Bound: the volume written once,
+//   0.20 ms at config 5 (the wrapper's zero fill, 0.18 ms, comes on top).
+//   Measured 1.41-1.43 ms with the fill against the design before's 3.00
+//   (C = 16: 5.67 against 12.12), the reductions ~0.2 ms of it.  A
+//   block-window shared-memory accumulator flushed by the lines it
+//   touched (44 M sectors, 15 M lines) was not built: it could save at
+//   most part of those ~0.2 ms, after zeroing a 393 KB window per block
+//   and running 128 M shared adds (compare-and-swap loops on sm_90).
+//   f32 atomics: not deterministic.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fused_rows.cuh"
+#include "texel_scatter.cuh"
 
 namespace {
 
@@ -87,25 +98,6 @@ __device__ __forceinline__ void load_channels(const float* __restrict__ src,
   }
 #pragma unroll
   for (int k = 0; k < G; ++k) v[k] = k < cg ? __ldg(src + k) : 0.0f;
-}
-
-// dst[k] += v[k], k < cg, atomically; vector atomics where load_channels
-// loads vectors.
-template <int G>
-__device__ __forceinline__ void add_channels(float* dst, bool vec, int cg,
-                                             const float (&v)[G]) {
-  if constexpr (G % 4 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int k = 0; k < G; k += 4)
-        atomicAdd(reinterpret_cast<float4*>(dst + k),
-                  make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < G; ++k)
-    if (k < cg) atomicAdd(dst + k, v[k]);
 }
 
 // Block (bx, by): plan block bx, channels [by * G, by * G + cg) of c.
@@ -153,44 +145,19 @@ __global__ void __launch_bounds__(kQBlock)
         out[static_cast<int64_t>(r * cs + c0 + j) * qp + slot] = acc[r][j];
 }
 
-template <int G, bool ONE>
-__global__ void __launch_bounds__(kQBlock)
+// Block (bx, by): plan block bx's real slots, channel groups [by *
+// block_groups, ...) of c (csrc/texel_scatter.cuh).
+template <int G, bool VEC>
+__global__ void __launch_bounds__(csm::kScatterMaxThreads)
     bwd_kernel(const float* __restrict__ g, const float* __restrict__ pts,
                const float* __restrict__ occ, const int* __restrict__ hasv,
                float* __restrict__ dvol, int n, int c, csm::CellGeom<3> geom,
-               int qp, csm::SamplerParams p) {
-  constexpr int R = csm::kRows<3>;
+               int qp, csm::ScatterLayout lay, csm::SamplerParams p) {
+  if (hasv[blockIdx.x] == 0) return;
   const int slot = blockIdx.x * kQBlock + threadIdx.x;
-  if (hasv[blockIdx.x] == 0 || occ[slot] == 0.0f) return;
-  const int cs = ONE ? G : c;
-  const int c0 = ONE ? 0 : blockIdx.y * G;
-  const int cg = ONE ? G : min(G, c - c0);
-  const bool vec = ONE ? G % 4 == 0 : cg == G && c % 4 == 0;
-  float gv[R][G];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < G; ++j)
-      gv[r][j] =
-          j < cg ? __ldg(g + static_cast<int64_t>(r * cs + c0 + j) * qp + slot)
-                 : 0.0f;
-  const float pt[3] = {pts[3 * slot], pts[3 * slot + 1], pts[3 * slot + 2]};
-  for (int ni = 0; ni < n; ++ni) {
-    csm::for_each_corner<3>(
-        geom, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-          float v[G];
-#pragma unroll
-          for (int j = 0; j < G; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int r = 0; r < R; ++r) s = fmaf(wr[r], gv[r][j], s);
-            v[j] = s;
-          }
-          add_channels<G>(
-              dvol + (static_cast<int64_t>(idx) * n + ni) * cs + c0, vec, cg,
-              v);
-        });
-  }
+  const bool mine = threadIdx.x < kQBlock && occ[slot] != 0.0f;
+  csm::scatter_block<G, VEC>(csm::ScatterQuery{mine, slot}, g, qp, pts,
+                             dvol, n, c, lay, geom, p);
 }
 
 }  // namespace
@@ -219,27 +186,29 @@ int fused3b_blend(const void* vol, const void* pts, const void* occ,
   });
 }
 
-// dvol (D, H, W, N, C) must be zeroed.
+// dvol (D, H, W, N, C) must be zeroed.  The launch layout (width,
+// block_groups, lane_groups, lanes) and threads a block come from
+// ops/cuda/scatter.py scatter_geometry.
 int fused3b_bwd(const void* g, const void* pts, const void* occ,
                 const void* hasv, void* dvol, int n, int c, int d, int h,
-                int w, int qp, int kernel, int padding, int align,
+                int w, int qp, int width, int block_groups, int lane_groups,
+                int lanes, int threads, int kernel, int padding, int align,
                 int multicell, int strict, float off_step, float off_stop,
                 void* stream) {
+  static_assert(kQBlock == csm::kScatterQueries, "one plan block a block");
   if (qp % kQBlock != 0) return cudaErrorInvalidValue;
   if (qp == 0 || n == 0 || c == 0) return cudaGetLastError();
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  const dim3 grid(qp / kQBlock, csm::channel_groups(c));
-  return csm::dispatch_channels(csm::group_width(c), [&](auto gw) {
-    constexpr int G = decltype(gw)::value;
-    auto* kernel_fn = c == G ? &bwd_kernel<G, true>
-                             : &bwd_kernel<G, false>;
-    kernel_fn<<<grid, kQBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(g), static_cast<const float*>(pts),
-        static_cast<const float*>(occ), static_cast<const int*>(hasv),
-        static_cast<float*>(dvol), n, c, csm::cell_geom3(d, h, w), qp, p);
-    return cudaGetLastError();
-  });
+  const csm::ScatterLayout lay{width, block_groups, lane_groups, lanes};
+  return csm::launch_scatter(
+      lay, c, threads, qp / kQBlock, static_cast<cudaStream_t>(stream),
+      [](auto gw, auto vec) {
+        return &bwd_kernel<decltype(gw)::value, decltype(vec)::value>;
+      },
+      static_cast<const float*>(g), static_cast<const float*>(pts),
+      static_cast<const float*>(occ), static_cast<const int*>(hasv),
+      static_cast<float*>(dvol), n, c, csm::cell_geom3(d, h, w), qp, lay,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop));
 }
 
 }  // extern "C"

@@ -37,15 +37,31 @@
 //   outside the volume is dropped, so the queries of the clamped edge
 //   bins and the slabs outside [0, D - 1] need no mask (the JAX kernels'
 //   zmask and kmask).
-// * Blocks: (table block, channel group).  The rows go back to query
+// * blend blocks: (table block, channel group).  The rows go back to query
 //   order through perm.
-// * bwd: each corner adds to the cells with global f32 atomics (not
-//   deterministic).
+// * bwd (csrc/texel_scatter.cuh, shared with fused3b_bwd): a block per
+//   table block stages its queries' points and cotangents, and a warp's
+//   lanes run over (query, cell).  Into a texel-major (D, H, W, N, C)
+//   scratch (zeroed by the wrapper, ops/cuda/fused3s.py), neighbouring
+//   lanes add neighbouring 16-byte records of one texel with float4
+//   atomics: 7.5 M sectors for 12.8 M reductions at 100 000 points on
+//   16 x 4 x 128^3, where a thread a query adding planar scalars took
+//   51 M sectors for 51 M (scripts/count_brick_flush.py).  A tiled
+//   transpose then writes the cells' (N, C, D, H, W) layout: torch's
+//   permuted copy of the 537 MB scratch took 4.4 ms, its strided reads a
+//   sector a float; the tile reads and writes whole lines (1.07 GB, a
+//   0.32 ms bound; the transpose takes ~0.40 ms).  At 100 000 points the
+//   scatter is bound by its sectors, not by latency: adding in place
+//   into (N, C, D, H, W) took 1.94 ms with lanes over cells and 1.35 with
+//   lanes over queries, against 0.83 through the scratch (1 M points:
+//   8.1, 7.1 and 2.4; PERF.md section 6), so the planar layout is gone.
+//   f32 atomics: not deterministic.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "fused_rows.cuh"
+#include "texel_scatter.cuh"
 
 namespace {
 
@@ -107,43 +123,44 @@ __global__ void __launch_bounds__(kQBlock)
         out[static_cast<int64_t>(r * c + c0 + j) * q + qi] = acc[r][j];
 }
 
-// dcells must be zeroed.
-__global__ void __launch_bounds__(kQBlock)
+// Block (bx, by): table block bx's queries, channel groups [by *
+// block_groups, ...) of c (csrc/texel_scatter.cuh), into the zeroed
+// texel-major scratch (D, H, W, N, C); VEC: scatter_vec.
+template <int G, bool VEC>
+__global__ void __launch_bounds__(csm::kScatterMaxThreads)
     bwd_kernel(const float* __restrict__ g, const float* __restrict__ points,
                const int* __restrict__ perm, const int* __restrict__ table,
-               float* __restrict__ dcells, int n, int c, int cw,
-               CellGeom<3> geom, int q, SamplerParams p) {
-  constexpr int R = csm::kRows<3>;
+               float* __restrict__ scratch, int n, int c, CellGeom<3> geom,
+               int q, csm::ScatterLayout lay, SamplerParams p) {
   const Block b = block_of(table);
-  if (static_cast<int>(threadIdx.x) >= b.count) return;
-  const int c0 = blockIdx.y * cw;
-  const int cg = min(cw, c - c0);
-  const int qi = perm[b.first + threadIdx.x];
-  float gv[R][kGroupChannels];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < kGroupChannels; ++j)
-      gv[r][j] = j < cg
-                     ? __ldg(g + static_cast<int64_t>(r * c + c0 + j) * q + qi)
-                     : 0.0f;
-  const float pt[3] = {points[3 * qi], points[3 * qi + 1],
-                       points[3 * qi + 2]};
-  for (int ni = 0; ni < n; ++ni) {
-    float* cell = dcells + (static_cast<int64_t>(ni) * c + c0) * geom.texels;
-    csm::for_each_corner<3>(
-        geom, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-#pragma unroll
-          for (int j = 0; j < kGroupChannels; ++j) {
-            if (j < cg) {
-              float v = 0.0f;
-#pragma unroll
-              for (int r = 0; r < R; ++r) v = fmaf(wr[r], gv[r][j], v);
-              atomicAdd(cell + idx + j * geom.texels, v);
-            }
-          }
-        });
-  }
+  if (b.count == 0) return;
+  const bool mine = static_cast<int>(threadIdx.x) < b.count;
+  csm::scatter_block<G, VEC>(
+      csm::ScatterQuery{mine, mine ? perm[b.first + threadIdx.x] : 0}, g, q,
+      points, scratch, n, c, lay, geom, p);
+}
+
+constexpr int kTile = 32;      // transpose tile: kTile x kTile floats
+constexpr int kTileRows = 8;   // thread rows a transpose block
+
+// out (cols, rows) = in (rows, cols) transposed: the texel-major scratch
+// (D * H * W, N * C) back to the cells' (N * C, D * H * W), through a
+// shared-memory tile so that both the reads and the writes are rows of
+// 128 bytes a warp.
+__global__ void __launch_bounds__(kTile * kTileRows)
+    transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
+                     int64_t rows, int cols) {
+  __shared__ float tile[kTile][kTile + 1];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int c0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < kTile; i += kTileRows)
+    if (r0 + i < rows && c0 + tx < cols)
+      tile[i][tx] = __ldg(in + (r0 + i) * cols + c0 + tx);
+  __syncthreads();
+  for (int i = threadIdx.y; i < kTile; i += kTileRows)
+    if (c0 + i < cols && r0 + tx < rows)
+      out[static_cast<int64_t>(c0 + i) * rows + r0 + tx] = tile[tx][i];
 }
 
 }  // namespace
@@ -170,22 +187,40 @@ int fused3s_blend(const void* cells, const void* points, const void* perm,
   return cudaGetLastError();
 }
 
-// dcells (N, C, D, H, W) must be zeroed.
+// The scatter adds into scratch (texel-major (D, H, W, N, C), zeroed) and
+// a second kernel transposes it into out (N, C, D, H, W).  The launch
+// layout (width, block_groups, lane_groups, lanes) and threads a block
+// come from ops/cuda/scatter.py scatter_geometry.
 int fused3s_bwd(const void* g, const void* points, const void* perm,
-                const void* table, void* dcells, int n, int c, int d, int h,
-                int w, int q, int nb, int kernel, int padding, int align,
-                int multicell, int strict, float off_step, float off_stop,
-                void* stream) {
+                const void* table, void* scratch, void* out, int n, int c,
+                int d, int h, int w, int q, int nb, int width,
+                int block_groups, int lane_groups, int lanes, int threads,
+                int kernel, int padding, int align, int multicell, int strict,
+                float off_step, float off_stop, void* stream) {
+  static_assert(kQBlock == csm::kScatterQueries, "one table block a block");
   if (q == 0 || n == 0 || c == 0 || nb == 0 || d * h * w == 0)
     return cudaGetLastError();
-  const SamplerParams p = csm::make_params(kernel, padding, align, multicell,
-                                           strict, off_step, off_stop);
-  const int cw = csm::group_width(c);
-  const dim3 grid(nb, csm::channel_groups(c));
-  bwd_kernel<<<grid, kQBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t rows = static_cast<int64_t>(d) * h * w;
+  const int cols = n * c;
+  if (csm::cdiv(cols, kTile) > 65535) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const csm::ScatterLayout lay{width, block_groups, lane_groups, lanes};
+  const cudaError_t err = csm::launch_scatter(
+      lay, c, threads, nb, s,
+      [](auto gw, auto vec) {
+        return &bwd_kernel<decltype(gw)::value, decltype(vec)::value>;
+      },
       static_cast<const float*>(g), static_cast<const float*>(points),
       static_cast<const int*>(perm), static_cast<const int*>(table),
-      static_cast<float*>(dcells), n, c, cw, csm::cell_geom3(d, h, w), q, p);
+      static_cast<float*>(scratch), n, c, csm::cell_geom3(d, h, w), q, lay,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop));
+  if (err != cudaSuccess) return err;
+  transpose_kernel<<<dim3(static_cast<unsigned>((rows + kTile - 1) / kTile),
+                          csm::cdiv(cols, kTile)),
+                     dim3(kTile, kTileRows), 0, s>>>(
+      static_cast<const float*>(scratch), static_cast<float*>(out), rows,
+      cols);
   return cudaGetLastError();
 }
 

@@ -43,20 +43,25 @@ inline CellGeom<3> cell_geom3(int d, int h, int w) {
   return g;
 }
 
-// Calls f(ci, flat texel index, wr) for every in-bounds corner of the
-// query at pt in cell ni, ci[i] being the corner's index on grid axis i and
-// wr[r] its weight in row r.  Corners run with axis 0 fastest; a corner out
-// of bounds (zeros padding) is dropped.
-template <int D, typename F>
-__device__ __forceinline__ void for_each_corner_axes(const CellGeom<D>& g,
-                                                     const float (&pt)[D],
-                                                     int ni, int n,
-                                                     const SamplerParams& p,
-                                                     F&& f) {
+// The per-axis floors and weights of the query at pt in cell ni.
+template <int D>
+__device__ __forceinline__ void corner_tables(const CellGeom<D>& g,
+                                              const float (&pt)[D], int ni,
+                                              int n, const SamplerParams& p,
+                                              AxisTable (&a)[D]) {
   const float off = cell_offset(ni, n, p);
-  AxisTable a[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) a[i] = axis_table(pt[i], g.size[i], off, p);
+}
+
+// Calls f(ci, flat texel index, wr) for every in-bounds corner of the
+// tables a (corner_tables), ci[i] being the corner's index on grid axis i
+// and wr[r] its weight in row r.  Corners run with axis 0 fastest; a
+// corner out of bounds (zeros padding) is dropped.
+template <int D, typename F>
+__device__ __forceinline__ void for_each_table_corner(const CellGeom<D>& g,
+                                                      const AxisTable (&a)[D],
+                                                      F&& f) {
 #pragma unroll
   for (int k = 0; k < (1 << D); ++k) {
     int idx = 0, stride = 1;
@@ -84,6 +89,19 @@ __device__ __forceinline__ void for_each_corner_axes(const CellGeom<D>& g,
     }
     f(ci, idx, wr);
   }
+}
+
+// Calls f(ci, flat texel index, wr) for every in-bounds corner of the
+// query at pt in cell ni (for_each_table_corner of its corner_tables).
+template <int D, typename F>
+__device__ __forceinline__ void for_each_corner_axes(const CellGeom<D>& g,
+                                                     const float (&pt)[D],
+                                                     int ni, int n,
+                                                     const SamplerParams& p,
+                                                     F&& f) {
+  AxisTable a[D];
+  corner_tables<D>(g, pt, ni, n, p, a);
+  for_each_table_corner<D>(g, a, f);
 }
 
 // for_each_corner_axes calling f(flat texel index, wr).

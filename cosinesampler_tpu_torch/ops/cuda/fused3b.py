@@ -54,13 +54,14 @@ from ..coords import clip_coordinates, reflect_coordinates, unnormalize
 from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
+from .scatter import ScatterGeometry, scatter_geometry
 
 __all__ = ["cells_to_vol", "fold_bricks", "fused3b_blend_vol",
            "fused3b_bwd_ghost_vol", "fused3b_bwd_vol", "ghost_bricks",
-           "ghost_fits", "ghost_plan", "make_plan", "plain_fold_bricks",
-           "plain_fused3b_blend_vol", "plain_fused3b_bwd_ghost_vol",
-           "plain_fused3b_bwd_vol", "plain_ghost_bricks", "supports",
-           "vol_layout", "vol_to_cells"]
+           "ghost_fits", "ghost_plan", "launch_bwd", "make_plan",
+           "plain_fold_bricks", "plain_fused3b_blend_vol",
+           "plain_fused3b_bwd_ghost_vol", "plain_fused3b_bwd_vol",
+           "plain_ghost_bricks", "supports", "vol_layout", "vol_to_cells"]
 
 # the JAX package's defaults (fused3b.V3B_Q_BLOCK, V3B_GY): slots per plan
 # block, and y rows per bin; csrc/fused3b.cu runs one CUDA block of
@@ -242,7 +243,8 @@ def _plan_args(plan, qp_tensor: torch.Tensor):
 
 
 def _launch(entry: str, first: torch.Tensor, plan, out: torch.Tensor,
-            cfg: SamplerConfig, vol_shape, qp_tensor: torch.Tensor) -> None:
+            cfg: SamplerConfig, vol_shape, qp_tensor: torch.Tensor,
+            extra=()) -> None:
     occ, hasv, pts_p = _plan_args(plan, qp_tensor)
     cuda_device(first, occ, hasv, pts_p, out)
     check_kernel_inputs(cfg, first, occ, pts_p)
@@ -257,7 +259,7 @@ def _launch(entry: str, first: torch.Tensor, plan, out: torch.Tensor,
         err = getattr(lib, entry)(
             first.data_ptr(), pts_p.data_ptr(), occ.data_ptr(),
             hasv.data_ptr(), out.data_ptr(), n, c, d, h, w,
-            qp_tensor.shape[-1], *sampler_args(cfg, n, out.device))
+            qp_tensor.shape[-1], *extra, *sampler_args(cfg, n, out.device))
     check(lib, err, f"{entry} launch")
 
 
@@ -289,13 +291,23 @@ def fused3b_bwd_vol(g_p: torch.Tensor, plan, in_spatial: Tuple[int, ...],
         return fused3b_bwd_ghost_vol(g_p, plan, in_spatial, cfg, n_cells)
     if g_p.device.type == "cpu" and plan[5].device.type == "cpu":
         return plain_fused3b_bwd_vol(g_p, plan, in_spatial, cfg, n_cells)
+    dvol = launch_bwd(g_p, plan, in_spatial, cfg, n_cells,
+                      scatter_geometry(n_cells, g_p.shape[1]))
+    fused3b_bwd_vol.launches += 1
+    return dvol
+
+
+def launch_bwd(g_p: torch.Tensor, plan, in_spatial: Tuple[int, ...],
+               cfg: SamplerConfig, n_cells: int,
+               geom: ScatterGeometry) -> torch.Tensor:
+    """fused3b_bwd_vol's kernel with the launch layout ``geom``
+    (ops/cuda/scatter.py), on the card; not counted."""
     if g_p.dim() != 3 or g_p.shape[0] != 7 or len(in_spatial) != 3:
         raise ValueError(f"fused3b_bwd takes g_p (7, C, QP) and 3 spatial "
                          f"sizes; got {tuple(g_p.shape)}, {tuple(in_spatial)}")
     shape = vol_layout(n_cells, g_p.shape[1], in_spatial)
     dvol = torch.zeros(shape, dtype=torch.float32, device=g_p.device)
-    _launch("fused3b_bwd", g_p, plan, dvol, cfg, shape, g_p)
-    fused3b_bwd_vol.launches += 1
+    _launch("fused3b_bwd", g_p, plan, dvol, cfg, shape, g_p, geom.args())
     return dvol
 
 

@@ -23,10 +23,15 @@ section 4).
   csrc/fused3s.cu, whose blocks each serve queries of one bin, their
   corners within three z slabs of each cell.
   Each takes the sort as ``order`` or makes its own; the fused op sorts
-  once for a blend and its transpose.  A tensor on the CPU takes the
-  plain version; a CUDA tensor launches the kernel on the current stream,
-  or raises for what the kernel does not take (``supports``).  Each
-  wrapper counts its launches in its ``launches`` attribute.
+  once for a blend and its transpose.  The transpose's lanes run over
+  (query, cell) (csrc/texel_scatter.cuh, shared with fused3b_bwd) and
+  add into a texel-major (D, H, W, N, C) scratch, so that neighbouring
+  lanes add neighbouring 16-byte records of one texel; a tiled transpose
+  in the same entry point writes the (N, C, D, H, W) cotangent.  A
+  tensor on the CPU takes the plain version; a CUDA tensor launches the
+  kernel on the current stream, or raises for what the kernel does not
+  take (``supports``).  Each wrapper counts its launches in its
+  ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -40,10 +45,12 @@ from ..config import SamplerConfig
 from .build import check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
-from .fused3b import bin_base
+from .fused3b import bin_base, vol_layout
+from .scatter import ScatterGeometry, scatter_geometry
 
 __all__ = ["PADDING_MODES", "Q_BLOCK", "Z_LO", "fused_blend", "fused_bwd",
-           "plain_fused_blend", "plain_fused_bwd", "supports", "zsort"]
+           "launch_bwd", "plain_fused_blend", "plain_fused_bwd", "supports",
+           "zsort"]
 
 # queries a block serves at most (csrc/fused3s.cu kQBlock)
 Q_BLOCK = 128
@@ -104,9 +111,13 @@ def zsort(points: torch.Tensor, d: int, cfg: SamplerConfig,
 
 
 def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
-            out: torch.Tensor, cfg: SamplerConfig, n: int, c: int,
-            spatial: Tuple[int, ...], order) -> None:
-    cuda_device(first, points, out)
+            outs, cfg: SamplerConfig, n: int, c: int,
+            spatial: Tuple[int, ...], order, extra=()) -> None:
+    """Launch ``entry`` on ``first`` (cells or g), the points, their z sort
+    and the output tensors ``outs``, then ``extra`` after the table's
+    block count."""
+    out = outs[-1]
+    cuda_device(first, points, *outs)
     check_kernel_inputs(cfg, first, points)
     if not supports(cfg, (n, c, *spatial)):
         raise ValueError(
@@ -124,9 +135,9 @@ def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
     with torch.cuda.device(out.device):
         err = getattr(lib, entry)(
             first.data_ptr(), points.data_ptr(), perm.data_ptr(),
-            table.data_ptr(), out.data_ptr(), n, c, *spatial,
-            points.shape[0], table.shape[0], *sampler_args(cfg, n,
-                                                           out.device))
+            table.data_ptr(), *(t.data_ptr() for t in outs), n, c, *spatial,
+            points.shape[0], table.shape[0], *extra,
+            *sampler_args(cfg, n, out.device))
     check(lib, err, f"{entry} launch")
 
 
@@ -144,8 +155,8 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     n, c, *spatial = cells.shape
     out = torch.empty((7, c, points.shape[0]), dtype=torch.float32,
                       device=cells.device)
-    _launch("fused3s_blend", cells, points, out, cfg, n, c, tuple(spatial),
-            order)
+    _launch("fused3s_blend", cells, points, (out,), cfg, n, c,
+            tuple(spatial), order)
     fused_blend.launches += 1
     return out
 
@@ -163,13 +174,27 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
         raise ValueError(f"fused3s_bwd takes g (7, C, Q), points (Q, 3) and "
                          f"3 spatial sizes; got {tuple(g.shape)}, "
                          f"{tuple(points.shape)}, {tuple(in_spatial)}")
-    c = g.shape[1]
-    dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
-                         device=g.device)
-    _launch("fused3s_bwd", g, points, dcells, cfg, n_cells, c,
-            tuple(in_spatial), order)
+    dcells = launch_bwd(g, points, tuple(in_spatial), cfg, n_cells, order,
+                        scatter_geometry(n_cells, g.shape[1], dense=True))
     fused_bwd.launches += 1
     return dcells
+
+
+def launch_bwd(g: torch.Tensor, points: torch.Tensor,
+               in_spatial: Tuple[int, ...], cfg: SamplerConfig, n_cells: int,
+               order, geom: ScatterGeometry) -> torch.Tensor:
+    """fused_bwd's kernels with the launch layout ``geom``
+    (ops/cuda/scatter.py), on the card; not counted.  The scatter adds
+    into a zeroed texel-major (D, H, W, N, C) scratch, which a tiled
+    transpose writes out in (N, C, D, H, W) layout."""
+    c = g.shape[1]
+    scratch = torch.zeros(vol_layout(n_cells, c, in_spatial),
+                          dtype=torch.float32, device=g.device)
+    out = torch.empty((n_cells, c, *in_spatial), dtype=torch.float32,
+                      device=g.device)
+    _launch("fused3s_bwd", g, points, (scratch, out), cfg, n_cells, c,
+            in_spatial, order, geom.args())
+    return out
 
 
 fused_blend.launches = 0

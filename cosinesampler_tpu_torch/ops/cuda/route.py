@@ -99,15 +99,19 @@ FUSED2D_MAX_PAIRS = 1 << 17
 # otherwise: each the last point where the kernel won in chip_smoke.py's
 # sweep (PERF.md section 4).  fused3d won at 6144 points at 8 and 50
 # cells; at 8192 it lost at 8 cells and tied at 50.  fused3s (at 16 x 4
-# x S^3 unless named) won at 81 920 points on 96^3 and 128^3 and lost at
-# 65 536; won at 100 000 on 64^3 (67 MB, by 2%; it loses there at 81 920,
-# the one point the rule sends to the slower kernel) and lost on 8 x 4 x
+# x S^3 unless named) won at 100 000 on 64^3 (67 MB) and lost on 8 x 4 x
 # 80^3 (65.5 MB); won on 16 x 3 x 96^3 and lost on 16 x 2 x 96^3; won on
-# 6 x 4 x 128^3 and lost on 4 x 4 x 128^3.  Its sort costs ~0.15 ms at
-# 100 000 points, which a stack that L2 holds or a thin one (few cells or
-# channels a query) does not pay back.
+# 6 x 4 x 128^3 and lost on 4 x 4 x 128^3 (with its backward before the
+# lanes over cells; its sort costs ~0.15 ms at 100 000 points, which a
+# stack that L2 holds or a thin one does not pay back).  With the lanes
+# over cells it won at 49 152 points on the stacks the bound applies to,
+# 64^3 and 128^3 (by 22% and 21%), and lost at 32 768 on each; on 128^3
+# it also won at 40 960 (by 8%), the one point there the bound sends to
+# the slower kernel.  It also won below the stack bound (16 x 4 x 24^3
+# and 32^3, 8 x 4 x 80^3), which stays until a sweep places it (PERF.md
+# section 6).
 FUSED3D_MAX_Q = 6144
-FUSED3S_MIN_Q = 81_920
+FUSED3S_MIN_Q = 49_152
 FUSED3S_MIN_STACK_BYTES = 16 * 4 * 64**3 * 4
 FUSED3S_MIN_CHANNELS = 3
 FUSED3S_MIN_PLANES = 24

@@ -7,6 +7,7 @@
     python scripts/profile_port_step.py --nested-vol [percell|blend_o|slab]
                                         [--points Q] [--profile]
     python scripts/profile_port_step.py --fused3b [--reps R]
+    python scripts/profile_port_step.py --fused3s [--points Q] [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
     python scripts/profile_port_step.py --slab [--reps R]
     python scripts/profile_port_step.py --sampler [--reps R]
@@ -25,10 +26,13 @@ step's peak device memory.  ``--nested-vol`` runs the nested
 ``--points`` fresh points a step (100 000 by default), every sampler call
 through the route ops/cuda/route.py gives it or, when named, through
 that route.  ``--fused3b`` times fused3b's blend and bwd kernels alone
-on config 5's volume and points (4 channels, the kernel layout), each the
-median of ``--reps`` calls (CUDA events) after 3 warm-up calls;
-``--kernels`` so times fused2w's and fused3w's blend and bwd (96 x C x
-16^2 and 50 x C x 16^3, 100 000 points) and mega2w (96 x C x 16^2);
+on config 5's volume and points (``--cell-dim`` channels, 4 by default,
+the kernel layout), each the median of ``--reps`` calls (CUDA events)
+after 3 warm-up calls; ``--fused3s`` so times fused3s's blend and bwd and
+its z sort on config 5's volume at ``--points`` uniform points (the sort
+made once for the kernels); ``--kernels`` so times fused2w's and
+fused3w's blend and bwd (96 x C x 16^2 and 50 x C x 16^3, 100 000
+points) and mega2w (96 x C x 16^2);
 ``--slab`` so times the slab route's blend and splat kernels on config
 5's volume at 100 000 shared points (cosine, and linear without
 multicell, the setting of grid_sample) and on 1024 x 4 x 16^3 cells at
@@ -121,9 +125,11 @@ def _config5_step(kind):
     return lambda p: step(params, p, plan), pts
 
 
-def _fused3b_kernels(card, reps):
-    """Median ms of fused3b_blend_vol and fused3b_bwd_vol at config 5."""
-    cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=128, pde="helmholtz")
+def _fused3b_kernels(card, reps, c):
+    """Median ms of fused3b_blend_vol and fused3b_bwd_vol at config 5 with
+    ``c`` channels."""
+    cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_dim=c, cell_size=128,
+                          pde="helmholtz")
     shape = (cfg.n_cells, cfg.cell_dim, *(cfg.cell_size,) * 3)
     gen = torch.Generator(device="cuda").manual_seed(0)
     vol = fused3b.cells_to_vol(torch.rand(shape, generator=gen,
@@ -153,6 +159,31 @@ def _fused3b_kernels(card, reps):
     print(f"{card}; fused3b kernels at config 5 "
           f"({'x'.join(map(str, shape))}, 1000000 points), median of {reps}:"
           f" blend {medians['blend']:.4f} ms, bwd {medians['bwd']:.4f} ms",
+          flush=True)
+    return 0
+
+
+def _fused3s_kernels(card, reps, q):
+    """Median ms of fused3s's blend and bwd on config 5's volume at ``q``
+    uniform points, the z sort made once outside the timed calls."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    cfg = SamplerConfig(dim=3)
+    shape = (16, 4, 128, 128, 128)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cells = torch.rand(shape, generator=gen, device="cuda")
+    pts = torch.rand((q, 3), generator=gen, device="cuda") * 2 - 1
+    g = torch.randn((7, shape[1], q), generator=gen, device="cuda")
+    order = fused3s.zsort(pts, shape[2], cfg)
+    medians = {
+        "blend": _median_ms(lambda: fused3s.fused_blend(cells, pts, cfg,
+                                                        order), reps),
+        "bwd": _median_ms(lambda: fused3s.fused_bwd(g, pts, shape[2:], cfg,
+                                                    shape[0], order), reps),
+        "z sort": _median_ms(lambda: fused3s.zsort(pts, shape[2], cfg),
+                             reps)}
+    print(f"{card}; fused3s kernels on {'x'.join(map(str, shape))} at {q} "
+          f"points, median of {reps}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items()),
           flush=True)
     return 0
 
@@ -321,12 +352,15 @@ def main(argv=None):
                     help="the nested 3D step on config 5's volume, through "
                          "the route rule or the route named")
     ap.add_argument("--points", type=int, default=100_000,
-                    help="points a step of --nested-vol")
+                    help="points a step of --nested-vol, or of --fused3s")
     ap.add_argument("--fused3b", action="store_true",
                     help="time fused3b's kernels alone at config 5")
+    ap.add_argument("--fused3s", action="store_true",
+                    help="time fused3s's kernels alone on config 5's "
+                         "volume at --points points")
     ap.add_argument("--reps", type=int, default=20,
-                    help="timed calls of each --fused3b / --kernels / "
-                         "--slab / --sampler kernel")
+                    help="timed calls of each --fused3b / --fused3s / "
+                         "--kernels / --slab / --sampler kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="time fused2w, fused3w and mega2w alone")
     ap.add_argument("--slab", action="store_true",
@@ -335,7 +369,8 @@ def main(argv=None):
                     help="time splat_o, blend_o and the percell route "
                          "alone")
     ap.add_argument("--cell-dim", type=int, default=4,
-                    help="channels of --kernels and the main-path steps")
+                    help="channels of --fused3b, --kernels and the main-path "
+                         "steps")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -346,7 +381,9 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     if args.fused3b:
-        return _fused3b_kernels(card, args.reps)
+        return _fused3b_kernels(card, args.reps, args.cell_dim)
+    if args.fused3s:
+        return _fused3s_kernels(card, args.reps, args.points)
     if args.kernels:
         return _main_kernels(card, args.cell_dim, args.reps)
     if args.slab:

@@ -212,8 +212,8 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
                         ((6, 4, 128, 128, 128), "fused3s"),
                         ((4, 4, 128, 128, 128), "fused3w")]:
         assert rule(cfg, shape, 100_000) == want, shape
-    assert rule(cfg, big, 65_536) == "fused3w"
-    assert rule(cfg, big, 81_920) == "fused3s"
+    assert rule(cfg, big, 32_768) == "fused3w"
+    assert rule(cfg, big, 49_152) == "fused3s"
     assert rule(cfg, (50, 16, 16, 16, 16), 200) == "fused3w"
     assert rule(cfg, ref, 200, "cuda", torch.float64) == "plain"
 
