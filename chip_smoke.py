@@ -27,10 +27,15 @@ and the slab bins are held to their plain versions at all those shapes,
 at a skewed and a sparse cloud on config 5's volume and (percell) on 8 x
 4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles, splat_o's and
 blend_o's launch geometries, mega2w's work units and the lane layouts
-of fused3b_bwd's and fused3s_bwd's shared scatter are each timed
-against their alternatives (the sweeps behind percell.geometry,
+of fused3b_bwd's and fused3s_bwd's shared scatter and of fused3b_blend's
+and fused3s_blend's shared gather are each timed against their
+alternatives (the sweeps behind percell.geometry,
 blend_splat.splat_geometry, blend_splat.blend_geometry,
-mega2w.geometry and scatter.scatter_geometry).  At 16 feature channels
+mega2w.geometry, scatter.scatter_geometry and gather.gather_geometry).
+The layout move between the cells and the texel-major volume
+(fused3b.cells_to_vol / vol_to_cells, a tiled transpose on the card) is
+held to torch's permuted copy bit for bit and counted on the planned
+op.  At 16 feature channels
 the 2D trainer (20 steps) and the 3D trainer (5) go through the routed
 channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
 versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
@@ -92,8 +97,9 @@ from cosinesampler_tpu_torch.ops.config import SamplerConfig, effective_align
 from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
 from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2d,
                                               fused2w, fused3b, fused3d,
-                                              fused3s, fused3w, mega2w,
-                                              percell, route, scatter, slab)
+                                              fused3s, fused3w, gather,
+                                              mega2w, percell, route,
+                                              scatter, slab)
 from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
@@ -696,8 +702,13 @@ def compare_3b(name, cfg, n, c, spatial, q, seed=0, lo=-1.2, hi=1.2,
     elements."""
     cells, vol, pts, plan = _vol_case(n, c, spatial, q, seed, lo, hi, cfg,
                                       pts)
-    g_p = torch.randn((7, c, plan[1].shape[0]), generator=_cuda_gen(seed + 1),
+    qp = plan[1].shape[0]
+    g_p = torch.randn((7, c, qp), generator=_cuda_gen(seed + 1),
                       device="cuda")
+    # the blend's torch.empty output most likely gets this freed block of
+    # NaNs back from the caching allocator: a slot it leaves unwritten
+    # then reads NaN, not a stale zero
+    torch.full((7, c, qp), math.nan, device="cuda")
     out = fused3b.fused3b_blend_vol(vol, plan, cfg)
     ref = fused3b.plain_fused3b_blend_vol(vol, plan, cfg)
     dvol = fused3b.fused3b_bwd_vol(g_p, plan, spatial, cfg, n)
@@ -708,15 +719,19 @@ def compare_3b(name, cfg, n, c, spatial, q, seed=0, lo=-1.2, hi=1.2,
         raise RuntimeError(f"fused3b {name}: shape mismatch")
     if not (torch.isfinite(out).all() and torch.isfinite(dvol).all()):
         raise RuntimeError(f"fused3b {name}: non-finite kernel output")
-    if bool((out[:, :, plan[1] == 0] != 0).any()):
-        raise RuntimeError(f"fused3b {name}: a pad slot is not zero")
+    pads = plan[1] == 0
+    empty = (plan[4] == 0).repeat_interleave(fused3b.Q_BLOCK)
+    if bool((out[:, :, pads] != 0).any()):
+        raise RuntimeError(f"fused3b {name}: a pad slot is not exactly 0")
     abs_b, rel_b = _rel_err(out, ref)
-    abs_d, rel_d = _rel_err(fused3b.vol_to_cells(dvol).reshape(1, -1),
-                            fused3b.vol_to_cells(dref).reshape(1, -1))
+    abs_d, rel_d = _rel_err(fused3b.plain_vol_to_cells(dvol).reshape(1, -1),
+                            fused3b.plain_vol_to_cells(dref).reshape(1, -1))
     print(f"compare fused3b {name} ({n}x{c}x{'x'.join(map(str, spatial))}, "
-          f"Q={q}, QP={plan[1].shape[0]}): blend max abs err {abs_b:.3e}, "
-          f"rel {rel_b:.3e}; bwd max abs err {abs_d:.3e}, rel {rel_d:.3e} "
-          f"(tolerance rel {REL_TOL:g})", flush=True)
+          f"Q={q}, QP={qp}): blend max abs err {abs_b:.3e}, rel "
+          f"{rel_b:.3e}, its {int(pads.sum())} pad slots ({int(empty.sum())} "
+          f"in blocks with hasv == 0) exactly 0; bwd max abs err "
+          f"{abs_d:.3e}, rel {rel_d:.3e} (tolerance rel {REL_TOL:g})",
+          flush=True)
     if not (rel_b <= REL_TOL and rel_d <= REL_TOL):
         raise RuntimeError(f"fused3b {name}: kernel disagrees with the plain "
                            "version")
@@ -736,12 +751,18 @@ SCATTER_CELLS, SCATTER_CHANNELS = (1, 3, 6, 50), (1, 3, 8, 16)
 
 def fused3b_kernel_phase():
     """fused3b at config 5 (the vol-resident trainer's 1 000 000 points and
-    so its plan) and in variants, the bwd's scatter at N in {1, 3, 6, 50}
-    x C in {1, 3, 8, 16}; the layout round trip; the slot rows against
-    fused3w's at the same points."""
+    so its plan) and in variants, the blend's gather and the bwd's scatter
+    at N in {1, 3, 6, 50} x C in {1, 3, 8, 16}, every pad slot exactly 0;
+    the layout round trip; the slot rows against fused3w's at the same
+    points.  Returns each kernel's worst max abs error."""
     main = SamplerConfig(dim=3)
     pts5 = _trainer_points(Q5, 3)
-    errs = compare_3b("config-5", main, N5, C, (S5,) * 3, Q5, pts=pts5)
+    worst = [0.0, 0.0]
+
+    def track(errs):
+        worst[:] = [max(w, e) for w, e in zip(worst, errs)]
+
+    track(compare_3b("config-5", main, N5, C, (S5,) * 3, Q5, pts=pts5))
     small = (6, 3, (9, 9, 9), 4099)
     for name, kw, extra in [
             ("border", dict(padding_mode="border"), {}),
@@ -754,18 +775,22 @@ def fused3b_kernel_phase():
              dict(padding_mode="reflection", strict_reference=True,
                   align_corners=False), {}),
             ("points-1.4", {}, dict(lo=-1.4, hi=1.4))]:
-        compare_3b(name, SamplerConfig(dim=3, **kw), *small, seed=1, **extra)
+        track(compare_3b(name, SamplerConfig(dim=3, **kw), *small, seed=1,
+                         **extra))
     for c in (1, 3, 8):
-        compare_3b(f"channels-{c}", main, 6, c, (9, 9, 9), 4099, seed=2)
-    compare_3b("non-cubic-20x28x36", main, 6, 4, (20, 28, 36), 8192, seed=3)
+        track(compare_3b(f"channels-{c}", main, 6, c, (9, 9, 9), 4099,
+                         seed=2))
+    track(compare_3b("non-cubic-20x28x36", main, 6, 4, (20, 28, 36), 8192,
+                     seed=3))
     # 9^3: 11 z slabs x 6 y groups = 66 bins; the route takes Q >= 132
-    compare_3b("q-133", main, 6, 3, (9, 9, 9), 133, seed=4)
-    # the scatter's lanes (ops/cuda/scatter.py): one cell (32 queries a
-    # warp), 3 and 6 cells (not divisors of 32), 50 (more cells than
-    # lanes), each at C in {1, 3, 8, 16}
+    track(compare_3b("q-133", main, 6, 3, (9, 9, 9), 133, seed=4))
+    # the gather's and the scatter's lanes (ops/cuda/gather.py,
+    # scatter.py): one cell (32 queries a warp), 3 and 6 cells (not
+    # divisors of 32), 50 (more cells than lanes), each at C in {1, 3, 8,
+    # 16}
     for n, c in itertools.product(SCATTER_CELLS, SCATTER_CHANNELS):
-        compare_3b(f"scatter N={n} C={c}", main, n, c, (9, 9, 9), 4099,
-                   seed=6)
+        track(compare_3b(f"lanes N={n} C={c}", main, n, c, (9, 9, 9), 4099,
+                         seed=6))
 
     cells, vol, pts, plan = _vol_case(N5, C, (S5,) * 3, Q5, 5, cfg=main,
                                       pts=pts5)
@@ -777,7 +802,76 @@ def fused3b_kernel_phase():
           f"abs diff {diff:.3e}; from_vol(to_vol(cells)) == cells", flush=True)
     if diff > REL_TOL * float(slots.abs().max()):
         raise RuntimeError("fused3b and fused3w disagree")
-    return {"fused3b_blend": errs[0], "fused3b_bwd": errs[1]}
+    return {"fused3b_blend": worst[0], "fused3b_bwd": worst[1]}
+
+
+def layout_phase():
+    """The layout move (fused3b.cells_to_vol / vol_to_cells: the tiled
+    transpose of csrc/fused3s.cu) against torch's permuted copies
+    (plain_cells_to_vol / plain_vol_to_cells) on the card, bit for bit,
+    and the round trip, at config 5's 16 x 4 x 128^3 and 16 x 16 x 128^3
+    (2.1 GB) and at 6 x 3 x 9 x 10 x 11 in f32 and f64; the autograd
+    Function's backward (the move the other way, exactly); the planned
+    op's two moves a call, counted; each direction's time at config 5
+    against torch's copy and the bound (the tensor read once and written
+    once)."""
+    for shape, dtype in (((N5, C, S5, S5, S5), torch.float32),
+                         ((N5, C_WIDE, S5, S5, S5), torch.float32),
+                         ((6, 3, 9, 10, 11), torch.float32),
+                         ((6, 3, 9, 10, 11), torch.float64)):
+        x = torch.rand(shape, generator=_cuda_gen(50), device="cuda",
+                       dtype=dtype)
+        vol = fused3b.cells_to_vol(x)
+        if not (torch.equal(vol, fused3b.plain_cells_to_vol(x))
+                and torch.equal(fused3b.vol_to_cells(vol), x)):
+            raise RuntimeError(f"layout move {shape} {dtype}: differs from "
+                               "torch's permuted copy")
+        line = (f"layout move {'x'.join(map(str, shape))} {dtype}: "
+                f"cells_to_vol == torch's copy, vol_to_cells(cells_to_vol("
+                f"x)) == x, bit for bit")
+        if shape[-1] == S5:
+            bound_ms, _ = _bound(2 * x.numel() * x.element_size(), 0)
+            to_ms, to_plain = _in_turns(
+                lambda: fused3b.cells_to_vol(x),
+                lambda: fused3b.plain_cells_to_vol(x), reps=5)
+            from_ms, from_plain = _in_turns(
+                lambda: fused3b.vol_to_cells(vol),
+                lambda: fused3b.plain_vol_to_cells(vol), reps=5)
+            line += (f"; cells_to_vol {to_ms:.4f} ms (torch's copy "
+                     f"{to_plain:.4f}), vol_to_cells {from_ms:.4f} ms "
+                     f"({from_plain:.4f}), bound {bound_ms:.4f} ms (bytes)")
+        print(line, flush=True)
+        del x, vol
+        torch.cuda.empty_cache()
+    x = torch.rand((3, 2, 4, 5, 6), generator=_cuda_gen(51), device="cuda",
+                   dtype=torch.float64, requires_grad=True)
+    w = torch.rand((4, 5, 6, 3, 2), generator=_cuda_gen(52), device="cuda",
+                   dtype=torch.float64)
+    (fused3b.cells_to_vol(x) * w).sum().backward()
+    if not torch.equal(x.grad, fused3b.plain_vol_to_cells(w)):
+        raise RuntimeError("cells_to_vol's backward is not vol_to_cells")
+    # the planned op: the cells to the kernel layout in its forward, the
+    # volume cotangent back in its backward, each one transpose launch
+    cfg = SamplerConfig(dim=3)
+    pts = _trainer_points(Q5, 3)
+    cells = torch.rand((N5, C, *(S5,) * 3), generator=_cuda_gen(53),
+                       device="cuda", requires_grad=True)
+    plan = tfused.make_sample_plan(pts, cells.shape, cfg)
+    _reset_counts()
+    fused3b.transpose_layout.launches = 0
+    out_p, _, _ = tfused.sample_features_padded(cells, pts, cfg, plan)
+    out_p.square().sum().backward()
+    launched = (fused3b.transpose_layout.launches,
+                fused3b.fused3b_blend_vol.launches,
+                fused3b.fused3b_bwd_vol.launches)
+    print(f"layout move: the planned op at config 5 launched {launched[0]} "
+          f"transposes, {launched[1]} fused3b_blend and {launched[2]} "
+          f"fused3b_bwd (want 2, 1, 1); cells_to_vol's backward == "
+          f"vol_to_cells, exactly", flush=True)
+    if launched != (2, 1, 1):
+        raise RuntimeError("the planned op did not move the layout through "
+                           "the transpose kernel")
+    _reset_counts()
 
 
 # --- percell / slab -----------------------------------------------------------
@@ -1649,6 +1743,24 @@ def _tick_points(q, s, seed):
     return ticks[torch.randint(0, s - 1, (q, 3), generator=gen)]
 
 
+def compare_planar(name, cfg, n, c, spatial, q, seed, lo=-1.4, hi=1.4):
+    """fused3s_blend reading the cells in place (planar) against
+    plain_fused_blend on the card; returns the max abs error."""
+    cells, pts, _ = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    order = fused3s.zsort(pts, spatial[0], cfg)
+    got = fused3s.launch_blend(cells, pts, cfg, order,
+                               gather.gather_geometry(n, c), True)
+    abs_b, rel_b = _rel_err(got, fused3s.plain_fused_blend(cells, pts, cfg))
+    print(f"compare fused3s planar {name} ({n}x{c}x"
+          f"{'x'.join(map(str, spatial))}, Q={q}): blend max abs err "
+          f"{abs_b:.3e}, rel {rel_b:.3e} (tolerance rel {REL_TOL:g})",
+          flush=True)
+    if not rel_b <= REL_TOL:
+        raise RuntimeError(f"fused3s planar {name}: kernel disagrees with "
+                           "the plain version")
+    return abs_b
+
+
 def fused3ds_kernel_phase():
     """B8 and B9 against their plain versions: fused3d at path (c)'s stack
     (50 x 4 x 16^3, Q = 200, 1024, 2047) and an opted-in 8 x 16^3 channel
@@ -1657,8 +1769,8 @@ def fused3ds_kernel_phase():
     32^3, Q = 4096), JAX's 2 x 2 x 32^3 at 2048 and 16 x 4 x 64^3 at
     16384, and the unplanned config-5 step's 1 000 000 points; both in
     each variant each takes, at C in {1, 3, 8, 12} (two channel groups),
-    points to +-1.4 and on the texel ticks; fused3s's scatter at N in
-    {1, 3, 6, 50} x C in {1, 3, 8, 16}."""
+    points to +-1.4 and on the texel ticks; fused3s's gather and scatter
+    at N in {1, 3, 6, 50} x C in {1, 3, 8, 16}."""
     main = SamplerConfig(dim=3)
     worst = {}
 
@@ -1681,22 +1793,34 @@ def fused3ds_kernel_phase():
     track("fused3s", compare_fused("fused3s", "config-5 unplanned", main, N5,
                                    C, (S5,) * 3, Q5, seed=27,
                                    pts=_trainer_points(Q5, 3)))
-    compare_fused("fused3d", "opt-in 8x16^3 group", main, 8, 8, (S3,) * 3,
-                  1500, seed=22, **WIDE)
+    track("fused3d", compare_fused("fused3d", "opt-in 8x16^3 group", main,
+                                   8, 8, (S3,) * 3, 1500, seed=22, **WIDE))
     for kind in ("fused3d", "fused3s"):
         for name, kw, c in FUSED3_VARIANTS:
             cfg = SamplerConfig(dim=3, **kw)
             if FUSED_MODS[kind].supports(cfg, (6, c, 7, 8, 9)):
-                compare_fused(kind, name, cfg, 6, c, (7, 8, 9), 2053,
-                              seed=23, **WIDE)
+                track(kind, compare_fused(kind, name, cfg, 6, c, (7, 8, 9),
+                                          2053, seed=23, **WIDE))
         for c in (1, 3, 8, 12):
-            compare_fused(kind, f"channels-{c}", main, 6, c, (7, 8, 9), 2053,
-                          seed=24, **WIDE)
-        compare_fused(kind, "texel-ticks", main, 5, 3, (6,) * 3, 1000,
-                      seed=25, pts=_tick_points(1000, 6, 25))
+            track(kind, compare_fused(kind, f"channels-{c}", main, 6, c,
+                                      (7, 8, 9), 2053, seed=24, **WIDE))
+        track(kind, compare_fused(kind, "texel-ticks", main, 5, 3, (6,) * 3,
+                                  1000, seed=25,
+                                  pts=_tick_points(1000, 6, 25)))
     for n, c in itertools.product(SCATTER_CELLS, SCATTER_CHANNELS):
-        compare_fused("fused3s", f"scatter N={n} C={c}", main, n, c,
-                      (7, 8, 9), 2053, seed=26, **WIDE)
+        track("fused3s", compare_fused("fused3s", f"lanes N={n} C={c}", main,
+                                       n, c, (7, 8, 9), 2053, seed=26,
+                                       **WIDE))
+    # the planar blend (the rule's below fused3s.PLANAR_POINTS_PER_TEXEL)
+    # in every variant and at the lanes' channel counts
+    for name, kw, c in FUSED3_VARIANTS:
+        cfg = SamplerConfig(dim=3, **kw)
+        if fused3s.supports(cfg, (6, c, 7, 8, 9)):
+            track("fused3s", (compare_planar(name, cfg, 6, c, (7, 8, 9), 2053,
+                                             seed=28), 0.0))
+    for n, c in itertools.product(SCATTER_CELLS, SCATTER_CHANNELS):
+        track("fused3s", (compare_planar(f"lanes N={n} C={c}", main, n, c,
+                                         (7, 8, 9), 2053, seed=29), 0.0))
     return worst
 
 
@@ -2020,22 +2144,32 @@ def fused3ds_time_phase():
                   f" ms", flush=True)
         del cells, pts, g
         torch.cuda.empty_cache()
-    # fused3s_bwd at the unplanned config-5 step's 1 000 000 fresh points
+    # fused3s_blend and fused3s_bwd at the unplanned config-5 step's
+    # 1 000 000 fresh points
     spatial = (S5,) * 3
     gen = _cuda_gen(33)
+    cells = torch.rand((N5, C, *spatial), generator=gen, device="cuda")
     pts = torch.rand((Q5, 3), generator=gen, device="cuda") * 2 - 1
     g = torch.randn((7, C, Q5), generator=gen, device="cuda")
-    bound_ms, bound_by = _bound(4 * (7 * C * Q5 + 3 * Q5 + N5 * C * S5 ** 3),
-                                2 * 7 * 8 * N5 * C * Q5)
-    bwd = functools.partial(fused3s.fused_bwd, g, pts, spatial, cfg, N5)
-    ms = _time_ms(bwd, 5)
-    dev_ms = _device_ms(bwd, reps=5)
+    flops = 2 * 7 * 8 * N5 * C * Q5
+    touched = _touched_values(cells, pts.reshape(1, 1, 1, Q5, 3), cfg)
+    for name, fn, nbytes in [
+            ("fused3s_blend", functools.partial(fused3s.fused_blend, cells,
+                                                pts, cfg),
+             4 * (touched + 3 * Q5 + 7 * C * Q5)),
+            ("fused3s_bwd", functools.partial(fused3s.fused_bwd, g, pts,
+                                              spatial, cfg, N5),
+             4 * (7 * C * Q5 + 3 * Q5 + N5 * C * S5 ** 3))]:
+        bound_ms, bound_by = _bound(nbytes, flops)
+        ms = _time_ms(fn, 5)
+        dev_ms = _device_ms(fn, reps=5)
+        print(f"time {name} ({N5}x{C}x{S5}^3, Q={Q5}): kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by}),"
+              f" {bound_ms / ms:.1%} of it", flush=True)
     sort_ms = _device_ms(lambda: fused3s.zsort(pts, S5, cfg), reps=5)
-    print(f"time fused3s_bwd ({N5}x{C}x{S5}^3, Q={Q5}): kernel {ms:.4f} ms "
-          f"(device {dev_ms:.4f}, its z sort {sort_ms:.4f}), bound "
-          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it",
+    print(f"time fused3s's z sort alone (Q={Q5}): device {sort_ms:.4f} ms",
           flush=True)
-    del pts, g
+    del cells, pts, g
     torch.cuda.empty_cache()
     spatial = (S5,) * 3
     pts = _trainer_points(Q5, 3)
@@ -3335,6 +3469,69 @@ def scatter_sweep_phase():
         torch.cuda.empty_cache()
 
 
+# the cells and channels of the gather sweep (gather.gather_geometry)
+GATHER_CELLS, GATHER_CHANNELS = (1, 3, N5, 50), (C, 8, 12, C_WIDE)
+
+
+def gather_sweep_phase():
+    """The measurement behind gather.gather_geometry: fused3b_blend over
+    config 5's 128^3 volume at the trainer's 1 000 000 points and plan, at
+    N in {1, 3, 16, 50} x C in {4, 8, 12, 16} (N = 1 and odd N leave
+    lanes idle), and fused3s_blend on config 5's volume at 100 000 and
+    1 000 000 fresh points over the layouts of gather.gather_alternatives
+    and planar (the cells read in place: the measurement behind
+    fused3s.PLANAR_POINTS_PER_TEXEL, also at 200 000 and 400 000 points
+    and on 16 x 4 x 64^3 at 49 152, 100 000 and 200 000), each held to
+    the rule's result and timed in turns (fused3s's transposes included,
+    its z sort made once outside)."""
+    cfg = SamplerConfig(dim=3)
+    spatial = (S5,) * 3
+    # the plan depends on the points and the cell size alone
+    plan = tfused.make_vol_plan(_trainer_points(Q5, 3), (N5, C, *spatial),
+                                cfg)
+    for c, n in itertools.product(GATHER_CHANNELS, GATHER_CELLS):
+        vol = torch.rand((*spatial, n, c), generator=_cuda_gen(42),
+                         device="cuda")
+        geoms = gather.gather_alternatives(n, c, bricked=True)
+        runs = {k: functools.partial(fused3b.launch_blend, vol, plan, cfg, v)
+                for k, v in geoms.items()}
+        _sweep(f"fused3b_blend gather sweep (config 5, {n}x{c}x{S5}^3, "
+               f"Q={Q5})", runs, geoms, runs["rule"](), reps=5)
+        del vol, runs
+        torch.cuda.empty_cache()
+    del plan
+    for s, points in ((S5, (Q, 200_000, 400_000, Q5)),
+                      (64, (49_152, Q, 200_000))):
+        cells = torch.rand((N5, C, *(s,) * 3), generator=_cuda_gen(43),
+                           device="cuda")
+        for q in points:
+            pts = torch.rand((q, 3), generator=_cuda_gen(44),
+                             device="cuda") * 2 - 1
+            order = fused3s.zsort(pts, s, cfg)
+            geoms = gather.gather_alternatives(N5, C)
+            if q not in (Q, Q5):
+                geoms = {"rule": geoms["rule"]}
+            runs = {k: functools.partial(fused3s.launch_blend, cells, pts,
+                                         cfg, order, v)
+                    for k, v in geoms.items()}
+            # the cells read in place, a channel a load
+            for k, v in (("planar", geoms["rule"]),
+                         ("planar, a thread a query",
+                          gather.GatherGeometry(C, 1, 1, gather.QUERIES)),
+                         ("planar, four cell lanes",
+                          geoms["rule"]._replace(cell_lanes=4))):
+                geoms[k] = v
+                runs[k] = functools.partial(fused3s.launch_blend, cells, pts,
+                                            cfg, order, v, True)
+            picks = "planar" if fused3s.planar(q, (s,) * 3) else "texel-major"
+            _sweep(f"fused3s_blend gather sweep ({N5}x{C}x{s}^3, Q={q}; the "
+                   f"rule reads {picks})", runs, geoms, runs["rule"](),
+                   reps=5)
+            del pts, order, runs
+            torch.cuda.empty_cache()
+        del cells
+
+
 def mega_sweep_phase():
     """The measurement behind mega2w.geometry at the 2D main path: its
     work units against lanes over 4 cells, twice the chunks, half the
@@ -3683,6 +3880,7 @@ def main():
     errs["mega2w"] = _timed(mega_kernel_phase)
     errs.update(_timed(fused3w_kernel_phase))
     errs.update(_timed(fused3b_kernel_phase))
+    _timed(layout_phase)
     ghost_errs, ghost_det = _timed(fused3b_ghost_kernel_phase)
     errs.update(ghost_errs)
     errs.update(_timed(pc_slab_kernel_phase))
@@ -3731,6 +3929,7 @@ def main():
     _timed(splat_sweep_phase)
     _timed(blend_sweep_phase)
     _timed(scatter_sweep_phase)
+    _timed(gather_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

@@ -34,18 +34,22 @@
 // * The layout keeps one texel's N * C values together, so a query reads
 //   a cell's C channels at a corner as one 16-byte load at C = 4 (and adds
 //   them back with one vector atomic in the bwd).
-// * Channels: the blend's grid axis y walks channel groups of at most 8
-//   (fused_rows.cuh channel_groups / group_width, as csrc/fused.cu),
-//   whose rows a thread keeps in registers; one group, the whole stack,
-//   up to 8 channels.  A group of a multiple of 4 channels in a stack of
-//   a multiple of 4 starts 16-byte aligned and keeps the vector loads
-//   (C = 16: two groups of 8).  The bwd's channel groups and lanes:
-//   ops/cuda/scatter.py scatter_geometry.
-// * blend: one CUDA block per plan block, one thread per slot, looping
-//   over the N cells with the per-query corner walk of fused_rows.cuh in
-//   its FMA order (the slot's rows equal fused3w_blend's for the same
-//   point).  1M x 16 x 8 corners x 4 ch x 7 rows FMAs: bound by
-//   operations near 0.1 ms; the volume read once is 0.16 ms.
+// * blend (csrc/texel_gather.cuh, shared with fused3s_blend): a block per
+//   plan block compacts its real slots, whose threads then write zeros
+//   into the pad slots (30% of QP at config 5), and the gather serves the
+//   rest (layouts: ops/cuda/gather.py gather_geometry, bricked).  At
+//   C = 4 a thread a query over its cells: two lanes over cells 2j and
+//   2j + 1 read whole sectors (74 M at config 5 against 124 M,
+//   scripts/count_brick_flush.py) but ran 1.02-1.04 ms against 0.93,
+//   since the queries of a brick read neighbouring texels and L1 already
+//   merged those records across a thread's loop.  The kernel takes
+//   0.97-1.02 ms where the design before (a thread a slot, pad slots
+//   included) took 0.91-0.94.  At C = 16 two lanes take interleaved
+//   quads of each record, 8 channels each, in one pass over the volume
+//   (the design before made a grid pass a group of 8 channels), and two
+//   more split the cells: 3.96-3.97 ms against 4.24-4.37.  Bound at
+//   config 5: the volume read once, 0.16 ms, and the rows written once,
+//   0.05 (PERF.md section 6).
 // * bwd (csrc/texel_scatter.cuh, shared with fused3s_bwd): a block per
 //   plan block compacts its real slots (pad slots cost nothing: 30% of
 //   QP at config 5) and stages their points and cotangents, and a warp's
@@ -69,6 +73,7 @@
 #include <cstdint>
 
 #include "fused_rows.cuh"
+#include "texel_gather.cuh"
 #include "texel_scatter.cuh"
 
 namespace {
@@ -76,73 +81,28 @@ namespace {
 // the plan's q_block: one CUDA block of this many threads per plan block
 constexpr int kQBlock = 128;
 
-// v[k] = src[k], k < cg (cg <= G); 16-byte loads when the group is
-// full and G and the stack's channel count are multiples of 4 (the offset
-// (texel * N + cell) * C + c0 is then 16-byte aligned).
-template <int G>
-__device__ __forceinline__ void load_channels(const float* __restrict__ src,
-                                              bool vec, int cg,
-                                              float (&v)[G]) {
-  if constexpr (G % 4 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int k = 0; k < G; k += 4) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(src + k));
-        v[k] = q.x;
-        v[k + 1] = q.y;
-        v[k + 2] = q.z;
-        v[k + 3] = q.w;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < G; ++k) v[k] = k < cg ? __ldg(src + k) : 0.0f;
-}
-
-// Block (bx, by): plan block bx, channels [by * G, by * G + cg) of c.
-// ONE: c == G, one group (C <= 8), whose channel count, width and vector
-// loads are compile-time constants.
-template <int G, bool ONE>
-__global__ void __launch_bounds__(kQBlock)
+// Block (bx, by): plan block bx, channels [by * groups * G, ...) of c
+// (csrc/texel_gather.cuh): zeros into its pad slots, the gather into its
+// real ones.
+template <int G, bool VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     blend_kernel(const float* __restrict__ vol, const float* __restrict__ pts,
                  const float* __restrict__ occ, const int* __restrict__ hasv,
                  float* __restrict__ out, int n, int c, csm::CellGeom<3> g,
-                 int qp, csm::SamplerParams p) {
-  constexpr int R = csm::kRows<3>;
-  const int slot = blockIdx.x * kQBlock + threadIdx.x;
-  const int cs = ONE ? G : c;
-  const int c0 = ONE ? 0 : blockIdx.y * G;
-  const int cg = ONE ? G : min(G, c - c0);
-  const bool vec = ONE ? G % 4 == 0 : cg == G && c % 4 == 0;
-  float acc[R][G];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[r][j] = 0.0f;
-  if (hasv[blockIdx.x] != 0 && occ[slot] != 0.0f) {
-    const float pt[3] = {pts[3 * slot], pts[3 * slot + 1], pts[3 * slot + 2]};
-    for (int ni = 0; ni < n; ++ni) {
-      csm::for_each_corner<3>(
-          g, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-            float v[G];
-            load_channels<G>(
-                vol + (static_cast<int64_t>(idx) * n + ni) * cs + c0, vec, cg,
-                v);
-#pragma unroll
-            for (int j = 0; j < G; ++j)
-#pragma unroll
-              for (int r = 0; r < R; ++r)
-                acc[r][j] = fmaf(wr[r], v[j], acc[r][j]);
-          });
-    }
+                 int qp, csm::GatherLayout lay, csm::SamplerParams p) {
+  const int t = threadIdx.x;
+  const int slot = blockIdx.x * kQBlock + t;
+  const bool real =
+      t < kQBlock && hasv[blockIdx.x] != 0 && occ[slot] != 0.0f;
+  if (t < kQBlock && !real) {
+    const int c0 = blockIdx.y * lay.groups * G;
+    const int c1 = min(c, c0 + lay.groups * G);
+    for (int r = 0; r < csm::kRows<3>; ++r)
+      for (int ch = c0; ch < c1; ++ch)
+        out[static_cast<int64_t>(r * c + ch) * qp + slot] = 0.0f;
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < G; ++j)
-      if (j < cg)
-        out[static_cast<int64_t>(r * cs + c0 + j) * qp + slot] = acc[r][j];
+  csm::gather_block<G, VEC, false>(csm::GatherQuery{real, slot}, pts, vol,
+                                   out, qp, n, c, lay, g, p);
 }
 
 // Block (bx, by): plan block bx's real slots, channel groups [by *
@@ -164,26 +124,29 @@ __global__ void __launch_bounds__(csm::kScatterMaxThreads)
 
 extern "C" {
 
+// The launch layout (width, groups, cell lanes) and threads a block come
+// from ops/cuda/gather.py gather_geometry.
 int fused3b_blend(const void* vol, const void* pts, const void* occ,
                   const void* hasv, void* out, int n, int c, int d, int h,
-                  int w, int qp, int kernel, int padding, int align,
+                  int w, int qp, int width, int groups, int cell_lanes,
+                  int threads, int kernel, int padding, int align,
                   int multicell, int strict, float off_step, float off_stop,
                   void* stream) {
+  static_assert(kQBlock == csm::kGatherQueries, "one plan block a block");
   if (qp % kQBlock != 0) return cudaErrorInvalidValue;
   if (qp == 0 || c == 0) return cudaGetLastError();
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  const dim3 grid(qp / kQBlock, csm::channel_groups(c));
-  return csm::dispatch_channels(csm::group_width(c), [&](auto gw) {
-    constexpr int G = decltype(gw)::value;
-    auto* kernel_fn = c == G ? &blend_kernel<G, true>
-                             : &blend_kernel<G, false>;
-    kernel_fn<<<grid, kQBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(vol), static_cast<const float*>(pts),
-        static_cast<const float*>(occ), static_cast<const int*>(hasv),
-        static_cast<float*>(out), n, c, csm::cell_geom3(d, h, w), qp, p);
-    return cudaGetLastError();
-  });
+  const csm::GatherLayout lay{width, groups, cell_lanes};
+  return csm::launch_gather(
+      lay, c, threads, qp / kQBlock, static_cast<cudaStream_t>(stream),
+      [](auto gw, auto vec, auto threads) {
+        return &blend_kernel<decltype(gw)::value, decltype(vec)::value,
+                             decltype(threads)::value>;
+      },
+      static_cast<const float*>(vol), static_cast<const float*>(pts),
+      static_cast<const float*>(occ), static_cast<const int*>(hasv),
+      static_cast<float*>(out), n, c, csm::cell_geom3(d, h, w), qp, lay,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop));
 }
 
 // dvol (D, H, W, N, C) must be zeroed.  The launch layout (width,

@@ -31,14 +31,28 @@
 // Design:
 // * The TPU kernels sort the queries by z bin, pad each bin to whole
 //   blocks, and contract one-hot panels against each block's three slabs
-//   on the MXU.  Only the sort is carried over: a thread per query walks
+//   on the MXU.  Only the sort is carried over: the lanes of a query walk
 //   its own corners (fused_rows.cuh) over every cell, each cell's floor
-//   taken as floor(base + offset), reading the cells in place.  A corner
-//   outside the volume is dropped, so the queries of the clamped edge
-//   bins and the slabs outside [0, D - 1] need no mask (the JAX kernels'
-//   zmask and kmask).
-// * blend blocks: (table block, channel group).  The rows go back to query
-//   order through perm.
+//   taken as floor(base + offset).  A corner outside the volume is
+//   dropped, so the queries of the clamped edge bins and the slabs
+//   outside [0, D - 1] need no mask (the JAX kernels' zmask and kmask).
+// * blend, three stages in one entry point.  A tiled transpose copies the
+//   cells into a texel-major (D, H, W, N, C) temporary (0.41 ms at
+//   16 x 4 x 128^3, bound 0.32).  The gather (csrc/texel_gather.cuh,
+//   shared with fused3b_blend) then serves a table block a block with a
+//   few lanes a query: at C = 4 two, over its cells 2j and 2j + 1, so
+//   one warp instruction reads both 16-byte records of a texel, a whole
+//   sector (75 M sectors at 1 M points where a thread a query reading
+//   the planar cells took 509 M, one a 4-byte load;
+//   scripts/count_brick_flush.py).  Each query's rows go to a (Q, 7, C)
+//   temporary, 112 contiguous bytes at C = 4, and the transpose writes
+//   them out as (7, C, Q): stored in query order straight from the
+//   lanes, each of a query's 28 values took a sector of its own (27 M at
+//   1 M points, against 4 M).  The wrapper allocates both temporaries.
+//   Below a measured number of points a texel (ops/cuda/fused3s.py
+//   planar) the copy costs more than it saves, and the gather reads the
+//   cells in place, a channel a load: at 100 000 points on 16 x 4 x 128^3
+//   0.50 ms against 0.62, at 200 000 0.84 against 0.74.
 // * bwd (csrc/texel_scatter.cuh, shared with fused3b_bwd): a block per
 //   table block stages its queries' points and cotangents, and a warp's
 //   lanes run over (query, cell).  Into a texel-major (D, H, W, N, C)
@@ -56,17 +70,22 @@
 //   lanes over queries, against 0.83 through the scratch (1 M points:
 //   8.1, 7.1 and 2.4; PERF.md section 6), so the planar layout is gone.
 //   f32 atomics: not deterministic.
+// * The transpose (entry point texel_transpose, any 4- or 8-byte element)
+//   is also the layout move of ops/cuda/fused3b.py cells_to_vol /
+//   vol_to_cells on the card, where torch's permuted copies took 0.80 and
+//   4.30 ms at 16 x 4 x 128^3.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "fused_rows.cuh"
+#include "texel_gather.cuh"
 #include "texel_scatter.cuh"
 
 namespace {
 
 using csm::CellGeom;
-using csm::kGroupChannels;
 using csm::SamplerParams;
 
 constexpr int kQBlock = 128;  // queries of a table block, threads a block
@@ -81,46 +100,23 @@ __device__ __forceinline__ Block block_of(const int* __restrict__ table) {
   return Block{t[1], t[2]};
 }
 
-__global__ void __launch_bounds__(kQBlock)
-    blend_kernel(const float* __restrict__ cells,
+// Block (bx, by): table block bx's queries, channels [by * groups * G,
+// ...) of c, gathered from the texel-major copy vol (D, H, W, N, C), or
+// where PLANAR from the cells (N, C, D, H, W) themselves
+// (csrc/texel_gather.cuh), into rows (Q, 7, C) in query order.
+template <int G, bool VEC, int THREADS, bool PLANAR>
+__global__ void __launch_bounds__(THREADS)
+    blend_kernel(const float* __restrict__ vol,
                  const float* __restrict__ points,
                  const int* __restrict__ perm, const int* __restrict__ table,
-                 float* __restrict__ out, int n, int c, int cw, CellGeom<3> g,
-                 int q, SamplerParams p) {
-  constexpr int R = csm::kRows<3>;
+                 float* __restrict__ rows, int n, int c, CellGeom<3> geom,
+                 int q, csm::GatherLayout lay, SamplerParams p) {
   const Block b = block_of(table);
-  if (static_cast<int>(threadIdx.x) >= b.count) return;
-  const int c0 = blockIdx.y * cw;
-  const int cg = min(cw, c - c0);
-  const int qi = perm[b.first + threadIdx.x];
-  const float pt[3] = {points[3 * qi], points[3 * qi + 1],
-                       points[3 * qi + 2]};
-  float acc[R][kGroupChannels];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < kGroupChannels; ++j) acc[r][j] = 0.0f;
-  for (int ni = 0; ni < n; ++ni) {
-    const float* cell = cells + (static_cast<int64_t>(ni) * c + c0) * g.texels;
-    csm::for_each_corner<3>(
-        g, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
-#pragma unroll
-          for (int j = 0; j < kGroupChannels; ++j) {
-            if (j < cg) {
-              const float v = cell[idx + j * g.texels];
-#pragma unroll
-              for (int r = 0; r < R; ++r)
-                acc[r][j] = fmaf(wr[r], v, acc[r][j]);
-            }
-          }
-        });
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < kGroupChannels; ++j)
-      if (j < cg)
-        out[static_cast<int64_t>(r * c + c0 + j) * q + qi] = acc[r][j];
+  if (b.count == 0) return;
+  const bool mine = static_cast<int>(threadIdx.x) < b.count;
+  csm::gather_block<G, VEC, true, PLANAR>(
+      csm::GatherQuery{mine, mine ? perm[b.first + threadIdx.x] : 0}, points,
+      vol, rows, q, n, c, lay, geom, p);
 }
 
 // Block (bx, by): table block bx's queries, channel groups [by *
@@ -140,51 +136,113 @@ __global__ void __launch_bounds__(csm::kScatterMaxThreads)
       points, scratch, n, c, lay, geom, p);
 }
 
-constexpr int kTile = 32;      // transpose tile: kTile x kTile floats
+constexpr int kTile = 32;      // transpose tile: kTile x kTile elements
 constexpr int kTileRows = 8;   // thread rows a transpose block
 
-// out (cols, rows) = in (rows, cols) transposed: the texel-major scratch
-// (D * H * W, N * C) back to the cells' (N * C, D * H * W), through a
-// shared-memory tile so that both the reads and the writes are rows of
-// 128 bytes a warp.
+// out (cols, rows) = in (rows, cols) transposed, T a 4- or 8-byte element
+// copied bit for bit: the cells (N * C, D * H * W) to the texel-major
+// (D * H * W, N * C) and back.  A shared-memory tile makes both the reads
+// and the writes rows of kTile elements a warp.  The longer of the two
+// axes goes on grid axis x (2^31 - 1 blocks), the shorter on y (65 535):
+// at 128^3, D * H * W needs 65 536 tiles.
+template <typename T>
 __global__ void __launch_bounds__(kTile * kTileRows)
-    transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     int64_t rows, int cols) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int c0 = blockIdx.y * kTile;
+    transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
+                     int64_t rows, int64_t cols, bool rows_on_x) {
+  __shared__ T tile[kTile][kTile + 1];
+  const int64_t r0 = (rows_on_x ? blockIdx.x : blockIdx.y) *
+                     static_cast<int64_t>(kTile);
+  const int64_t c0 = (rows_on_x ? blockIdx.y : blockIdx.x) *
+                     static_cast<int64_t>(kTile);
   const int tx = threadIdx.x;
   for (int i = threadIdx.y; i < kTile; i += kTileRows)
     if (r0 + i < rows && c0 + tx < cols)
-      tile[i][tx] = __ldg(in + (r0 + i) * cols + c0 + tx);
+      tile[i][tx] = in[(r0 + i) * cols + c0 + tx];
   __syncthreads();
   for (int i = threadIdx.y; i < kTile; i += kTileRows)
     if (c0 + i < cols && r0 + tx < rows)
-      out[static_cast<int64_t>(c0 + i) * rows + r0 + tx] = tile[tx][i];
+      out[(c0 + i) * rows + r0 + tx] = tile[tx][i];
+}
+
+// Launches transpose_kernel over (rows, cols) elements of elem_bytes (4 or
+// 8) bytes on the stream.
+cudaError_t transpose(const void* in, void* out, int64_t rows, int64_t cols,
+                      int elem_bytes, cudaStream_t s) {
+  if (rows == 0 || cols == 0) return cudaGetLastError();
+  const bool rows_on_x = rows >= cols;
+  const int64_t tx = (std::max(rows, cols) + kTile - 1) / kTile;
+  const int64_t ty = (std::min(rows, cols) + kTile - 1) / kTile;
+  if (tx > 2147483647 || ty > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(tx), static_cast<unsigned>(ty));
+  const dim3 block(kTile, kTileRows);
+  if (elem_bytes == 4)
+    transpose_kernel<uint32_t><<<grid, block, 0, s>>>(
+        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), rows,
+        cols, rows_on_x);
+  else if (elem_bytes == 8)
+    transpose_kernel<uint64_t><<<grid, block, 0, s>>>(
+        static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), rows,
+        cols, rows_on_x);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Stage 1 transposes the cells (N, C, D, H, W) into vol, a texel-major
+// (D, H, W, N, C) copy of them; stage 2 gathers from it into rows
+// (Q, 7, C), which stage 3 transposes into out (7, C, Q).  planar: no
+// stage 1, the gather reads the cells a channel a load (vol unused).
+// The launch layout (width, groups, cell lanes) and threads a block come
+// from ops/cuda/gather.py gather_geometry, planar from ops/cuda/fused3s.py.
 int fused3s_blend(const void* cells, const void* points, const void* perm,
-                  const void* table, void* out, int n, int c, int d, int h,
-                  int w, int q, int nb, int kernel, int padding, int align,
+                  const void* table, void* vol, void* rows, void* out,
+                  int n, int c, int d, int h, int w, int q, int nb,
+                  int width, int groups, int cell_lanes, int threads,
+                  int planar, int kernel, int padding, int align,
                   int multicell, int strict, float off_step, float off_stop,
                   void* stream) {
+  static_assert(kQBlock == csm::kGatherQueries, "one table block a block");
   if (q == 0 || c == 0) return cudaGetLastError();
   auto s = static_cast<cudaStream_t>(stream);
-  if (n == 0 || nb == 0)
+  if (n == 0 || nb == 0 || d * h * w == 0)
     return cudaMemsetAsync(out, 0, static_cast<size_t>(7) * c * q * 4, s);
-  const SamplerParams p = csm::make_params(kernel, padding, align, multicell,
-                                           strict, off_step, off_stop);
-  const int cw = csm::group_width(c);
-  const dim3 grid(nb, csm::channel_groups(c));
-  blend_kernel<<<grid, kQBlock, 0, s>>>(
-      static_cast<const float*>(cells), static_cast<const float*>(points),
-      static_cast<const int*>(perm), static_cast<const int*>(table),
-      static_cast<float*>(out), n, c, cw, csm::cell_geom3(d, h, w), q, p);
-  return cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if (!planar) {
+    err = transpose(cells, vol, static_cast<int64_t>(n) * c,
+                    static_cast<int64_t>(d) * h * w, 4, s);
+    if (err != cudaSuccess) return err;
+  }
+  const csm::GatherLayout lay{width, groups, cell_lanes};
+  const auto gather = [&](auto pick, const void* src) {
+    return csm::launch_gather(
+        lay, c, threads, nb, s, pick, static_cast<const float*>(src),
+        static_cast<const float*>(points), static_cast<const int*>(perm),
+        static_cast<const int*>(table), static_cast<float*>(rows), n, c,
+        csm::cell_geom3(d, h, w), q, lay,
+        csm::make_params(kernel, padding, align, multicell, strict,
+                         off_step, off_stop));
+  };
+  // planar cells take scalar loads whatever the channel count
+  err = planar ? gather(
+                     [](auto gw, auto, auto threads) {
+                       return &blend_kernel<decltype(gw)::value, false,
+                                            decltype(threads)::value, true>;
+                     },
+                     cells)
+               : gather(
+                     [](auto gw, auto vec, auto threads) {
+                       return &blend_kernel<decltype(gw)::value,
+                                            decltype(vec)::value,
+                                            decltype(threads)::value, false>;
+                     },
+                     vol);
+  if (err != cudaSuccess) return err;
+  return transpose(rows, out, q, static_cast<int64_t>(csm::kRows<3>) * c, 4,
+                   s);
 }
 
 // The scatter adds into scratch (texel-major (D, H, W, N, C), zeroed) and
@@ -200,9 +258,6 @@ int fused3s_bwd(const void* g, const void* points, const void* perm,
   static_assert(kQBlock == csm::kScatterQueries, "one table block a block");
   if (q == 0 || n == 0 || c == 0 || nb == 0 || d * h * w == 0)
     return cudaGetLastError();
-  const int64_t rows = static_cast<int64_t>(d) * h * w;
-  const int cols = n * c;
-  if (csm::cdiv(cols, kTile) > 65535) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const csm::ScatterLayout lay{width, block_groups, lane_groups, lanes};
   const cudaError_t err = csm::launch_scatter(
@@ -216,12 +271,17 @@ int fused3s_bwd(const void* g, const void* points, const void* perm,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop));
   if (err != cudaSuccess) return err;
-  transpose_kernel<<<dim3(static_cast<unsigned>((rows + kTile - 1) / kTile),
-                          csm::cdiv(cols, kTile)),
-                     dim3(kTile, kTileRows), 0, s>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(out), rows,
-      cols);
-  return cudaGetLastError();
+  return transpose(scratch, out, static_cast<int64_t>(d) * h * w,
+                   static_cast<int64_t>(n) * c, 4, s);
+}
+
+// out (cols, rows) = in (rows, cols) transposed, elements of elem_bytes
+// (4 or 8) bytes copied bit for bit: the layout move of
+// ops/cuda/fused3b.py cells_to_vol / vol_to_cells.
+int texel_transpose(const void* in, void* out, int rows, int cols,
+                    int elem_bytes, void* stream) {
+  return transpose(in, out, rows, cols, elem_bytes,
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

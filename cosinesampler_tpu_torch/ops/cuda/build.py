@@ -115,18 +115,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
         fn.restype = i32
-    # cells, points, perm, table, out; n, c, d, h, w, q, table blocks,
-    # kernel, padding, align, multicell, strict; the offset lattice's step
-    # and stop; the stream
-    lib.fused3s_blend.argtypes = [ptr] * 5 + [i32] * 12 + [f32, f32, ptr]
+    # cells, points, perm, table, the texel-major copy, the query-major
+    # rows, out; n, c, d, h, w, q, table blocks, the gather layout (width,
+    # groups, cell lanes, threads), planar, kernel, padding, align,
+    # multicell, strict; the offset lattice's step and stop; the stream
+    lib.fused3s_blend.argtypes = [ptr] * 7 + [i32] * 17 + [f32, f32, ptr]
     # g, points, perm, table, scratch, out; n, c, d, h, w, q, table
     # blocks, the scatter layout (width, block groups, lane groups, lanes,
     # threads), then as fused3s_blend
     lib.fused3s_bwd.argtypes = [ptr] * 6 + [i32] * 17 + [f32, f32, ptr]
-    # vol, slot points, occ, hasv, out; n, c, d, h, w, qp, kernel, padding,
-    # align, multicell, strict; the offset lattice's step and stop; the
-    # stream
-    lib.fused3b_blend.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
+    # vol, slot points, occ, hasv, out; n, c, d, h, w, qp, the gather
+    # layout (width, groups, cell lanes, threads), kernel, padding, align,
+    # multicell, strict; the offset lattice's step and stop; the stream
+    lib.fused3b_blend.argtypes = [ptr] * 5 + [i32] * 15 + [f32, f32, ptr]
     # g, slot points, occ, hasv, dvol; n, c, d, h, w, qp, the scatter
     # layout (width, block groups, lane groups, lanes, threads), then as
     # fused3b_blend
@@ -134,6 +135,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.fused3s_blend, lib.fused3s_bwd, lib.fused3b_blend,
                lib.fused3b_bwd):
         fn.restype = i32
+    # in, out; rows, cols, element bytes; the stream
+    lib.texel_transpose.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.texel_transpose.restype = i32
     # g, slot points, occ, hasv, sbi, first, last, visited, bricks; n, c,
     # d, h, w, qp, nsb, nbz, nysb, own, rows_s, fp, nsh, kernel, padding,
     # align, multicell, strict; the offset lattice's step and stop; the

@@ -17,11 +17,18 @@ Counterpart of the JAX package's ops/pallas/fused3b.py, the route of large
   one 16-byte load at C = 4, and its transpose adds them with one vector
   atomic.  The TPU layout's 128-lane W padding, sublane-padded N and
   z/y front pads exist for its DMA tiling and are not carried over.
+  ``cells_to_vol`` / ``vol_to_cells`` move a tensor between the two
+  layouts, differentiably: on the card through the tiled transpose of
+  csrc/fused3s.cu (``transpose_layout``, counted in its ``launches``),
+  on the CPU through torch's permuted copy (``plain_cells_to_vol`` /
+  ``plain_vol_to_cells``, the plain versions the kernel is held to).
 * ``plain_fused3b_blend_vol`` / ``plain_fused3b_bwd_vol``: plain PyTorch,
   the fused rows of ops/cuda/fused2w.py over the plan's slot-ordered
   points, masked by ``occ``.  They are the oracle the kernels are held to.
 * ``fused3b_blend_vol`` / ``fused3b_bwd_vol``: the wrappers of the
-  hand-written CUDA kernels in csrc/fused3b.cu.  A tensor on the CPU takes
+  hand-written CUDA kernels in csrc/fused3b.cu, over the shared gather
+  (csrc/texel_gather.cuh, layouts ops/cuda/gather.py) and scatter
+  (csrc/texel_scatter.cuh, ops/cuda/scatter.py).  A tensor on the CPU takes
   the plain version; a CUDA tensor launches the kernel on the current
   stream, or raises for what the kernel does not take.  Each wrapper
   counts its launches in its ``launches`` attribute.
@@ -54,14 +61,16 @@ from ..coords import clip_coordinates, reflect_coordinates, unnormalize
 from .build import BLOCK_SMEM_BYTES, check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
+from .gather import GatherGeometry, gather_geometry
 from .scatter import ScatterGeometry, scatter_geometry
 
 __all__ = ["cells_to_vol", "fold_bricks", "fused3b_blend_vol",
            "fused3b_bwd_ghost_vol", "fused3b_bwd_vol", "ghost_bricks",
-           "ghost_fits", "ghost_plan", "launch_bwd", "make_plan",
-           "plain_fold_bricks", "plain_fused3b_blend_vol",
-           "plain_fused3b_bwd_ghost_vol", "plain_fused3b_bwd_vol",
-           "plain_ghost_bricks", "supports", "vol_layout", "vol_to_cells"]
+           "ghost_fits", "ghost_plan", "launch_blend", "launch_bwd",
+           "make_plan", "plain_cells_to_vol", "plain_fold_bricks",
+           "plain_fused3b_blend_vol", "plain_fused3b_bwd_ghost_vol",
+           "plain_fused3b_bwd_vol", "plain_ghost_bricks", "plain_vol_to_cells",
+           "supports", "transpose_layout", "vol_layout", "vol_to_cells"]
 
 # the JAX package's defaults (fused3b.V3B_Q_BLOCK, V3B_GY): slots per plan
 # block, and y rows per bin; csrc/fused3b.cu runs one CUDA block of
@@ -197,22 +206,89 @@ def vol_layout(n: int, c: int, in_spatial) -> Tuple[int, ...]:
     return (*in_spatial, n, c)
 
 
+def plain_cells_to_vol(cells: torch.Tensor) -> torch.Tensor:
+    """(N, C, D, H, W) -> the kernel layout (D, H, W, N, C), a new tensor:
+    torch's permuted copy, the plain version of cells_to_vol."""
+    return cells.permute(2, 3, 4, 0, 1).clone(
+        memory_format=torch.contiguous_format)
+
+
+def plain_vol_to_cells(vol: torch.Tensor) -> torch.Tensor:
+    """Kernel layout (D, H, W, N, C) -> (N, C, D, H, W), a new tensor: the
+    plain version of vol_to_cells."""
+    return vol.permute(3, 4, 0, 1, 2).clone(
+        memory_format=torch.contiguous_format)
+
+
+def transpose_layout(x: torch.Tensor, to_vol: bool) -> torch.Tensor:
+    """The layout move of a contiguous f32 or f64 CUDA tensor by the tiled
+    transpose kernel (csrc/fused3s.cu ``texel_transpose``): (N, C, D, H,
+    W) -> (D, H, W, N, C) where ``to_vol``, the other way otherwise; bit
+    for bit.  Counts its launches in ``launches``."""
+    cuda_device(x)
+    if x.dim() != 5:
+        raise ValueError(f"the layout move takes a 5-D tensor; got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the layout move takes float32 or float64, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the layout move takes a contiguous tensor")
+    if to_vol:
+        n, c, d, h, w = x.shape
+        rows, cols, shape = n * c, d * h * w, (d, h, w, n, c)
+    else:
+        d, h, w, n, c = x.shape
+        rows, cols, shape = d * h * w, n * c, (n, c, d, h, w)
+    if max(rows, cols) >= 2**31:
+        raise ValueError("too many rows or columns for the layout move")
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    lib = load_kernels()
+    with torch.cuda.device(x.device):
+        err = lib.texel_transpose(
+            x.data_ptr(), out.data_ptr(), rows, cols, x.element_size(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, err, "texel_transpose launch")
+    transpose_layout.launches += 1
+    return out
+
+
+def _move(x: torch.Tensor, to_vol: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return plain_cells_to_vol(x) if to_vol else plain_vol_to_cells(x)
+    return transpose_layout(x, to_vol)
+
+
+class _LayoutMove(torch.autograd.Function):
+    """The layout move, whose backward is the move the other way."""
+
+    @staticmethod
+    def forward(ctx, x, to_vol):
+        ctx.to_vol = to_vol
+        return _move(x, to_vol)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _LayoutMove.apply(g.contiguous(), not ctx.to_vol), None
+
+
 def cells_to_vol(cells: torch.Tensor) -> torch.Tensor:
     """(N, C, D, H, W) -> the kernel layout (D, H, W, N, C); a pure
-    permutation, differentiable."""
-    return cells.permute(2, 3, 4, 0, 1).contiguous()
+    permutation, differentiable: the transpose kernel on a CUDA tensor,
+    plain_cells_to_vol on a CPU one."""
+    return _LayoutMove.apply(cells, True)
 
 
 def vol_to_cells(vol: torch.Tensor) -> torch.Tensor:
     """Kernel layout (D, H, W, N, C) -> (N, C, D, H, W); the inverse of
-    cells_to_vol."""
-    return vol.permute(3, 4, 0, 1, 2).contiguous()
+    cells_to_vol, the same way."""
+    return _LayoutMove.apply(vol, False)
 
 
 def plain_fused3b_blend_vol(vol, plan, cfg: SamplerConfig):
     """(7, C, QP) fused rows at the plan's slots, zero in pad slots."""
     occ, pts_p = plan[1], plan[5]
-    out = plain_fused_blend(vol_to_cells(vol), pts_p, cfg)
+    out = plain_fused_blend(plain_vol_to_cells(vol), pts_p, cfg)
     return out * occ.to(out.dtype)
 
 
@@ -223,7 +299,7 @@ def plain_fused3b_bwd_vol(g_p, plan, in_spatial, cfg: SamplerConfig,
     occ, pts_p = plan[1], plan[5]
     dcells = plain_fused_bwd(g_p * occ.to(g_p.dtype), pts_p,
                              tuple(in_spatial), cfg, n_cells)
-    return cells_to_vol(dcells)
+    return plain_cells_to_vol(dcells)
 
 
 def _plan_args(plan, qp_tensor: torch.Tensor):
@@ -270,11 +346,23 @@ def fused3b_blend_vol(vol: torch.Tensor, plan,
     tensors, plain on CPU ones."""
     if vol.device.type == "cpu" and plan[5].device.type == "cpu":
         return plain_fused3b_blend_vol(vol, plan, cfg)
-    c = vol.shape[-1]
-    out = torch.empty((7, c, plan[1].shape[0]), dtype=torch.float32,
-                      device=vol.device)
-    _launch("fused3b_blend", vol, plan, out, cfg, tuple(vol.shape), out)
+    if vol.dim() != 5:
+        raise ValueError(f"fused3b_blend takes a (D, H, W, N, C) volume; "
+                         f"got {tuple(vol.shape)}")
+    out = launch_blend(vol, plan, cfg, gather_geometry(
+        vol.shape[3], vol.shape[4], bricked=True))
     fused3b_blend_vol.launches += 1
+    return out
+
+
+def launch_blend(vol: torch.Tensor, plan, cfg: SamplerConfig,
+                 geom: GatherGeometry) -> torch.Tensor:
+    """fused3b_blend_vol's kernel with the launch layout ``geom``
+    (ops/cuda/gather.py), on the card; not counted."""
+    out = torch.empty((7, vol.shape[-1], plan[1].shape[0]),
+                      dtype=torch.float32, device=vol.device)
+    _launch("fused3b_blend", vol, plan, out, cfg, tuple(vol.shape), out,
+            geom.args())
     return out
 
 
@@ -327,6 +415,7 @@ def fused3b_bwd_ghost_vol(g_p: torch.Tensor, plan,
     return dvol
 
 
+transpose_layout.launches = 0
 fused3b_blend_vol.launches = 0
 fused3b_bwd_vol.launches = 0
 fused3b_bwd_ghost_vol.launches = 0
@@ -437,7 +526,7 @@ def plain_ghost_bricks(g_p, plan, gplan, in_spatial, cfg: SamplerConfig,
         if sbs.numel() == 0:
             continue
         idx = torch.nonzero(live & (sb_class[slot_sb] == k)).flatten()
-        part = cells_to_vol(plain_fused_bwd(
+        part = plain_cells_to_vol(plain_fused_bwd(
             g_p[:, :, idx], pts_p[idx], tuple(in_spatial), cfg, n_cells))
         # the padded volume: fp in front of z and y, room behind for the
         # last windows

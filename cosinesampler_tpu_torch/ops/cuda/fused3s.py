@@ -23,11 +23,19 @@ section 4).
   csrc/fused3s.cu, whose blocks each serve queries of one bin, their
   corners within three z slabs of each cell.
   Each takes the sort as ``order`` or makes its own; the fused op sorts
-  once for a blend and its transpose.  The transpose's lanes run over
-  (query, cell) (csrc/texel_scatter.cuh, shared with fused3b_bwd) and
-  add into a texel-major (D, H, W, N, C) scratch, so that neighbouring
-  lanes add neighbouring 16-byte records of one texel; a tiled transpose
-  in the same entry point writes the (N, C, D, H, W) cotangent.  A
+  once for a blend and its transpose.  The blend copies the cells into a
+  texel-major (D, H, W, N, C) temporary with a tiled transpose, gathers
+  from it with a few lanes a query (csrc/texel_gather.cuh, shared with
+  fused3b_blend; layouts ops/cuda/gather.py), so that one warp
+  instruction reads whole sectors, and writes each query's rows to a
+  (Q, 7, C) temporary that the transpose turns into (7, C, Q); below
+  PLANAR_POINTS_PER_TEXEL points a texel (``planar``), where the copy
+  costs more than it saves, the gather reads the cells in place.  The
+  transpose's lanes run over (query, cell) (csrc/texel_scatter.cuh,
+  shared with fused3b_bwd) and add into a texel-major scratch, so that
+  neighbouring lanes add neighbouring 16-byte records of one texel; the
+  tiled transpose in the same entry point writes the (N, C, D, H, W)
+  cotangent.  A
   tensor on the CPU takes the plain version; a CUDA tensor launches the
   kernel on the current stream, or raises for what the kernel does not
   take (``supports``).  Each wrapper counts its launches in its
@@ -46,17 +54,25 @@ from .build import check, load_kernels
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
 from .fused3b import bin_base, vol_layout
+from .gather import GatherGeometry, gather_geometry
 from .scatter import ScatterGeometry, scatter_geometry
 
-__all__ = ["PADDING_MODES", "Q_BLOCK", "Z_LO", "fused_blend", "fused_bwd",
-           "launch_bwd", "plain_fused_blend", "plain_fused_bwd", "supports",
-           "zsort"]
+__all__ = ["PADDING_MODES", "PLANAR_POINTS_PER_TEXEL", "Q_BLOCK", "Z_LO",
+           "fused_blend", "fused_bwd", "launch_blend", "launch_bwd", "planar",
+           "plain_fused_blend", "plain_fused_bwd", "supports", "zsort"]
 
 # queries a block serves at most (csrc/fused3s.cu kQBlock)
 Q_BLOCK = 128
 # the lowest bin's z floor: fz = -2 still has a corner at z = 0
 # (fused3s._ZLO)
 Z_LO = -2
+# points per texel of a cell below which fused3s_blend reads the cells in
+# place instead of through a texel-major copy (planar): on 16 x 4 x 128^3
+# planar won at 100 000 points (0.048 a texel; 0.4960 ms against 0.6209)
+# and lost at 200 000 (0.095; 0.8395 against 0.7403), and on 64^3 it
+# lost from 49 152 points (0.19) up (chip_smoke.py gather_sweep_phase,
+# PERF.md section 6)
+PLANAR_POINTS_PER_TEXEL = 0.05
 # the JAX kernels' padding modes (prep.FUSED_PADDING_MODES): reflection's
 # fold can reverse the per-cell shift, sending corners outside the bin's
 # three slabs
@@ -152,12 +168,40 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
         raise ValueError(f"fused3s_blend takes cells (N, C, D, H, W) and "
                          f"points (Q, 3); got {tuple(cells.shape)} and "
                          f"{tuple(points.shape)}")
-    n, c, *spatial = cells.shape
-    out = torch.empty((7, c, points.shape[0]), dtype=torch.float32,
-                      device=cells.device)
-    _launch("fused3s_blend", cells, points, (out,), cfg, n, c,
-            tuple(spatial), order)
+    out = launch_blend(cells, points, cfg, order,
+                       gather_geometry(cells.shape[0], cells.shape[1]),
+                       planar(points.shape[0], cells.shape[2:]))
     fused_blend.launches += 1
+    return out
+
+
+def planar(q: int, spatial) -> bool:
+    """Whether fused3s_blend reads the cells in place (planar) rather than
+    through a texel-major copy: below PLANAR_POINTS_PER_TEXEL points per
+    texel of a cell, where the copy, which costs the stack's bytes read
+    and written whatever Q, outweighs the sectors the texel-major reads
+    save a query."""
+    return q < PLANAR_POINTS_PER_TEXEL * math.prod(spatial)
+
+
+def launch_blend(cells: torch.Tensor, points: torch.Tensor,
+                 cfg: SamplerConfig, order, geom: GatherGeometry,
+                 planar: bool = False) -> torch.Tensor:
+    """fused_blend's kernels with the launch layout ``geom``
+    (ops/cuda/gather.py), on the card; not counted.  A tiled transpose
+    copies the cells into a texel-major (D, H, W, N, C) temporary (not
+    where ``planar``: the gather then reads the cells a channel a load),
+    the gather writes each query's rows to a (Q, 7, C) temporary, and the
+    transpose writes them out in (7, C, Q) layout; the temporaries are
+    freed on return."""
+    n, c, *spatial = cells.shape
+    q = points.shape[0]
+    vol = cells if planar else torch.empty(
+        vol_layout(n, c, spatial), dtype=torch.float32, device=cells.device)
+    rows = torch.empty((q, 7, c), dtype=torch.float32, device=cells.device)
+    out = torch.empty((7, c, q), dtype=torch.float32, device=cells.device)
+    _launch("fused3s_blend", cells, points, (vol, rows, out), cfg, n, c,
+            tuple(spatial), order, (*geom.args(), int(planar)))
     return out
 
 

@@ -4,6 +4,9 @@ design of fused3b_bwd (and, with --fused3s, of fused3s_bwd).
 
     PYTHONPATH=. python scripts/count_brick_flush.py [--device cuda]
     PYTHONPATH=. python scripts/count_brick_flush.py --fused3s [--points Q]
+    PYTHONPATH=. python scripts/count_brick_flush.py --blend [--cell-dim 16]
+    PYTHONPATH=. python scripts/count_brick_flush.py --blend --fused3s \
+        [--points Q]
 
 fused3b_bwd adds each (real query, cell, in-bounds corner) contribution
 to the (D, H, W, N, C) volume with one 16-byte vector reduction at C = 4.
@@ -30,8 +33,13 @@ prints the counts.  With --fused3s it takes --points uniform points
 (seed 0) in fused3s's z sort (ops/cuda/fused3s.py zsort) instead, and
 counts a thread a query adding 4-byte scalars to the planar
 (N, C, D, H, W) cotangent (the design before) against lanes over
-(query, cell) adding 16-byte records to a texel-major scratch.  Integer
-counts, no timing: the device only makes it quick.
+(query, cell) adding 16-byte records to a texel-major scratch.  With
+--blend it counts the blend's loads instead (fused3b_blend, or
+fused3s_blend with --fused3s): the sectors each candidate layout of
+csrc/texel_gather.cuh reads (BLEND_LAYOUTS: a thread a query, 2 and 4
+lanes a query, the channel splits at C = 16) and, for fused3s, the
+planar reads of the design before and the stores of the rows in query
+order.  Integer counts, no timing: the device only makes it quick.
 """
 
 from __future__ import annotations
@@ -157,6 +165,147 @@ def count_fused3b(args, cfg, pts):
           flush=True)
 
 
+# the blends' load layouts (csrc/texel_gather.cuh): name -> (width,
+# groups, cell lanes, grid passes) at C = 4 and C = 16; the design before
+# the shared gather body is "a thread a query" (fused3b's, over the
+# texel-major volume; fused3s's read the planar cells, counted apart)
+BLEND_LAYOUTS = {
+    4: {"a thread a query": (4, 1, 1, 1),
+        "2 lanes a query (cells 2j, 2j + 1)": (4, 1, 2, 1),
+        "4 lanes a query (cells 4j .. 4j + 3)": (4, 1, 4, 1)},
+    16: {"a thread a query, 8 channels a grid pass": (8, 1, 1, 2),
+         "2 lanes a query, quads interleaved (8 channels a lane)":
+             (8, 2, 1, 1),
+         "4 lanes a query, a quad a lane": (4, 4, 1, 1),
+         "2 cell lanes, 8 channels a grid pass": (8, 1, 2, 2)},
+}
+
+
+def _gather_sectors(tex, ok, qkey, n, c, layout):
+    """(load instructions, sectors) of a float4 gather from the
+    texel-major volume for one chunk of queries: ``qkey`` (Q,) numbers the
+    groups of queries that share a warp instruction, ``layout`` is
+    (width, groups, cell lanes, grid passes): lane (g, m) of a query reads
+    quads g, g + groups, ... of the pass's channels of cells m, m + cell
+    lanes, ... at each corner."""
+    width, groups, cell_lanes, passes = layout
+    loads = width // 4
+    iters = -(-n // cell_lanes)
+    dev = tex.device
+    cells = torch.arange(n, device=dev)[:, None, None]
+    corner = torch.arange(8, device=dev)[None, :, None]
+    keys, instrs = [], 0
+    for y in range(passes):
+        for kk in range(loads):
+            instr = ((((qkey[None, None, :] * passes + y) * iters
+                       + cells // cell_lanes) * 8 + corner) * loads + kk)
+            for g in range(groups):
+                quad = y * groups * loads + g + kk * groups
+                if 4 * quad >= c:
+                    continue
+                addr = ((tex * n + cells) * c + 4 * quad) * 4
+                keys.append(torch.stack([instr.expand_as(tex)[ok],
+                                         addr[ok] // SECTOR]))
+            instrs += torch.unique(instr.expand_as(tex)[ok]).numel()
+    both = torch.cat(keys, dim=1)
+    span = int(both[1].max()) + 1
+    return instrs, torch.unique(both[0] * span + both[1]).numel()
+
+
+def count_blend_fused3b(args, cfg, pts):
+    """fused3b_blend's loads at each of BLEND_LAYOUTS[C]: the queries of a
+    warp instruction are 32 consecutive slots of a plan block (pad slots
+    idle) for a thread a query, 32 // lanes compacted real slots
+    otherwise."""
+    n, s, c = args.n_cells, args.cell_size, args.cell_dim
+    plan = trim_plan(make_plan(pts, (s, s, s), cfg))
+    slots = plan[0][torch.argsort(plan[0])]
+    real = plan[5][slots]
+    block = slots // Q_BLOCK
+    rank = slots - block * Q_BLOCK
+    zslab = plan[2].to(torch.int64)[block]
+    totals = {name: [0, 0] for name in BLEND_LAYOUTS[c]}
+    bounds = torch.nonzero(torch.diff(zslab, prepend=zslab[:1] - 1)).flatten()
+    starts = bounds[::8].tolist() + [slots.numel()]
+    loads = 0
+    for lo, hi in zip(starts[:-1], starts[1:]):
+        tex, ok = _corners(real[lo:hi], n, s, cfg)
+        loads += int(ok.sum())
+        for name, lay in BLEND_LAYOUTS[c].items():
+            lanes = lay[1] * lay[2]
+            qkey = (slots[lo:hi] // 32 if name.startswith("a thread")
+                    else block[lo:hi] * Q_BLOCK + rank[lo:hi] // (32 // lanes))
+            ins, sec = _gather_sectors(tex, ok, qkey, n, c, lay)
+            totals[name][0] += ins
+            totals[name][1] += sec
+    print(f"fused3b_blend, {n} x {c} x {s}^3, Q={pts.shape[0]}, "
+          f"QP={plan[1].shape[0]}: {loads} (query, cell, in-bounds corner) "
+          f"records of {4 * c} bytes:", flush=True)
+    for name, (ins, sec) in totals.items():
+        print(f"  {name}: {sec} sectors ({sec / loads:.3f} a record), "
+              f"{ins} warp load instructions", flush=True)
+
+
+def count_blend_fused3s(args, cfg, pts):
+    """fused3s_blend's loads and stores at --points uniform points in its z
+    sort: a thread a query reading the planar (N, C, D, H, W) cells (the
+    design before), and each of BLEND_LAYOUTS[C] over the texel-major
+    copy; the stores of a thread a query into (7, C, Q) in query order
+    against a query's rows into (Q, 7, C)."""
+    n, s, c = args.n_cells, args.cell_size, args.cell_dim
+    perm, table = fused3s.zsort(pts, s, cfg)
+    table = table.to(torch.int64)
+    live = table[:, 2] > 0
+    first, count = table[live, 1], table[live, 2]
+    blocks = torch.arange(first.numel(), device=pts.device)
+    block = torch.repeat_interleave(blocks, count)
+    rank = torch.arange(perm.numel(), device=pts.device) - first[block]
+    qi = perm.long()
+    sorted_pts = pts[qi]
+    totals = {name: [0, 0] for name in BLEND_LAYOUTS[c]}
+    planar = loads = 0
+    chunk = 512
+    for b0 in range(0, first.numel(), chunk):
+        sel = (block >= b0) & (block < b0 + chunk)
+        tex, ok = _corners(sorted_pts[sel], n, s, cfg)
+        b, r = block[sel], rank[sel]
+        loads += int(ok.sum())
+        cells = torch.arange(n, device=tex.device)[:, None, None]
+        warp = b * Q_BLOCK + r // 32
+        for ch in range(c):
+            instr = ((warp[None, None, :] * n + cells) * 8
+                     + torch.arange(8, device=tex.device)[None, :, None])
+            addr = ((cells * c + ch) * s ** 3 + tex) * 4
+            planar += _distinct(instr.expand_as(tex), addr, ok)[0]
+        for name, lay in BLEND_LAYOUTS[c].items():
+            lanes = lay[1] * lay[2]
+            ins, sec = _gather_sectors(tex, ok, b * Q_BLOCK + r // (32 // lanes),
+                                       n, c, lay)
+            totals[name][0] += ins
+            totals[name][1] += sec
+    q = pts.shape[0]
+    # stores: a warp of 32 sorted queries writes one (row, channel) of each
+    # at its query's column (8 floats a sector, the rows taken as
+    # aligned); a query's (Q, 7, C) rows are 7 C contiguous floats
+    warp = block * Q_BLOCK + rank // 32
+    key = warp * (q // 8 + 1) + qi // 8
+    per_row = torch.unique(key).numel()
+    print(f"fused3s_blend, {n} x {c} x {s}^3, Q={q}: {loads} (query, cell, "
+          f"in-bounds corner) records; a thread a query, planar: "
+          f"{planar} sectors for {loads * c} 4-byte loads "
+          f"({planar / loads:.3f} a record)", flush=True)
+    for name, (ins, sec) in totals.items():
+        print(f"  texel-major, {name}: {sec} sectors ({sec / loads:.3f} a "
+              f"record), {ins} warp load instructions", flush=True)
+    start = qi * (7 * c * 4)
+    rows = int(((start + 7 * c * 4 - 1) // SECTOR - start // SECTOR
+                + 1).sum())
+    print(f"  stores: (7, C, Q) in query order {7 * c * per_row} sectors "
+          f"({7 * c * per_row / q:.1f} a query); (Q, 7, C) rows {rows} "
+          f"sectors ({rows / q:.1f} a query), then a tiled transpose",
+          flush=True)
+
+
 def count_fused3s(args, cfg, pts):
     n, s, c = args.n_cells, args.cell_size, CHANNELS
     perm, table = fused3s.zsort(pts, s, cfg)
@@ -205,17 +354,24 @@ def main(argv=None):
     ap.add_argument("--fused3s", action="store_true",
                     help="count fused3s_bwd's designs at --points uniform "
                          "points instead")
+    ap.add_argument("--blend", action="store_true",
+                    help="count the blend's loads (fused3b_blend, or "
+                         "fused3s_blend with --fused3s) instead")
+    ap.add_argument("--cell-dim", type=int, default=CHANNELS,
+                    choices=sorted(BLEND_LAYOUTS),
+                    help="channels of --blend")
     args = ap.parse_args(argv)
     cfg = SamplerConfig(dim=3)
     if args.fused3s:
         gen = torch.Generator(device=args.device).manual_seed(0)
         pts = torch.rand((args.points, 3), generator=gen,
                          device=args.device) * 2 - 1
-        count_fused3s(args, cfg, pts)
+        (count_blend_fused3s if args.blend else count_fused3s)(args, cfg,
+                                                               pts)
         return 0
     with PointGenerator(args.points, 3, seed=0) as gen:
         pts = torch.from_numpy(gen.batch(0)).to(args.device)
-    count_fused3b(args, cfg, pts)
+    (count_blend_fused3b if args.blend else count_fused3b)(args, cfg, pts)
     return 0
 
 
