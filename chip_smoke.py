@@ -37,8 +37,11 @@ The layout move between the cells and the texel-major volume
 held to torch's permuted copy bit for bit and counted on the planned
 op.  At 16 feature channels
 the 2D trainer (20 steps) and the 3D trainer (5) go through the routed
-channel-looped v1 kernels (fused_blend / fused_bwd), held to their plain
-versions at C in {9, 12, 16, 32, 64}, and the megakernel trainer (5)
+v1 kernels (fused_blend / fused_bwd: texel-major gathers and scatters),
+held to their plain versions at C in {9, 12, 16, 32, 64}, in every
+variant and on large cells in every launch layout their sweep times
+(v1_layout_sweep_phase, the measurement behind ops/cuda/v1.py), and at
+config 5's C = 16 volume in query order; the megakernel trainer (5)
 through mega2w's channel groups; fused2w's and fused3w's channel groups
 and the wide mega2w are held to their plain versions at 9 to 124
 channels and timed
@@ -99,7 +102,7 @@ from cosinesampler_tpu_torch.ops.cuda import (blend_splat, build, fused2d,
                                               fused2w, fused3b, fused3d,
                                               fused3s, fused3w, gather,
                                               mega2w, percell, route,
-                                              scatter, slab)
+                                              scatter, slab, v1)
 from cosinesampler_tpu_torch.ops.sampler import sample
 from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
@@ -810,7 +813,8 @@ def layout_phase():
     transpose of csrc/fused3s.cu) against torch's permuted copies
     (plain_cells_to_vol / plain_vol_to_cells) on the card, bit for bit,
     and the round trip, at config 5's 16 x 4 x 128^3 and 16 x 16 x 128^3
-    (2.1 GB) and at 6 x 3 x 9 x 10 x 11 in f32 and f64; the autograd
+    (2.1 GB) and at 6 x 3 x 9 x 10 x 11 in f32 and f64, and on 2D stacks
+    (96 x 16 x 16^2, 6 x 3 x 10 x 11 in f64); the autograd
     Function's backward (the move the other way, exactly); the planned
     op's two moves a call, counted; each direction's time at config 5
     against torch's copy and the bound (the tensor read once and written
@@ -818,7 +822,9 @@ def layout_phase():
     for shape, dtype in (((N5, C, S5, S5, S5), torch.float32),
                          ((N5, C_WIDE, S5, S5, S5), torch.float32),
                          ((6, 3, 9, 10, 11), torch.float32),
-                         ((6, 3, 9, 10, 11), torch.float64)):
+                         ((6, 3, 9, 10, 11), torch.float64),
+                         ((N, C_WIDE, H, W), torch.float32),
+                         ((6, 3, 10, 11), torch.float64)):
         x = torch.rand(shape, generator=_cuda_gen(50), device="cuda",
                        dtype=dtype)
         vol = fused3b.cells_to_vol(x)
@@ -829,7 +835,7 @@ def layout_phase():
         line = (f"layout move {'x'.join(map(str, shape))} {dtype}: "
                 f"cells_to_vol == torch's copy, vol_to_cells(cells_to_vol("
                 f"x)) == x, bit for bit")
-        if shape[-1] == S5:
+        if shape[-1] == S5 and len(shape) == 5:
             bound_ms, _ = _bound(2 * x.numel() * x.element_size(), 0)
             to_ms, to_plain = _in_turns(
                 lambda: fused3b.cells_to_vol(x),
@@ -1530,31 +1536,67 @@ FUSED_VARIANTS = [
                                      strict_reference=True), 9)]
 
 
+def compare_fused_v1(name, cfg, n, c, spatial, q, seed=0, lo=-1.2,
+                     hi=1.2):
+    """compare_fused of the v1 pair (the wrappers, the rule's layouts),
+    then every layout of v1.blend_alternatives / v1.bwd_alternatives (the
+    v1 layout sweep's) against the same plain versions, within REL_TOL."""
+    errs = compare_fused("fused", name, cfg, n, c, spatial, q, seed, lo, hi)
+    cells, pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    ref = fused_v1.plain_fused_blend(cells, pts, cfg)
+    dref = fused_v1.plain_fused_bwd(g, pts, spatial, cfg, n)
+    worst = [0.0, 0.0]
+    for geom in v1.blend_alternatives(len(spatial), n, c, q,
+                                      spatial).values():
+        out = fused_v1.launch_blend(cells, pts, cfg, geom)
+        worst[0] = max(worst[0], _rel_err(out, ref)[1])
+        if not worst[0] <= REL_TOL:
+            raise RuntimeError(f"v1 {name}: blend layout {geom} disagrees "
+                               "with the plain version")
+    for geom in v1.bwd_alternatives(len(spatial), n, c).values():
+        out = fused_v1.launch_bwd(g, pts, spatial, cfg, n, geom)
+        worst[1] = max(worst[1], _rel_err(out.reshape(1, -1),
+                                          dref.reshape(1, -1))[1])
+        if not worst[1] <= REL_TOL:
+            raise RuntimeError(f"v1 {name}: bwd layout {geom} disagrees "
+                               "with the plain version")
+    print(f"compare v1 {name}: every swept layout, blend rel {worst[0]:.3e},"
+          f" bwd rel {worst[1]:.3e} (tolerance rel {REL_TOL:g})", flush=True)
+    return errs
+
+
 def fused_v1_kernel_phase():
     """B6 against its plain version at path (a)'s full-width 2D and 3D
-    inputs, at C in {9, 12, 32, 64}, and in each variant (points to +-1.4,
-    Q off every block size)."""
-    errs = compare_fused("fused", "2D path (a)", SamplerConfig(dim=2), N,
-                         C_WIDE, (H, W), Q, lo=-1.0, hi=1.0)
-    errs3 = compare_fused("fused", "3D path (a)", SamplerConfig(dim=3), N3,
-                          C_WIDE, (S3,) * 3, Q, seed=1, lo=-1.0, hi=1.0)
+    inputs, at C in {9, 12, 32, 64}, in each variant (points to +-1.4, Q
+    off every block size) and on large cells, each in the rule's layout
+    and in every layout the v1 sweep times (compare_fused_v1); and at
+    config 5's C = 16 volume in query order (16 x 16 x 128^3, 1 000 000
+    points, 2.1 GB of cells) in the rule's."""
+    errs = compare_fused_v1("2D path (a)", SamplerConfig(dim=2), N, C_WIDE,
+                            (H, W), Q, lo=-1.0, hi=1.0)
+    errs3 = compare_fused_v1("3D path (a)", SamplerConfig(dim=3), N3,
+                             C_WIDE, (S3,) * 3, Q, seed=1, lo=-1.0, hi=1.0)
     for c in (9, 12, 32, 64):
-        compare_fused("fused", f"channels-{c}", SamplerConfig(dim=2), 8, c,
-                      (12, 10), 4099, seed=2, **WIDE)
+        compare_fused_v1(f"channels-{c}", SamplerConfig(dim=2), 8, c,
+                         (12, 10), 4099, seed=2, **WIDE)
     for c in (9, 32):
-        compare_fused("fused", f"3D channels-{c}", SamplerConfig(dim=3), 6,
-                      c, (7, 8, 9), 4099, seed=3, **WIDE)
+        compare_fused_v1(f"3D channels-{c}", SamplerConfig(dim=3), 6, c,
+                         (7, 8, 9), 4099, seed=3, **WIDE)
     for dim, spatial in ((2, (12, 10)), (3, (7, 8, 9))):
         for name, kw, c in FUSED_VARIANTS:
-            compare_fused("fused", f"{dim}D {name}",
-                          SamplerConfig(dim=dim, **kw), 6, c, spatial, 2053,
-                          seed=4, **WIDE)
-    # a bwd channel group of 4 x 32^3 (512 KB) is over the opted-in limit:
-    # the bwd takes global atomics
-    compare_fused("fused", "3D large-cell", SamplerConfig(dim=3), 2, 16,
-                  (32, 32, 32), 4096, seed=5, **WIDE)
-    return {"fused_blend": max(errs[0], errs3[0]),
-            "fused_bwd": max(errs[1], errs3[1])}
+            compare_fused_v1(f"{dim}D {name}", SamplerConfig(dim=dim, **kw),
+                             6, c, spatial, 2053, seed=4, **WIDE)
+    # large cells: 2 x 16 x 32^3 and 2 x 16 x 128^2
+    compare_fused_v1("3D large-cell", SamplerConfig(dim=3), 2, 16,
+                     (32, 32, 32), 4096, seed=5, **WIDE)
+    compare_fused_v1("2D large-cell", SamplerConfig(dim=2), 2, 16,
+                     (128, 128), 4096, seed=5, **WIDE)
+    err5 = compare_fused("fused", f"config-5 C={C_WIDE}",
+                         SamplerConfig(dim=3), N5, C_WIDE, (S5,) * 3, Q5,
+                         seed=6)
+    torch.cuda.empty_cache()
+    return {"fused_blend": max(errs[0], errs3[0], err5[0]),
+            "fused_bwd": max(errs[1], errs3[1], err5[1])}
 
 
 def fused2d_kernel_phase():
@@ -2439,7 +2481,7 @@ WIDE_CHANNELS = (12, 16)
 # (dim, N, S, Q): the sweep's stacks and point counts at each of them
 WIDE_SWEEP = ([(2, N, H, q) for q in (1024, 16384, Q)]
               + [(3, N3, S3, q) for q in (1024, 2048, 4096, 8192, 16384, Q)]
-              + [(3, N5, S5, q) for q in (4096, 8192, Q)])
+              + [(3, N5, S5, q) for q in (4096, 8192, 16384, 32768, Q)])
 
 
 def wide_kernel_phase():
@@ -2485,7 +2527,8 @@ def wide_route_sweep_phase():
     v1 pair, blend + bwd device ms (torch.profiler, 10 calls a window,
     v1, groups, groups, v1, the larger turn kept) at C = 12 and 16 over
     WIDE_SWEEP, inputs drawn on the card: the measurement behind
-    route.FUSED3W_WIDE_MAX_Q.  Prints how many points the rule sends to
+    route.FUSED2W_WIDE_MAX_C / FUSED2W_WIDE_MAX_Q / FUSED3W_WIDE_MAX_Q /
+    FUSED3W_WIDE_MAX_Q_OVER_L2.  Prints how many points the rule sends to
     the slower of the two."""
     rows = []
     for c in WIDE_CHANNELS:
@@ -3365,7 +3408,7 @@ def splat_sweep_phase():
 
 def _sweep(what, runs, geoms, want, reps=10):
     """Each of ``runs`` held to ``want`` within REL_TOL, then timed in turns
-    (the list, then reversed); prints each geometry's ms."""
+    (the list, then reversed); prints and returns each geometry's ms."""
     for name, fn in runs.items():
         _, err = _rel_err(fn().reshape(1, -1), want.reshape(1, -1))
         if not err <= REL_TOL:
@@ -3376,6 +3419,7 @@ def _sweep(what, runs, geoms, want, reps=10):
         ms[k].append(_time_ms(runs[k], reps))
     print(f"{what}: " + "; ".join(f"{k} {tuple(geoms[k])} {sum(v) / 2:.4f} ms"
                                   for k, v in ms.items()), flush=True)
+    return {k: sum(v) / 2 for k, v in ms.items()}
 
 
 def blend_sweep_phase():
@@ -3467,6 +3511,91 @@ def scatter_sweep_phase():
                geoms, runs["rule"](), reps=5)
         del pts, g, order, runs
         torch.cuda.empty_cache()
+
+
+def v1_layout_sweep_phase():
+    """The measurement behind v1.blend_geometry / v1.bwd_geometry: the v1
+    blend and bwd at path (a)'s shapes (96 x 16 x 16^2 and 50 x 16 x 16^3,
+    100 000 points) over every layout of v1.blend_alternatives /
+    v1.bwd_alternatives, and at config 5's volume at C = 16 in query
+    order (16 x 16 x 128^3, 1 000 000 points; the blend's texel-major
+    copy against the cells read in place, the bwd's 128 threads a block
+    against 256), each held to the rule's result and timed in
+    turns (the transposes, zero fills and the wrappers' allocations
+    included); then the blend reading the cells in place against the
+    copy over V1_PLANAR_SWEEP (the measurement behind
+    v1.PLANAR_POINTS_PER_TEXEL), with the count of points where the rule
+    picks the slower read."""
+    for dim, n, s, q in ((2, N, H, Q), (3, N3, S3, Q), (3, N5, S5, Q5)):
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        gen = _cuda_gen(45)
+        cells = torch.rand((n, C_WIDE, *spatial), generator=gen,
+                           device="cuda")
+        pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((1 + 2 * dim, C_WIDE, q), generator=gen,
+                        device="cuda")
+        what = f"{n}x{C_WIDE}x{s}^{dim}, Q={q}"
+        geoms = v1.blend_alternatives(dim, n, C_WIDE, q, spatial)
+        bgeoms = v1.bwd_alternatives(dim, n, C_WIDE)
+        if n == N5:
+            geoms = {k: geoms[k] for k in ("rule", "planar")}
+            bgeoms = {k: bgeoms[k] for k in ("rule", "256 threads")}
+        runs = {k: functools.partial(fused_v1.launch_blend, cells, pts, cfg,
+                                     v) for k, v in geoms.items()}
+        _sweep(f"v1 blend layout sweep ({what})", runs, geoms,
+               runs["rule"](), reps=5)
+        runs = {k: functools.partial(fused_v1.launch_bwd, g, pts, spatial,
+                                     cfg, n, v) for k, v in bgeoms.items()}
+        _sweep(f"v1 bwd layout sweep ({what})", runs, bgeoms,
+               runs["rule"](), reps=5)
+        del cells, pts, g, runs
+        torch.cuda.empty_cache()
+    _v1_planar_sweep()
+
+
+def _v1_planar_sweep():
+    """The v1 blend's planar bound (v1.PLANAR_POINTS_PER_TEXEL): the
+    rule's lanes reading the cells in place against the texel-major copy
+    at C = 16 over V1_PLANAR_SWEEP, held to each other and timed in
+    turns; prints the points where the rule picks the slower read."""
+    wrong = []
+    for dim, n, s, qs in V1_PLANAR_SWEEP:
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        gen = _cuda_gen(46)
+        cells = torch.rand((n, C_WIDE, *spatial), generator=gen,
+                           device="cuda")
+        for q in qs:
+            pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+            rule = v1.blend_geometry(dim, n, C_WIDE, q, spatial)
+            geoms = {"rule": rule, ("copy" if rule.planar else "planar"):
+                     rule._replace(planar=not rule.planar)}
+            runs = {k: functools.partial(fused_v1.launch_blend, cells, pts,
+                                         cfg, v) for k, v in geoms.items()}
+            ms = _sweep(f"v1 blend planar sweep ({n}x{C_WIDE}x{s}^{dim}, "
+                        f"Q={q}, {q / s ** dim:.4f} a texel)", runs, geoms,
+                        runs["rule"](), reps=5)
+            if min(ms, key=ms.get) != "rule":
+                wrong.append((dim, n, s, q))
+            del pts, runs
+        del cells
+        torch.cuda.empty_cache()
+    print(f"v1 blend planar sweep: the rule picks the slower read at "
+          f"{len(wrong)} of {sum(len(p[3]) for p in V1_PLANAR_SWEEP)} points "
+          f"{wrong}", flush=True)
+
+
+# (dim, N, S, point counts) of the v1 blend's planar sweep at C = 16:
+# config 5's volume and a 2D stack of the same bytes (both over the L2),
+# the large cells and path (a)'s stacks (in the L2)
+V1_PLANAR_SWEEP = (
+    (3, N5, S5, (4096, 8192, 16384, 24576, 32768, 49152, 100_000)),
+    (2, N5, 1024, (2048, 4096, 8192, 16384, 32768)),
+    (3, 2, 32, (256, 1024, 4096, 16384, 65536)),
+    (2, 2, 128, (256, 1024, 4096, 16384, 65536)),
+    (3, N3, S3, (256, 1024, 4096, 16384)),
+    (2, N, H, (256, 1024, 4096, 16384, 65536)))
 
 
 # the cells and channels of the gather sweep (gather.gather_geometry)
@@ -3930,6 +4059,7 @@ def main():
     _timed(blend_sweep_phase)
     _timed(scatter_sweep_phase)
     _timed(gather_sweep_phase)
+    _timed(v1_layout_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

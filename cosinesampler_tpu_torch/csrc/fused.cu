@@ -16,47 +16,65 @@
 //   bwd:   g (1 + 2D, C, Q) f32 -> dcells (N, C, *S) f32, the exact
 //          transpose.
 // Every padding mode and interpolant, multicell on and off, both
-// align_corners, the strict-reference reflection span; any C.
+// align_corners, the strict-reference reflection span; any C.  Each
+// cell's floor is taken as floor(base + offset) (fused_rows.cuh).
 //
-// Design:
-// * The TPU kernels loop over the cells with the whole stack resident in
-//   VMEM and contract one-hot corner matrices on the MXU, because the TPU
-//   has no per-lane gather.  None of that is carried over: one thread per
-//   (query, channel group) walks the cells through fused_rows.cuh's corner
-//   walk and gathers from global memory (a 96 x 16 x 16^2 stack, 1.6 MB,
-//   sits in L2).
-// * Channels: grid axis y walks groups of at most 8 channels of equal
-//   width (C = 16: two of 8; C = 12: two of 6; C = 9: 5 and 4), so a
-//   thread keeps (1 + 2D) x 8 sums in registers at any C.  Each group
-//   redoes the per-(query, cell) coordinate math, the price of the cap.
-// * bwd: groups of at most 4 channels (measured faster than 8).  A block
-//   owns a chunk of cells of one channel group and a slice of the queries,
-//   accumulates into a shared-memory copy of the chunk with shared atomics
-//   and flushes it once with global atomicAdd (as fused2w_bwd; a 3D group
-//   of 4 x 16^3 takes 64 KB, three to a block, opted in).  A group of one
-//   cell over the card's opt-in limit adds straight into dcells.  The
-//   slices are sized by the occupancy API so that the grid's last wave is
-//   full.  The TPU bwd was deterministic; f32 atomics are not, so results
-//   agree with the plain version to rounding.
+// What bounds it on the H100 (67 TFLOP/s f32, 3.35 TB/s at 700 W): the
+// FMAs, 2 x (1 + 2D) x 2^D per (query, cell, channel) (0.092 ms at
+// 96 x 16 x 16^2, 0.134 at 50 x 16 x 16^3, Q = 100 000).  The design
+// before (a thread a (query, channel group of 8) over the planar cells,
+// the bwd adding into shared chunks with one f32 atomicAdd a (query, cell,
+// corner, channel)) spent its time elsewhere (a probe of it, PERF.md
+// section 6): the blend on the walk (tables, corner weights and FMAs,
+// 0.36 of 0.61 ms in 2D) and on 4-byte loads from a channel plane each
+// (0.92 of 1.40 ms in 3D); the bwd on the shared adds, each an
+// ATOMS.CAST.SPIN loop (1.2 of 1.77 ms in 2D, 2.4 of 3.2 in 3D).
+//
+// Design (the TPU kernels' VMEM-resident stack and one-hot MXU
+// contractions are not carried over):
+// * blend: a tiled transpose copies the cells into a texel-major
+//   (*S, N, C) temporary (1.6 MB at 96 x 16 x 16^2, 13 MB at
+//   50 x 16 x 16^3: the L2 holds both), and texel_gather.cuh's gather
+//   serves blocks of 128 queries in order with a few lanes a query
+//   (ops/cuda/v1.py): in 2D at C = 16 four lanes over the cells, each
+//   holding all 16 channels, so that each (query, cell) is walked once
+//   and the four lanes' 64-byte records of one texel make two whole
+//   lines; in 3D two lanes of 8 interleaved channels.  The cell lanes
+//   add by warp shuffles; each query's rows go to a (Q, 1 + 2D, C)
+//   temporary (a few whole sectors a query, where (1 + 2D, C, Q) stores
+//   in query order take one each) for the tiled transpose.  Below a
+//   measured number of points a texel the gather reads the cells in
+//   place (planar), as fused3s_blend does.  Staging chunks of cells in
+//   shared memory lost in 2D (0.50-0.56 ms against 0.45, the walk alone
+//   slower in the staged kernel), as did splitting a (query, cell)'s
+//   axis tables over its lanes by shuffles (3D 1.06 against 0.67 ms):
+//   the walk, not the loads, is most of the time (2D: 0.32 of 0.45 ms).
+// * bwd: texel_scatter.cuh's scatter, a block per 128 queries staging
+//   their points and cotangents once, a warp's lanes over (query, cell,
+//   channel group of 4) adding float4 records into a zeroed texel-major
+//   (*S, N, C) scratch (in L2 at path (a)), so that a warp's reductions
+//   reach L2 in shared sectors; the tiled transpose writes the
+//   (N, C, *S) cotangent.  No shared-memory atomics.
+// f32 atomics are not deterministic: the bwd's sums change in the last
+// bits from run to run; they agree with the plain version to 1e-4 of
+// the largest value (chip_smoke.py).  The plain versions
+// (ops/cuda/fused2w.py) are the oracle and the CPU path.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "fused_rows.cuh"
+#include "texel_gather.cuh"
+#include "texel_scatter.cuh"
+#include "texel_transpose.cuh"
 
 namespace {
 
 using csm::CellGeom;
-using csm::kGroupChannels;
 using csm::kRows;
 using csm::SamplerParams;
 
-constexpr int kBlendThreads = 128;
-constexpr int kBwdThreadsSmall = 256;
-constexpr int kBwdThreadsLarge = 512;
-// The bwd's channel groups are narrower: groups of 4 were faster than
-// groups of 8 at 96 x 16 x 16^2 and level with them at 50 x 16 x 16^3,
-// their fewer cotangent registers outweighing the coordinate math each
-// group redoes (PERF.md section 6).
-constexpr int kBwdGroup = 4;
+constexpr int kQBlock = 128;          // queries of a gather or scatter block
 
 template <int D>
 CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
@@ -69,229 +87,177 @@ CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
   return g;
 }
 
-// One thread per query of channel group blockIdx.y: its rows over all n
-// cells, in registers.
+// Block (bx, by): queries [bx * kQBlock, ...), channels [by * groups * G,
+// ...) of c, gathered from the texel-major vol (*S, N, C), or where PLANAR
+// from the cells (N, C, *S) themselves (csrc/texel_gather.cuh), into rows
+// (Q, 1 + 2D, C).
+template <int D, int G, bool VEC, int THREADS, bool PLANAR>
+__global__ void __launch_bounds__(THREADS)
+    gather_kernel(const float* __restrict__ vol,
+                  const float* __restrict__ points, float* __restrict__ rows,
+                  int n, int c, CellGeom<D> geom, int q,
+                  csm::GatherLayout lay, SamplerParams p) {
+  const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
+  csm::gather_block<D, G, VEC, true, PLANAR>(
+      csm::GatherQuery{qi < q, qi}, points, vol, rows, q, n, c, lay, geom,
+      p);
+}
+
+// Block (bx, by): queries [bx * kQBlock, ...), channel groups [by *
+// block_groups, ...) of c (csrc/texel_scatter.cuh), into the zeroed
+// texel-major scratch (*S, N, C); VEC: scatter_vec.
+template <int D, int G, bool VEC>
+__global__ void __launch_bounds__(csm::kScatterMaxThreads)
+    scatter_kernel(const float* __restrict__ g,
+                   const float* __restrict__ points,
+                   float* __restrict__ scratch, int n, int c,
+                   CellGeom<D> geom, int q, csm::ScatterLayout lay,
+                   SamplerParams p) {
+  const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
+  csm::scatter_block<D, G, VEC>(csm::ScatterQuery{qi < q, qi}, g, q, points,
+                                scratch, n, c, lay, geom, p);
+}
+
+// rows (Q, 1 + 2D, C) of the blend gathered from vol, the texel-major copy
+// made here, or from the cells in place (planar); then the transpose into
+// out (1 + 2D, C, Q).  A lane takes at most 8 channels, or 16 in 2D.
 template <int D>
-__global__ void __launch_bounds__(kBlendThreads)
-    v1_blend_kernel(const float* __restrict__ cells,
-                    const float* __restrict__ points,
-                    float* __restrict__ out, int n, int c, int cw,
-                    CellGeom<D> g, int q, SamplerParams p) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
-  const int c0 = blockIdx.y * cw;
-  const int cg = min(cw, c - c0);
-  float pt[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-  float acc[kRows<D>][kGroupChannels];
-#pragma unroll
-  for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-    for (int j = 0; j < kGroupChannels; ++j) acc[r][j] = 0.0f;
-  csm::blend_query_range<D, kGroupChannels>(
-      cells + static_cast<int64_t>(c0) * g.texels,
-      static_cast<int64_t>(c) * g.texels, g, 0, n, n, cg, pt, p, acc);
-#pragma unroll
-  for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-    for (int j = 0; j < kGroupChannels; ++j)
-      if (j < cg) out[static_cast<int64_t>(r * c + c0 + j) * q + qi] = acc[r][j];
-}
-
-// Block (bx, by, bz) adds queries [bx * q_per_block, ...) into cells
-// [by * cells_per_chunk, ...), channels [bz * cw, ...).  SMEM: through a
-// shared copy of the chunk, flushed once; otherwise straight into dcells,
-// which must be zeroed.
-template <int D, bool SMEM>
-__global__ void __launch_bounds__(kBwdThreadsLarge)
-    v1_bwd_kernel(const float* __restrict__ g,
-                  const float* __restrict__ points, float* __restrict__ dcells,
-                  int n, int c, int cw, CellGeom<D> geom, int q,
-                  int cells_per_chunk, int q_per_block, SamplerParams p) {
-  extern __shared__ float sacc[];
-  const int c0 = blockIdx.z * cw;
-  const int cg = min(cw, c - c0);
-  const int n0 = blockIdx.y * cells_per_chunk;
-  const int n1 = min(n, n0 + cells_per_chunk);
-  const int64_t cell_stride = static_cast<int64_t>(c) * geom.texels;
-  const int group_elems = cg * geom.texels;
-  const int chunk_elems = (n1 - n0) * group_elems;
-  float* chunk_out = dcells + n0 * cell_stride +
-                     static_cast<int64_t>(c0) * geom.texels;
-  if (SMEM) {
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) sacc[e] = 0.0f;
-    __syncthreads();
-  }
-
-  const int q0 = blockIdx.x * q_per_block;
-  const int q1 = min(q, q0 + q_per_block);
-  for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
-    float gv[kRows<D>][kBwdGroup];
-#pragma unroll
-    for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-      for (int j = 0; j < kBwdGroup; ++j)
-        gv[r][j] = j < cg
-                       ? __ldg(g + static_cast<int64_t>(r * c + c0 + j) * q + qi)
-                       : 0.0f;
-    float pt[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-    if (SMEM) {
-      csm::splat_query_range<D, kBwdGroup>(sacc, group_elems, geom, n0,
-                                                n1, n, cg, pt, p, gv);
-    } else {
-      csm::splat_query_range<D, kBwdGroup>(chunk_out, cell_stride, geom,
-                                                n0, n1, n, cg, pt, p, gv);
-    }
-  }
-
-  if (SMEM) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) {
-      const float v = sacc[e];
-      if (v != 0.0f) {
-        const int ln = e / group_elems;
-        atomicAdd(chunk_out + ln * cell_stride + (e - ln * group_elems), v);
-      }
-    }
-  }
-}
-
-// The number of query slices to split each (cell chunk, channel group)
-// into: the fewest that keep at least 90% of the card's resident block
-// slots busy over the grid's last wave (or the best of up to
-// max_slices).  The flush of a slice's shared copy costs one pass over its
-// chunk, so more slices than that only add flushes.
-int pick_slices(int work_blocks, int slots, int max_slices) {
-  int best = 1;
-  double best_use = 0.0;
-  for (int k = 1; k <= max_slices; ++k) {
-    const int64_t total = static_cast<int64_t>(work_blocks) * k;
-    const int64_t waves = (total + slots - 1) / slots;
-    const double use = static_cast<double>(total) / (waves * slots);
-    if (use >= 0.9) return k;
-    if (use > best_use) {
-      best = k;
-      best_use = use;
-    }
-  }
-  return best;
-}
-
-template <int D>
-cudaError_t launch_blend(const float* cells, const float* points, float* out,
-                         int n, int c, const CellGeom<D>& g, int q,
-                         const SamplerParams& p, cudaStream_t stream) {
+cudaError_t launch_blend(const float* cells, const float* points, float* vol,
+                         float* rows, float* out, int n, int c,
+                         const CellGeom<D>& geom, int q,
+                         const csm::GatherLayout& lay, int threads,
+                         bool planar, const SamplerParams& p,
+                         cudaStream_t s) {
   if (q == 0 || c == 0) return cudaGetLastError();
-  const dim3 grid(csm::cdiv(q, kBlendThreads), csm::channel_groups(c));
-  v1_blend_kernel<D><<<grid, kBlendThreads, 0, stream>>>(
-      cells, points, out, n, c, csm::group_width(c), g, q, p);
-  return cudaGetLastError();
+  const size_t out_bytes = static_cast<size_t>(kRows<D>) * c * q * 4;
+  if (n == 0 || geom.texels == 0) return cudaMemsetAsync(out, 0, out_bytes, s);
+  cudaError_t err = cudaSuccess;
+  if (!planar) {
+    err = csm::transpose(cells, vol, static_cast<int64_t>(n) * c,
+                         geom.texels, 4, s);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = csm::cdiv(q, kQBlock);
+  const auto gather = [&](auto pick, const float* src) {
+    return csm::launch_gather<D == 2 ? 16 : csm::kMaxChannels>(
+        lay, c, threads, blocks, s, pick, src, points, rows, n, c, geom, q,
+        lay, p);
+  };
+  // planar cells take scalar loads whatever the channel count
+  err = planar ? gather(
+                     [](auto gw, auto, auto th) {
+                       return &gather_kernel<D, decltype(gw)::value, false,
+                                             decltype(th)::value, true>;
+                     },
+                     cells)
+               : gather(
+                     [](auto gw, auto vec, auto th) {
+                       return &gather_kernel<D, decltype(gw)::value,
+                                             decltype(vec)::value,
+                                             decltype(th)::value, false>;
+                     },
+                     vol);
+  if (err != cudaSuccess) return err;
+  return csm::transpose(rows, out, q, static_cast<int64_t>(kRows<D>) * c, 4,
+                        s);
 }
 
+// The scatter into scratch (texel-major (*S, N, C), zeroed), then the
+// transpose into out (N, C, *S).
 template <int D>
-cudaError_t launch_bwd(const float* g, const float* points, float* dcells,
-                       int n, int c, const CellGeom<D>& geom, int q,
-                       const SamplerParams& p, cudaStream_t stream) {
-  if (q == 0 || n == 0 || c == 0 || geom.texels == 0)
-    return cudaGetLastError();
-  csm::DeviceLimits lim;
-  cudaError_t err = csm::device_limits(&lim);
-  if (err != cudaSuccess) return err;
-
-  // chunks of cells of one channel group: up to 48 KB, or as many groups
-  // of a larger cell as the opted-in limit holds; above it global atomics
-  const int cw = csm::group_width(c, kBwdGroup);
-  const int groups = csm::channel_groups(c, kBwdGroup);
-  const int64_t group_bytes = static_cast<int64_t>(cw) * geom.texels * 4;
-  const bool smem = group_bytes <= lim.smem_optin;
-  const int64_t budget = group_bytes <= csm::kStaticSmemBytes
-                             ? csm::kStaticSmemBytes
-                             : lim.smem_optin;
-  const int cells_per_chunk =
-      smem ? static_cast<int>(std::min<int64_t>(n, budget / group_bytes)) : n;
-  const int chunks = csm::cdiv(n, cells_per_chunk);
-  const size_t bytes =
-      smem ? static_cast<size_t>(cells_per_chunk) * group_bytes : 0;
-  const int threads = bytes > static_cast<size_t>(csm::kStaticSmemBytes)
-                          ? kBwdThreadsLarge
-                          : kBwdThreadsSmall;
-  auto* kernel = smem ? &v1_bwd_kernel<D, true> : &v1_bwd_kernel<D, false>;
-  err = csm::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  // the grid's waves filled (pick_slices) at the blocks an SM holds, and
-  // no block with fewer queries than threads
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, bytes);
-  if (err != cudaSuccess) return err;
-  const int q_blocks = pick_slices(chunks * groups,
-                                   std::max(1, per_sm) * lim.sms,
-                                   csm::cdiv(q, threads));
-  const int q_per_block = csm::cdiv(q, q_blocks);
-  const dim3 grid(csm::cdiv(q, q_per_block), chunks, groups);
-  kernel<<<grid, threads, bytes, stream>>>(g, points, dcells, n, c, cw, geom,
-                                           q, cells_per_chunk, q_per_block,
-                                           p);
-  return cudaGetLastError();
+cudaError_t launch_bwd(const float* g, const float* points, float* scratch,
+                       float* out, int n, int c, const CellGeom<D>& geom,
+                       int q, const csm::ScatterLayout& lay, int threads,
+                       const SamplerParams& p, cudaStream_t s) {
+  if (n == 0 || c == 0 || geom.texels == 0) return cudaGetLastError();
+  if (q > 0) {
+    const cudaError_t err = csm::launch_scatter<D>(
+        lay, c, threads, csm::cdiv(q, kQBlock), s,
+        [](auto gw, auto vec) {
+          return &scatter_kernel<D, decltype(gw)::value,
+                                 decltype(vec)::value>;
+        },
+        g, points, scratch, n, c, geom, q, lay, p);
+    if (err != cudaSuccess) return err;
+  }
+  return csm::transpose(scratch, out, geom.texels,
+                        static_cast<int64_t>(n) * c, 4, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The 2D and 3D entry points take fused2w's and fused3w's arguments.
-int fused_v1_blend2(const void* cells, const void* points, void* out, int n,
-                    int c, int h, int w, int q, int kernel, int padding,
-                    int align, int multicell, int strict, float off_step,
+// The blends: cells, points, vol (the texel-major copy; unused where
+// planar), rows (Q, 1 + 2D, C), out (1 + 2D, C, Q); n, c, the sizes, q;
+// the launch layout of ops/cuda/v1.py (width, groups, cell lanes,
+// threads, planar); then fused2w's sampler arguments.
+int fused_v1_blend2(const void* cells, const void* points, void* vol,
+                    void* rows, void* out, int n, int c, int h, int w, int q,
+                    int width, int groups, int cell_lanes, int threads,
+                    int planar, int kernel, int padding, int align,
+                    int multicell, int strict, float off_step,
                     float off_stop, void* stream) {
   const int sizes[2] = {w, h};
   return launch_blend<2>(
       static_cast<const float*>(cells), static_cast<const float*>(points),
+      static_cast<float*>(vol), static_cast<float*>(rows),
       static_cast<float*>(out), n, c, geom_of<2>(sizes), q,
+      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }
 
-int fused_v1_blend3(const void* cells, const void* points, void* out, int n,
-                    int c, int d, int h, int w, int q, int kernel, int padding,
-                    int align, int multicell, int strict, float off_step,
+int fused_v1_blend3(const void* cells, const void* points, void* vol,
+                    void* rows, void* out, int n, int c, int d, int h, int w,
+                    int q, int width, int groups, int cell_lanes, int threads,
+                    int planar, int kernel, int padding, int align,
+                    int multicell, int strict, float off_step,
                     float off_stop, void* stream) {
   const int sizes[3] = {w, h, d};
   return launch_blend<3>(
       static_cast<const float*>(cells), static_cast<const float*>(points),
+      static_cast<float*>(vol), static_cast<float*>(rows),
       static_cast<float*>(out), n, c, geom_of<3>(sizes), q,
+      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }
 
-// dcells (N, C, H, W) must be zeroed.
-int fused_v1_bwd2(const void* g, const void* points, void* dcells, int n,
-                  int c, int h, int w, int q, int kernel, int padding,
-                  int align, int multicell, int strict, float off_step,
-                  float off_stop, void* stream) {
+// The bwds: g (1 + 2D, C, Q), points, scratch (texel-major (*S, N, C),
+// zeroed), out (N, C, *S); n, c, the sizes, q; the scatter layout of
+// ops/cuda/v1.py (width, block groups, lane groups, lanes, threads); then
+// fused2w's sampler arguments.
+int fused_v1_bwd2(const void* g, const void* points, void* scratch,
+                  void* out, int n, int c, int h, int w, int q, int width,
+                  int block_groups, int lane_groups, int lanes, int threads,
+                  int kernel, int padding, int align, int multicell,
+                  int strict, float off_step, float off_stop, void* stream) {
   const int sizes[2] = {w, h};
   return launch_bwd<2>(
       static_cast<const float*>(g), static_cast<const float*>(points),
-      static_cast<float*>(dcells), n, c, geom_of<2>(sizes), q,
+      static_cast<float*>(scratch), static_cast<float*>(out), n, c,
+      geom_of<2>(sizes), q,
+      csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }
 
-// dcells (N, C, D, H, W) must be zeroed.
-int fused_v1_bwd3(const void* g, const void* points, void* dcells, int n,
-                  int c, int d, int h, int w, int q, int kernel, int padding,
-                  int align, int multicell, int strict, float off_step,
-                  float off_stop, void* stream) {
+int fused_v1_bwd3(const void* g, const void* points, void* scratch,
+                  void* out, int n, int c, int d, int h, int w, int q,
+                  int width, int block_groups, int lane_groups, int lanes,
+                  int threads, int kernel, int padding, int align,
+                  int multicell, int strict, float off_step, float off_stop,
+                  void* stream) {
   const int sizes[3] = {w, h, d};
   return launch_bwd<3>(
       static_cast<const float*>(g), static_cast<const float*>(points),
-      static_cast<float*>(dcells), n, c, geom_of<3>(sizes), q,
+      static_cast<float*>(scratch), static_cast<float*>(out), n, c,
+      geom_of<3>(sizes), q,
+      csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));

@@ -101,7 +101,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int ch = c0; ch < c1; ++ch)
         out[static_cast<int64_t>(r * c + ch) * qp + slot] = 0.0f;
   }
-  csm::gather_block<G, VEC, false>(csm::GatherQuery{real, slot}, pts, vol,
+  csm::gather_block<3, G, VEC, false>(csm::GatherQuery{real, slot}, pts, vol,
                                    out, qp, n, c, lay, g, p);
 }
 
@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(csm::kScatterMaxThreads)
   if (hasv[blockIdx.x] == 0) return;
   const int slot = blockIdx.x * kQBlock + threadIdx.x;
   const bool mine = threadIdx.x < kQBlock && occ[slot] != 0.0f;
-  csm::scatter_block<G, VEC>(csm::ScatterQuery{mine, slot}, g, qp, pts,
+  csm::scatter_block<3, G, VEC>(csm::ScatterQuery{mine, slot}, g, qp, pts,
                              dvol, n, c, lay, geom, p);
 }
 
@@ -162,7 +162,7 @@ int fused3b_bwd(const void* g, const void* pts, const void* occ,
   if (qp % kQBlock != 0) return cudaErrorInvalidValue;
   if (qp == 0 || n == 0 || c == 0) return cudaGetLastError();
   const csm::ScatterLayout lay{width, block_groups, lane_groups, lanes};
-  return csm::launch_scatter(
+  return csm::launch_scatter<3>(
       lay, c, threads, qp / kQBlock, static_cast<cudaStream_t>(stream),
       [](auto gw, auto vec) {
         return &bwd_kernel<decltype(gw)::value, decltype(vec)::value>;

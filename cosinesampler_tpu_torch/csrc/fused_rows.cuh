@@ -168,8 +168,8 @@ __device__ __forceinline__ void splat_query(float* acc, const CellGeom<D>& g,
   }
 }
 
-// The channel-looped kernels (csrc/fused.cu, csrc/fused2d.cu) take any
-// channel count: grid axis z walks groups of at most kGroupChannels
+// The channel-looped kernels of csrc/staged_cells.cuh (fused2d, fused3d)
+// take any channel count: grid axis z walks groups of at most kGroupChannels
 // channels, whose rows a thread keeps in registers.
 constexpr int kGroupChannels = 8;
 

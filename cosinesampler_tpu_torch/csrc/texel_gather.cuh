@@ -1,7 +1,8 @@
-// The fused 3D rows of one block of queries, gathered from the texel-major
-// (D, H, W, N, C) volume with a few lanes a query: the forward body that
-// fused3b_blend (csrc/fused3b.cu) and fused3s_blend (csrc/fused3s.cu)
-// share, the mirror of csrc/texel_scatter.cuh.
+// The fused rows of one block of queries, gathered from the texel-major
+// (*S, N, C) volume with a few lanes a query, in 2D and 3D: the forward
+// body that fused3b_blend (csrc/fused3b.cu), fused3s_blend
+// (csrc/fused3s.cu) and the v1 blend (csrc/fused.cu) share, the mirror of
+// csrc/texel_scatter.cuh.
 //
 // Why a few lanes a query: the texel-major layout keeps one texel's N * C
 // values together, and the cells of one query are shifted by less than a
@@ -25,10 +26,11 @@
 // ones with a warp ballot and stages their points in shared memory (each
 // read once), then its warps take them in turns, 32 / lanes queries a warp
 // at once.  A lane walks its cells with the per-query corner walk of
-// fused_rows.cuh (tables, then 8 corners) and keeps its 7 x G rows in
-// registers; the lanes of a query that split its cells add their rows by
-// warp shuffles, and the lanes that split its channels store their own.
-// Loads are float4 where C is a multiple of 4 (VEC), scalars otherwise.
+// fused_rows.cuh (tables, then 2^D corners) and keeps its (1 + 2D) x G
+// rows in registers; the lanes of a query that split its cells add their
+// rows by warp shuffles, and the lanes that split its channels store
+// their own.  Loads are float4 where C is a multiple of 4 (VEC), scalars
+// otherwise.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,27 +80,28 @@ struct GatherQuery {
 };
 
 // The block's rows of channels [blockIdx.y * groups * width, ...) of c
-// from the texel-major vol (D, H, W, N, C) into out, for the valid
-// queries among threads t < kGatherQueries (compacted in order; nothing
-// is written for the others).  out is (7, C, cols), or (cols, 7, C)
-// where QMAJOR: a query's rows then take a few whole sectors (C = 4: 112
-// bytes) where in (7, C, cols) each of its 7 * C values takes one of its
-// own when the block's queries are scattered over the columns.  VEC:
-// gather_vec.  PLANAR: vol is the cells (N, C, D, H, W) instead, read a
-// scalar a channel (fused3s_blend below the stack's transpose's
-// crossover).  Every thread of the block must call it.
-template <int G, bool VEC, bool QMAJOR, bool PLANAR = false>
+// from the texel-major vol (*S, N, C) into out, for the valid queries
+// among threads t < kGatherQueries (compacted in order; nothing is
+// written for the others); R = 1 + 2D rows.  out is (R, C, cols), or
+// (cols, R, C) where QMAJOR: a query's rows then take a few whole
+// sectors (3D, C = 4: 112 bytes) where in (R, C, cols) each of its R * C
+// values takes one of its own when the block's queries are scattered
+// over the columns.  VEC: gather_vec.  PLANAR: vol is the cells (N, C,
+// *S) instead, read a scalar a channel (fused3s_blend and the v1 blend
+// below the stack's transpose's crossover).  Every thread of the block
+// must call it.
+template <int D, int G, bool VEC, bool QMAJOR, bool PLANAR = false>
 __device__ __forceinline__ void gather_block(
     GatherQuery mine, const float* __restrict__ pts,
     const float* __restrict__ vol, float* __restrict__ out, int cols, int n,
-    int c, const GatherLayout& lay, const CellGeom<3>& geom,
+    int c, const GatherLayout& lay, const CellGeom<D>& geom,
     const SamplerParams& p) {
-  constexpr int R = kRows<3>;
+  constexpr int R = kRows<D>;
   constexpr int U = VEC ? 4 : 1;       // channels of a load
   constexpr int K = G / U;             // loads a corner
   static_assert(!VEC || G % 4 == 0, "float4 loads");
   static_assert(!(VEC && PLANAR), "planar cells are read a channel a load");
-  __shared__ float psm[kGatherQueries][3];
+  __shared__ float psm[kGatherQueries][D];
   __shared__ int colsm[kGatherQueries];
   __shared__ int warp_count[kGatherMaxThreads / 32];
   const int t = threadIdx.x;
@@ -118,7 +121,7 @@ __device__ __forceinline__ void gather_block(
   if (count == 0) return;
   if (valid) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) psm[rank][i] = pts[3 * mine.col + i];
+    for (int i = 0; i < D; ++i) psm[rank][i] = pts[D * mine.col + i];
     colsm[rank] = mine.col;
   }
   __syncthreads();
@@ -144,9 +147,11 @@ __device__ __forceinline__ void gather_block(
 #pragma unroll
       for (int k = 0; k < G; ++k) acc[r][k] = 0.0f;
     if (act) {
-      const float pt[3] = {psm[j][0], psm[j][1], psm[j][2]};
+      float pt[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) pt[i] = psm[j][i];
       for (int ni = m; ni < n; ni += lay.cell_lanes) {
-        for_each_corner<3>(
+        for_each_corner<D>(
             geom, pt, ni, n, p, [&](int idx, const float (&wr)[R]) {
               const float* src =
                   PLANAR ? base + static_cast<int64_t>(ni) * c * stride + idx
@@ -214,23 +219,25 @@ __device__ __forceinline__ void gather_block(
 // lay.width, VEC = gather_vec(c, width) and THREADS = threads as
 // std::integral_constant / std::bool_constant, on a grid of (blocks,
 // channel blocks), with args...; the kernel, whose __launch_bounds__ are
-// THREADS, calls gather_block<G, VEC, ...>.  Bounds of 128 where 128
+// THREADS, calls gather_block<D, G, VEC, ...>.  Bounds of 128 where 128
 // threads run: at config 5 fused3b_blend took 0.94-0.97 ms with them
 // and 1.04-1.05 with bounds of 256 at the same launch (PERF.md section
-// 6).
-template <typename Pick, typename... Args>
+// 6).  G is at most kMaxChannels, or WIDE where the caller takes a lane
+// of WIDE channels (the v1 blend in 2D: 16).
+template <int WIDE = kMaxChannels, typename Pick, typename... Args>
 cudaError_t launch_gather(const GatherLayout& lay, int c, int threads,
                           unsigned blocks, cudaStream_t stream, Pick pick,
                           Args... args) {
   const int lanes = gather_lanes(lay);
-  if (lay.width < 1 || lay.width > kMaxChannels || lay.groups < 1 ||
+  if (lay.width < 1 ||
+      (lay.width > kMaxChannels && lay.width != WIDE) || lay.groups < 1 ||
       lay.cell_lanes < 1 || (lay.cell_lanes & (lay.cell_lanes - 1)) != 0 ||
       lanes > 32 ||
       (threads != kGatherQueries && threads != kGatherMaxThreads))
     return cudaErrorInvalidValue;
   const int grid_y = cdiv(c, lay.groups * lay.width);
   const bool vec = gather_vec(c, lay.width);
-  return dispatch_channels(lay.width, [&](auto gw) {
+  const auto launch = [&](auto gw) {
     constexpr int G = decltype(gw)::value;
     using Small = std::integral_constant<int, kGatherQueries>;
     using Large = std::integral_constant<int, kGatherMaxThreads>;
@@ -243,7 +250,10 @@ cudaError_t launch_gather(const GatherLayout& lay, int c, int threads,
                        : pick(gw, std::true_type{}, Large{});
     kernel<<<dim3(blocks, grid_y), threads, 0, stream>>>(args...);
     return cudaGetLastError();
-  });
+  };
+  if constexpr (WIDE > kMaxChannels)
+    if (lay.width == WIDE) return launch(std::integral_constant<int, WIDE>{});
+  return dispatch_channels(lay.width, launch);
 }
 
 }  // namespace csm

@@ -1,8 +1,9 @@
-// The transpose of the fused 3D rows for one block of queries, added into
-// the cells with a warp's lanes over (query, cell): the backward body that
-// fused3b_bwd (csrc/fused3b.cu) and fused3s_bwd (csrc/fused3s.cu) share.
+// The transpose of the fused rows for one block of queries, added into
+// the cells with a warp's lanes over (query, cell), in 2D and 3D: the
+// backward body that fused3b_bwd (csrc/fused3b.cu), fused3s_bwd
+// (csrc/fused3s.cu) and the v1 bwd (csrc/fused.cu) share.
 //
-// Why lanes over cells: the texel-major layout (D, H, W, N, C) keeps one
+// Why lanes over cells: the texel-major layout (*S, N, C) keeps one
 // texel's N * C values together, and the cells of one query are shifted
 // by less than a texel, so at one corner the 16 cells of a query fall on
 // a few contiguous runs of 16-byte records.  Lanes over cells put those
@@ -17,7 +18,7 @@
 // memory (each query's read once), then its warps take the queries in
 // turns (ScatterLayout below).  A lane computes its cell's axis tables
 // once, and for each channel group it carries loads the group's
-// cotangent into registers and walks the 8 corners: the 7-row dot
+// cotangent into registers and walks the 2^D corners: the (1 + 2D)-row dot
 // (fused_rows.cuh's FMA order) and the group's reductions, one float4 a
 // corner for a group of 4 channels (VEC), scalars otherwise.  At C = 16
 // the lanes run over (cell, group of 4): 16 cells x 4 groups a query, so
@@ -66,12 +67,13 @@ struct ScatterLayout {
 
 // The shared memory of a block (bytes): the staged cotangent of
 // block_channels channels and the points, kScatterQueries of each.
+template <int D>
 __host__ __device__ inline int scatter_smem_bytes(int block_channels) {
-  return 4 * (kRows<3> * block_channels + 3) * kScatterQueries;
+  return 4 * (kRows<D> * block_channels + D) * kScatterQueries;
 }
 
-// Where one query's values come from: column `col` of the (7, C, cols)
-// cotangent and row `col` of the (cols, 3) points.
+// Where one query's values come from: column `col` of the (1 + 2D, C,
+// cols) cotangent and row `col` of the (cols, D) points.
 struct ScatterQuery {
   bool valid;
   int col;
@@ -102,18 +104,18 @@ inline bool scatter_vec(int c, int width) {
   return width % 4 == 0 && c % width == 0;
 }
 
-// The block's scatter into the texel-major (D, H, W, N, C) out, which
-// must hold the sum so far (zeros).  Thread t < kScatterQueries holds
-// staging slot t: `mine` says whether it is a query and which column; the
-// valid slots are compacted in order.  VEC: scatter_vec.  Every thread of
-// the block must call it.
-template <int G, bool VEC>
+// The block's scatter into the texel-major (*S, N, C) out, which must
+// hold the sum so far (zeros).  Thread t < kScatterQueries holds staging
+// slot t: `mine` says whether it is a query and which column; the valid
+// slots are compacted in order.  VEC: scatter_vec.  Every thread of the
+// block must call it.
+template <int D, int G, bool VEC>
 __device__ __forceinline__ void scatter_block(
     ScatterQuery mine, const float* __restrict__ g, int cols,
     const float* __restrict__ pts, float* __restrict__ out, int n, int c,
-    const ScatterLayout& lay, const CellGeom<3>& geom,
+    const ScatterLayout& lay, const CellGeom<D>& geom,
     const SamplerParams& p) {
-  constexpr int R = kRows<3>;
+  constexpr int R = kRows<D>;
   constexpr int Q = kScatterQueries;
   extern __shared__ float smem[];
   __shared__ int warp_count[kScatterMaxThreads / 32];
@@ -138,10 +140,10 @@ __device__ __forceinline__ void scatter_block(
   const int cblk = grp0 * G;
   const int cb = min(lay.block_groups * G, c - cblk);
   float* gsm = smem;                       // [R][cb][Q]
-  float* psm = smem + R * cb * Q;          // [Q][3]
+  float* psm = smem + R * cb * Q;          // [Q][D]
   if (valid) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) psm[3 * rank + i] = pts[3 * mine.col + i];
+    for (int i = 0; i < D; ++i) psm[D * rank + i] = pts[D * mine.col + i];
     for (int r = 0; r < R; ++r)
       for (int ch = 0; ch < cb; ++ch)
         gsm[(r * cb + ch) * Q + rank] = __ldg(
@@ -161,12 +163,14 @@ __device__ __forceinline__ void scatter_block(
   // 6.5-7.3 against 5.6-5.9; PERF.md section 6)
   const int loops = lay.block_groups / lay.lane_groups;
   for (int j = warp * qpw + qo; j < count; j += nwarps * qpw) {
-    const float pt[3] = {psm[3 * j], psm[3 * j + 1], psm[3 * j + 2]};
+    float pt[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) pt[i] = psm[D * j + i];
     for (int u = u0; u < units; u += lay.lanes) {
       const int ni = u / lay.lane_groups;
       const int gs = u - ni * lay.lane_groups;
-      AxisTable a[3];
-      corner_tables<3>(geom, pt, ni, n, p, a);
+      AxisTable a[D];
+      corner_tables<D>(geom, pt, ni, n, p, a);
       for (int k = 0; k < loops; ++k) {
         const int grp = grp0 + gs + k * lay.lane_groups;
         if (grp >= groups) break;
@@ -180,8 +184,8 @@ __device__ __forceinline__ void scatter_block(
             gv[r][jj] =
                 jj < cg ? gsm[(r * cb + c0 - cblk + jj) * Q + j] : 0.0f;
         float* base = out + static_cast<int64_t>(ni) * c + c0;
-        for_each_table_corner<3>(
-            geom, a, [&](const int (&)[3], int idx, const float (&wr)[R]) {
+        for_each_table_corner<D>(
+            geom, a, [&](const int (&)[D], int idx, const float (&wr)[R]) {
               float v[G];
 #pragma unroll
               for (int jj = 0; jj < G; ++jj) {
@@ -202,8 +206,9 @@ __device__ __forceinline__ void scatter_block(
 // shared memory against the device), then launches pick(G, VEC) with
 // G = lay.width and VEC = scatter_vec(c, lay.width) as
 // std::integral_constant / std::bool_constant, on a grid of (blocks,
-// channel blocks), with args...; the kernel calls scatter_block<G, VEC>.
-template <typename Pick, typename... Args>
+// channel blocks), with args...; the kernel calls scatter_block<D, G,
+// VEC>.
+template <int D, typename Pick, typename... Args>
 cudaError_t launch_scatter(const ScatterLayout& lay, int c, int threads,
                            unsigned blocks, cudaStream_t stream, Pick pick,
                            Args... args) {
@@ -214,7 +219,7 @@ cudaError_t launch_scatter(const ScatterLayout& lay, int c, int threads,
     return cudaErrorInvalidValue;
   const int grid_y = cdiv(cdiv(c, lay.width), lay.block_groups);
   const int smem =
-      scatter_smem_bytes(std::min(lay.block_groups * lay.width, c));
+      scatter_smem_bytes<D>(std::min(lay.block_groups * lay.width, c));
   DeviceLimits lim;
   cudaError_t err = device_limits(&lim);
   if (err != cudaSuccess) return err;

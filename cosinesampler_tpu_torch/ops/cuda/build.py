@@ -104,17 +104,29 @@ def nvcc_path() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused2w_blend, lib.fused2w_bwd, lib.fused2d_blend,
-               lib.fused2d_bwd, lib.fused_v1_blend2, lib.fused_v1_bwd2):
+               lib.fused2d_bwd):
         # 3 data pointers; n, c, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
     for fn in (lib.fused3w_blend, lib.fused3w_bwd, lib.fused3d_blend,
-               lib.fused3d_bwd, lib.fused_v1_blend3, lib.fused_v1_bwd3):
+               lib.fused3d_bwd):
         # 3 data pointers; n, c, d, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
         fn.restype = i32
+    for dim, (blend, bwd) in ((2, (lib.fused_v1_blend2, lib.fused_v1_bwd2)),
+                              (3, (lib.fused_v1_blend3, lib.fused_v1_bwd3))):
+        # cells, points, the texel-major copy, the query-major rows, out;
+        # n, c, the dim sizes, q, the blend layout (width, groups, cell
+        # lanes, threads, planar), kernel, padding, align, multicell,
+        # strict; the offset lattice's step and stop; the stream
+        blend.argtypes = [ptr] * 5 + [i32] * (13 + dim) + [f32, f32, ptr]
+        # g, points, scratch, out; n, c, the dim sizes, q, the scatter
+        # layout (width, block groups, lane groups, lanes, threads), then
+        # as the blend
+        bwd.argtypes = [ptr] * 4 + [i32] * (13 + dim) + [f32, f32, ptr]
+        blend.restype = bwd.restype = i32
     # cells, points, perm, table, the texel-major copy, the query-major
     # rows, out; n, c, d, h, w, q, table blocks, the gather layout (width,
     # groups, cell lanes, threads), planar, kernel, padding, align,

@@ -13,10 +13,10 @@ versions in this module:
   raises for what the kernel does not take.  Each wrapper counts its
   launches in its ``launches`` attribute.
 
-The launch helpers (``kernel_blend``, ``kernel_bwd``, ``sampler_args``)
-serve the 3D wrappers (ops/cuda/fused3w.py), the small-cloud wrappers
-(ops/cuda/fused2d.py), the v1 wrappers (ops/cuda/fused.py) and mega2w
-too.
+The launch helpers (``launch``, ``kernel_blend``, ``kernel_bwd``,
+``sampler_args``) serve the 3D wrappers (ops/cuda/fused3w.py), the
+small-cloud wrappers (ops/cuda/fused2d.py), the v1 wrappers
+(ops/cuda/fused.py) and mega2w too.
 """
 
 from __future__ import annotations
@@ -112,17 +112,24 @@ def sampler_args(cfg: SamplerConfig, n: int, device: torch.device):
             torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch(entry: str, first: torch.Tensor, points: torch.Tensor,
-            out: torch.Tensor, cfg: SamplerConfig, n: int, c: int,
-            spatial: Tuple[int, ...], q: int) -> None:
-    lib = load_kernels()
+def launch(entry: str, first: torch.Tensor, points: torch.Tensor, outs,
+           cfg: SamplerConfig, n: int, c: int, spatial: Tuple[int, ...],
+           layout=()) -> None:
+    """Launch the C entry point ``entry`` on ``first`` (cells or g), the
+    points and the tensors ``outs`` (temporaries, then the output), with
+    N, C, the sizes, Q, the launch layout's integers ``layout`` and the
+    sampler arguments."""
+    cuda_device(first, points, *outs)
+    check_kernel_inputs(cfg, first, points, *outs)
     if n * c * math.prod(spatial) >= 2**31:
         raise ValueError("cell stack too large for the kernels' 32-bit "
                          "indexing")
-    with torch.cuda.device(out.device):
-        err = getattr(lib, entry)(first.data_ptr(), points.data_ptr(),
-                                  out.data_ptr(), n, c, *spatial, q,
-                                  *sampler_args(cfg, n, out.device))
+    lib = load_kernels()
+    with torch.cuda.device(first.device):
+        err = getattr(lib, entry)(
+            first.data_ptr(), points.data_ptr(),
+            *(t.data_ptr() for t in outs), n, c, *spatial, points.shape[0],
+            *layout, *sampler_args(cfg, n, first.device))
     check(lib, err, f"{entry} launch")
 
 
@@ -142,7 +149,7 @@ def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
     n, c, *spatial = cells.shape
     q = points.shape[0]
     out = torch.empty((1 + 2 * dim, c, q), dtype=torch.float32, device=device)
-    _launch(entry, cells, points, out, cfg, n, c, tuple(spatial), q)
+    launch(entry, cells, points, (out,), cfg, n, c, tuple(spatial))
     return out
 
 
@@ -162,10 +169,10 @@ def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
             f"points (Q, {dim}) and {dim} spatial sizes; got dim {cfg.dim}, "
             f"{tuple(g.shape)}, {tuple(points.shape)} and "
             f"{tuple(in_spatial)}")
-    c, q = g.shape[1:]
+    c = g.shape[1]
     dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
                          device=device)
-    _launch(entry, g, points, dcells, cfg, n_cells, c, tuple(in_spatial), q)
+    launch(entry, g, points, (dcells,), cfg, n_cells, c, tuple(in_spatial))
     return dcells
 
 

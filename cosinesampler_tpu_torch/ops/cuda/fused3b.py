@@ -207,27 +207,29 @@ def vol_layout(n: int, c: int, in_spatial) -> Tuple[int, ...]:
 
 
 def plain_cells_to_vol(cells: torch.Tensor) -> torch.Tensor:
-    """(N, C, D, H, W) -> the kernel layout (D, H, W, N, C), a new tensor:
-    torch's permuted copy, the plain version of cells_to_vol."""
-    return cells.permute(2, 3, 4, 0, 1).clone(
+    """(N, C, *S) -> the kernel layout (*S, N, C), S of 2 or 3 axes, a new
+    tensor: torch's permuted copy, the plain version of cells_to_vol."""
+    d = cells.dim() - 2
+    return cells.permute(*range(2, 2 + d), 0, 1).clone(
         memory_format=torch.contiguous_format)
 
 
 def plain_vol_to_cells(vol: torch.Tensor) -> torch.Tensor:
-    """Kernel layout (D, H, W, N, C) -> (N, C, D, H, W), a new tensor: the
-    plain version of vol_to_cells."""
-    return vol.permute(3, 4, 0, 1, 2).clone(
+    """Kernel layout (*S, N, C) -> (N, C, *S), a new tensor: the plain
+    version of vol_to_cells."""
+    d = vol.dim() - 2
+    return vol.permute(d, d + 1, *range(d)).clone(
         memory_format=torch.contiguous_format)
 
 
 def transpose_layout(x: torch.Tensor, to_vol: bool) -> torch.Tensor:
     """The layout move of a contiguous f32 or f64 CUDA tensor by the tiled
-    transpose kernel (csrc/fused3s.cu ``texel_transpose``): (N, C, D, H,
-    W) -> (D, H, W, N, C) where ``to_vol``, the other way otherwise; bit
-    for bit.  Counts its launches in ``launches``."""
+    transpose kernel (csrc/fused3s.cu ``texel_transpose``): (N, C, *S) ->
+    (*S, N, C) where ``to_vol``, the other way otherwise, S of 2 or 3
+    axes; bit for bit.  Counts its launches in ``launches``."""
     cuda_device(x)
-    if x.dim() != 5:
-        raise ValueError(f"the layout move takes a 5-D tensor; got "
+    if x.dim() not in (4, 5):
+        raise ValueError(f"the layout move takes a 4-D or 5-D tensor; got "
                          f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the layout move takes float32 or float64, got "
@@ -235,11 +237,11 @@ def transpose_layout(x: torch.Tensor, to_vol: bool) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("the layout move takes a contiguous tensor")
     if to_vol:
-        n, c, d, h, w = x.shape
-        rows, cols, shape = n * c, d * h * w, (d, h, w, n, c)
+        n, c, *spatial = x.shape
+        rows, cols, shape = n * c, math.prod(spatial), (*spatial, n, c)
     else:
-        d, h, w, n, c = x.shape
-        rows, cols, shape = d * h * w, n * c, (n, c, d, h, w)
+        *spatial, n, c = x.shape
+        rows, cols, shape = math.prod(spatial), n * c, (n, c, *spatial)
     if max(rows, cols) >= 2**31:
         raise ValueError("too many rows or columns for the layout move")
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -273,14 +275,14 @@ class _LayoutMove(torch.autograd.Function):
 
 
 def cells_to_vol(cells: torch.Tensor) -> torch.Tensor:
-    """(N, C, D, H, W) -> the kernel layout (D, H, W, N, C); a pure
-    permutation, differentiable: the transpose kernel on a CUDA tensor,
-    plain_cells_to_vol on a CPU one."""
+    """(N, C, *S) -> the kernel layout (*S, N, C) (3D: (D, H, W, N, C)); a
+    pure permutation, differentiable: the transpose kernel on a CUDA
+    tensor, plain_cells_to_vol on a CPU one."""
     return _LayoutMove.apply(cells, True)
 
 
 def vol_to_cells(vol: torch.Tensor) -> torch.Tensor:
-    """Kernel layout (D, H, W, N, C) -> (N, C, D, H, W); the inverse of
+    """Kernel layout (*S, N, C) -> (N, C, *S); the inverse of
     cells_to_vol, the same way."""
     return _LayoutMove.apply(vol, False)
 

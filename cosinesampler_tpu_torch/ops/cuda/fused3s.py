@@ -175,13 +175,15 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     return out
 
 
-def planar(q: int, spatial) -> bool:
-    """Whether fused3s_blend reads the cells in place (planar) rather than
-    through a texel-major copy: below PLANAR_POINTS_PER_TEXEL points per
-    texel of a cell, where the copy, which costs the stack's bytes read
-    and written whatever Q, outweighs the sectors the texel-major reads
-    save a query."""
-    return q < PLANAR_POINTS_PER_TEXEL * math.prod(spatial)
+def planar(q: int, spatial,
+           per_texel: float = PLANAR_POINTS_PER_TEXEL) -> bool:
+    """Whether a gather reads the cells in place (planar) rather than
+    through a texel-major copy: below ``per_texel`` points per texel of a
+    cell (fused3s_blend's PLANAR_POINTS_PER_TEXEL by default; the v1
+    blend's in ops/cuda/v1.py), where the copy, which costs the stack's
+    bytes read and written whatever Q, outweighs the sectors the
+    texel-major reads save a query."""
+    return q < per_texel * math.prod(spatial)
 
 
 def launch_blend(cells: torch.Tensor, points: torch.Tensor,

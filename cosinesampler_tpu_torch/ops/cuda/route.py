@@ -70,18 +70,23 @@ MIN_PAIRS = 1 << 18
 INDEX_LIMIT = 2**31
 # the most channels a fused2w / fused3w thread keeps in registers at once
 # (csrc/fused_rows.cuh kMaxChannels).  Above it both walk channel groups,
-# as the v1 kernels do, and the rule picks by chip_smoke.py's
-# wide_route_sweep_phase (PERF.md section 4): in 2D fused2w up to
-# FUSED2W_WIDE_MAX_C channels, the v1 pair above; in 3D fused3w up to
-# FUSED3W_WIDE_MAX_Q queries, the v1 pair above.  fused2w won on 96 x 12
-# x 16^2 at 1024, 16 384 and 100 000 points and lost at 16 channels at
-# all three; fused3w won on 50 x C x 16^3 at 8192 points at C = 16 (lost
-# by 4% at C = 12) and lost at 16 384 at both.  On 16 x C x 128^3 it won
-# by 2-3% at 100 000 too, which the rule gives up rather than extend a
-# bound to point counts the sweep does not reach.
+# and the rule picks between them and the v1 pair (texel-major gathers
+# and scatters) by chip_smoke.py's wide_route_sweep_phase (PERF.md
+# section 4): in 2D fused2w up to FUSED2W_WIDE_MAX_C channels at up to
+# FUSED2W_WIDE_MAX_Q queries, the v1 pair otherwise; in 3D fused3w up to
+# FUSED3W_WIDE_MAX_Q queries, or up to FUSED3W_WIDE_MAX_Q_OVER_L2 over a
+# stack larger than the L2 (STACK_L2_BYTES), where the v1 pair's copy of
+# the cells and its scratch cost most, the v1 pair otherwise.  Each the
+# last point where the channel groups won: fused2w on 96 x 12 x 16^2 at
+# 1024 points, not at 16 384 nor at 16 channels; fused3w on 50 x 12 x
+# 16^3 at 1024 (lost at 2048), on 16 x C x 128^3 at 16 384 (lost at
+# 32 768) at C = 12 and 16.  At 50 x 16 x 16^3 and 1024 points the v1
+# pair won by 2-5%, the one point the rule sends to the slower kernel.
 FUSED_MAX_CHANNELS = 8
 FUSED2W_WIDE_MAX_C = 12
-FUSED3W_WIDE_MAX_Q = 8192
+FUSED2W_WIDE_MAX_Q = 1024
+FUSED3W_WIDE_MAX_Q = 1024
+FUSED3W_WIDE_MAX_Q_OVER_L2 = 16384
 # in 2D up to 8 channels, fused2d up to FUSED2D_MAX_Q queries or up to
 # FUSED2D_MAX_PAIRS (cell, query) pairs, fused2w otherwise: each the last
 # point where fused2d won in chip_smoke.py's sweep (PERF.md section 4).
@@ -191,9 +196,10 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     (a dtype other than f32; strict reference in 2D with align_corners off,
     whose rows mix alignments; a tensor over the 32-bit indexing); else
     above FUSED_MAX_CHANNELS channels ``"fused2w"`` in 2D up to
-    FUSED2W_WIDE_MAX_C channels, ``"fused3w"`` in 3D up to
-    FUSED3W_WIDE_MAX_Q queries, and ``"fused"`` (the v1 kernels)
-    otherwise; in 3D
+    FUSED2W_WIDE_MAX_C channels at up to FUSED2W_WIDE_MAX_Q queries,
+    ``"fused3w"`` in 3D up to FUSED3W_WIDE_MAX_Q queries (up to
+    FUSED3W_WIDE_MAX_Q_OVER_L2 over a stack larger than STACK_L2_BYTES),
+    and ``"fused"`` (the v1 kernels) otherwise; in 3D
     ``"fused3d"`` up to FUSED3D_MAX_Q queries where its chunks fit shared
     memory (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
@@ -214,8 +220,11 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
         return "plain"
     if c > FUSED_MAX_CHANNELS:
         if dim == 2:
-            return "fused2w" if c <= FUSED2W_WIDE_MAX_C else "fused"
-        return "fused3w" if n_queries <= FUSED3W_WIDE_MAX_Q else "fused"
+            return ("fused2w" if c <= FUSED2W_WIDE_MAX_C
+                    and n_queries <= FUSED2W_WIDE_MAX_Q else "fused")
+        over_l2 = 4 * n * c * math.prod(spatial) > STACK_L2_BYTES
+        most = FUSED3W_WIDE_MAX_Q_OVER_L2 if over_l2 else FUSED3W_WIDE_MAX_Q
+        return "fused3w" if n_queries <= most else "fused"
     if dim == 3:
         if (n_queries <= FUSED3D_MAX_Q
                 and fused3d.supports(cfg, cells_shape)):

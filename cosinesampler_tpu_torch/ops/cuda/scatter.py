@@ -1,9 +1,10 @@
 """The launch layout of the shared 3D backward scatter.
 
-fused3b_bwd and fused3s_bwd (csrc/fused3b.cu, csrc/fused3s.cu) add the
-transpose of the fused 3D rows into the cells through one device body,
-csrc/texel_scatter.cuh: a block per block of at most ``QUERIES`` queries
-(fused3b's plan block, fused3s's table block), with a warp's lanes over
+fused3b_bwd and fused3s_bwd (csrc/fused3b.cu, csrc/fused3s.cu) and the
+v1 bwd in 2D and 3D (csrc/fused.cu) add the transpose of the fused rows
+into the cells through one device body, csrc/texel_scatter.cuh: a block
+per block of at most ``QUERIES`` queries (fused3b's plan block, fused3s's
+table block, the v1 bwd's 128 queries in order), with a warp's lanes over
 (query, cell).  ``scatter_geometry`` is the host's choice of how the
 lanes and blocks cover the work; the C entry points take it as integers
 and check it.  Nothing here runs a kernel.
@@ -32,10 +33,8 @@ QUERIES = 128
 THREADS = 128
 FULL_BLOCKS_PER_SM = 8
 # the most channels a block stages cotangents for: 16 take 58 KB of
-# shared memory, so three blocks share an SM
+# shared memory in 3D, so three blocks share an SM
 MAX_BLOCK_CHANNELS = 16
-# the fused 3D rows: value, 3 first and 3 second derivatives
-ROWS = 7
 
 
 class ScatterGeometry(NamedTuple):
@@ -60,10 +59,12 @@ class ScatterGeometry(NamedTuple):
         """Blocks along the channel groups."""
         return -(-self.groups(c) // self.block_groups)
 
-    def smem_bytes(self, c: int) -> int:
-        """A block's shared memory: its channels' staged cotangents and the
-        points, QUERIES of each (texel_scatter.cuh scatter_smem_bytes)."""
-        return 4 * (ROWS * min(self.block_groups * self.width, c) + 3) \
+    def smem_bytes(self, c: int, dim: int = 3) -> int:
+        """A block's shared memory: its channels' staged cotangents of
+        1 + 2 dim rows and the points, QUERIES of each (texel_scatter.cuh
+        scatter_smem_bytes)."""
+        rows = 1 + 2 * dim
+        return 4 * (rows * min(self.block_groups * self.width, c) + dim) \
             * QUERIES
 
     def args(self):
@@ -72,9 +73,11 @@ class ScatterGeometry(NamedTuple):
                 self.threads)
 
 
-def scatter_geometry(n: int, c: int, dense: bool = False) -> ScatterGeometry:
-    """The layout of the scatter of N cells of C channels (``dense``: in
-    blocks that are full but for a bin's last).
+def scatter_geometry(n: int, c: int, dense: bool = False,
+                     dim: int = 3) -> ScatterGeometry:
+    """The layout of the scatter of N cells of C channels in ``dim``
+    dimensions (``dense``: in blocks that are full but for a bin's
+    last).
 
     At C a multiple of 4, groups of 4 channels, one float4 reduction a
     corner each, up to MAX_BLOCK_CHANNELS of them a block, all over a
@@ -96,7 +99,7 @@ def scatter_geometry(n: int, c: int, dense: bool = False) -> ScatterGeometry:
         width = -(-c // groups)
         block_groups = max(1, min(groups, MAX_BLOCK_CHANNELS // width))
     return _sized(ScatterGeometry(width, block_groups, block_groups,
-                                  _lanes(n * block_groups)), c, dense)
+                                  _lanes(n * block_groups)), c, dense, dim)
 
 
 def _lanes(units: int) -> int:
@@ -111,19 +114,20 @@ def _lanes(units: int) -> int:
     return 16 if busy(16) > busy(32) else 32
 
 
-def _sized(geom: ScatterGeometry, c: int,
-           dense: bool = False) -> ScatterGeometry:
+def _sized(geom: ScatterGeometry, c: int, dense: bool = False,
+           dim: int = 3) -> ScatterGeometry:
     """``geom`` with THREADS a block, or twice as many where the blocks
     are dense or fewer than FULL_BLOCKS_PER_SM fit an SM's shared
     memory."""
-    smem = geom.smem_bytes(c)
+    smem = geom.smem_bytes(c, dim)
     assert smem <= BLOCK_SMEM_BYTES
     full = SM_SMEM_BYTES // (smem + RESERVED_SMEM_BYTES) >= FULL_BLOCKS_PER_SM
     return geom._replace(threads=THREADS if full and not dense
                          else 2 * THREADS)
 
 
-def scatter_alternatives(n: int, c: int, dense: bool = False):
+def scatter_alternatives(n: int, c: int, dense: bool = False,
+                         dim: int = 3):
     """The layouts chip_smoke.py's scatter sweep times against the rule's
     for N cells of C channels, by name: lanes over queries (a lane walks
     all of a query's units: the layout before lanes over cells), half the
@@ -135,7 +139,7 @@ def scatter_alternatives(n: int, c: int, dense: bool = False):
     looped in a lane.  Each but the other block size is sized as the rule
     sizes its layout (``dense`` as for scatter_geometry); layouts equal
     to the rule's are left out."""
-    rule = scatter_geometry(n, c, dense)
+    rule = scatter_geometry(n, c, dense, dim)
     other = 3 * THREADS - rule.threads
     alts = {"rule": rule,
             "lanes over queries": rule._replace(lanes=1),
@@ -151,13 +155,13 @@ def scatter_alternatives(n: int, c: int, dense: bool = False):
             alts["two groups over lanes"] = rule._replace(
                 lane_groups=2, lanes=_lanes(2 * n))
         alts["groups on the grid"] = _sized(
-            ScatterGeometry(rule.width, 1, 1, _lanes(n)), c, dense)
+            ScatterGeometry(rule.width, 1, 1, _lanes(n)), c, dense, dim)
     if c % 4 == 0 and c > 4:
         bg = min(-(-c // 8), MAX_BLOCK_CHANNELS // 8)
         alts["groups of 8 over lanes"] = _sized(
-            ScatterGeometry(8, bg, bg, _lanes(n * bg)), c, dense)
+            ScatterGeometry(8, bg, bg, _lanes(n * bg)), c, dense, dim)
         alts["groups of 8 looped in a lane"] = _sized(
-            ScatterGeometry(8, bg, 1, _lanes(n)), c, dense)
+            ScatterGeometry(8, bg, 1, _lanes(n)), c, dense, dim)
     out = {}
     for name, geom in alts.items():
         if name == "rule" or geom not in out.values():

@@ -9,6 +9,8 @@
     python scripts/profile_port_step.py --fused3b [--reps R]
     python scripts/profile_port_step.py --fused3s [--points Q] [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
+    python scripts/profile_port_step.py --v1 [config5] [--cell-dim C]
+                                        [--reps R]
     python scripts/profile_port_step.py --slab [--reps R]
     python scripts/profile_port_step.py --sampler [--reps R]
 
@@ -32,7 +34,11 @@ after 3 warm-up calls; ``--fused3s`` so times fused3s's blend and bwd and
 its z sort on config 5's volume at ``--points`` uniform points (the sort
 made once for the kernels); ``--kernels`` so times fused2w's and
 fused3w's blend and bwd (96 x C x 16^2 and 50 x C x 16^3, 100 000
-points) and mega2w (96 x C x 16^2);
+points) and mega2w (96 x C x 16^2); ``--v1`` so times the v1 pair's
+blend and bwd (ops/cuda/fused.py, the fused op's route above 8 channels)
+at path (a)'s shapes (96 x C x 16^2 and 50 x C x 16^3, 100 000 points)
+or, with ``--v1 config5``, at config 5's volume in query order (16 x C x
+128^3, 1 000 000 points);
 ``--slab`` so times the slab route's blend and splat kernels on config
 5's volume at 100 000 shared points (cosine, and linear without
 multicell, the setting of grid_sample) and on 1024 x 4 x 16^3 cells at
@@ -239,6 +245,40 @@ def _main_kernels(card, c, reps):
     return 0
 
 
+def _v1_kernels(card, c, reps, shapes):
+    """Median ms of the v1 blend and bwd with C channels at path (a)'s
+    2D and 3D shapes (100 000 points) or at config 5's volume (1 000 000
+    points), and the peak device memory of each pair."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    from cosinesampler_tpu_torch.ops.cuda import fused as fused_v1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = ([(2, 96, 16, 100_000), (3, 50, 16, 100_000)]
+             if shapes == "main" else [(3, 16, 128, 1_000_000)])
+    medians = {}
+    for dim, n, s, q in cases:
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
+        pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((1 + 2 * dim, c, q), generator=gen, device="cuda")
+        what = f"{n}x{c}x{s}^{dim}, Q={q}"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        medians[f"blend {what}"] = _median_ms(
+            lambda: fused_v1.fused_blend(cells, pts, cfg), reps)
+        medians[f"bwd {what}"] = _median_ms(
+            lambda: fused_v1.fused_bwd(g, pts, spatial, cfg, n), reps)
+        medians[f"peak GiB above the inputs {what}"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        del cells, pts, g
+        torch.cuda.empty_cache()
+    print(f"{card}; v1 pair at C = {c}, median of {reps}: "
+          + ", ".join(f"{k} {v:.4f}" + ("" if "GiB" in k else " ms")
+                      for k, v in medians.items()), flush=True)
+    return 0
+
+
 def _slab_kernels(card, reps):
     """Median ms of the slab blend and splat at the nested volume and the
     routed small cells, bins (where the wrappers take them) built once."""
@@ -363,14 +403,18 @@ def main(argv=None):
                          "--kernels / --slab / --sampler kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="time fused2w, fused3w and mega2w alone")
+    ap.add_argument("--v1", nargs="?", const="main",
+                    choices=("main", "config5"),
+                    help="time the v1 pair's blend and bwd alone at path "
+                         "(a)'s shapes or config 5's")
     ap.add_argument("--slab", action="store_true",
                     help="time the slab route's blend and splat alone")
     ap.add_argument("--sampler", action="store_true",
                     help="time splat_o, blend_o and the percell route "
                          "alone")
     ap.add_argument("--cell-dim", type=int, default=4,
-                    help="channels of --fused3b, --kernels and the main-path "
-                         "steps")
+                    help="channels of --fused3b, --kernels, --v1 and the "
+                         "main-path steps")
     ap.add_argument("--steps", type=int, default=10, help="timed steps")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
@@ -386,6 +430,8 @@ def main(argv=None):
         return _fused3s_kernels(card, args.reps, args.points)
     if args.kernels:
         return _main_kernels(card, args.cell_dim, args.reps)
+    if args.v1:
+        return _v1_kernels(card, args.cell_dim, args.reps, args.v1)
     if args.slab:
         return _slab_kernels(card, args.reps)
     if args.sampler:

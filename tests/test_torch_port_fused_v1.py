@@ -213,7 +213,8 @@ def test_fused_rule_follows_the_jax_order():
         assert rule(cfg, shape, 100_000) == "fused"
         assert rule(cfg, shape, 100) == ("fused" if cfg is cfg2
                                          else "fused3w")
-    assert rule(cfg2, (96, 9, 16, 16), 100_000) == "fused2w"
+    assert rule(cfg2, (96, 9, 16, 16), 1024) == "fused2w"
+    assert rule(cfg2, (96, 9, 16, 16), 100_000) == "fused"
     # a 4 x 256^2 cell (1 MB) is over a block's shared memory
     assert rule(cfg2, (2, 4, 256, 256), 100) == "fused2w"
     for what, args in [
