@@ -31,7 +31,10 @@ of fused3b_bwd's and fused3s_bwd's shared scatter and of fused3b_blend's
 and fused3s_blend's shared gather are each timed against their
 alternatives (the sweeps behind percell.geometry,
 blend_splat.splat_geometry, blend_splat.blend_geometry,
-mega2w.geometry, scatter.scatter_geometry and gather.gather_geometry).
+mega2w.geometry, scatter.scatter_geometry and gather.gather_geometry), and
+so is fused2w_bwd's and fused3w_bwd's scatter, with its destination
+(the texel-major scratch or the cotangent in place) on both sides of its
+planar bound (the sweep behind fused2w.bwd_geometry).
 The layout move between the cells and the texel-major volume
 (fused3b.cells_to_vol / vol_to_cells, a tiled transpose on the card) is
 held to torch's permuted copy bit for bit and counted on the planned
@@ -319,6 +322,23 @@ def compare_fused(kind, name, cfg, n, c, spatial, q, seed=0, lo=-1.2,
     return abs_b, abs_d
 
 
+def compare_bwd_planar_sides(dim, n, spatial, c=C, seed=6):
+    """fused{dim}w at half and twice fused2w.PLANAR_POINTS_PER_TEXEL
+    points a texel of (N, C, *spatial) cells, points to +-1.4: the rule's
+    bwd adds into the cotangent in place (planar) below the bound and
+    through the texel-major scratch above it, each held to plain."""
+    bound = fused2w.PLANAR_POINTS_PER_TEXEL[dim] * math.prod(spatial)
+    for q, planar in ((max(1, int(bound / 2)), True),
+                      (int(2 * bound) + 1, False)):
+        if fused2w.bwd_geometry(dim, n, c, q, spatial).planar != planar:
+            raise RuntimeError(f"fused{dim}w_bwd's rule is not planar "
+                               f"{planar} at Q = {q}")
+        compare_fused(f"fused{dim}w",
+                      f"bwd {'planar' if planar else 'texel-major'} "
+                      f"C={c}", SamplerConfig(dim=dim), n, c, spatial, q,
+                      seed=seed, **WIDE)
+
+
 def kernel_phase():
     main = SamplerConfig(dim=2)
     errs = compare_fused("fused2w", "main-path", main, N, C, (H, W), Q)
@@ -338,9 +358,15 @@ def kernel_phase():
                   strict_reference=True))]:
         compare_fused("fused2w", name, SamplerConfig(dim=2, **kw), *small,
                       seed=1)
-    # a cell too large for the shared-memory accumulator: global atomics
     compare_fused("fused2w", "large-cell", main, 2, 4, (128, 128), 4096,
                   seed=2)
+    # scalar reductions (C = 1, 3, 5), two float4 groups (8), a partial
+    # last block of queries, and both sides of the bwd's planar bound
+    for c in (1, 3, 5, 8):
+        compare_fused("fused2w", f"channels-{c}", main, 6, c, (12, 10),
+                      4096, seed=2)
+    compare_fused("fused2w", "q-4099", main, 6, 3, (12, 10), 4099, seed=3)
+    compare_bwd_planar_sides(2, 2, (128, 128))
 
     cells, pts, g = _fused_inputs(N, C, (H, W), Q, seed=3)
     ops = {
@@ -652,13 +678,13 @@ def fused3w_kernel_phase():
                   align_corners=False))]:
         compare_fused("fused3w", name, SamplerConfig(dim=3, **kw), *small,
                       seed=1)
-    for c in (1, 3, 8):
+    for c in (1, 3, 5, 8):
         compare_fused("fused3w", f"channels-{c}", main, 6, c, (7,) * 3,
                       4096, seed=2)
     compare_fused("fused3w", "q-4099", main, 6, 3, (7,) * 3, 4099, seed=3)
-    # a 4 x 32^3 cell (512 KB) is over the opted-in limit: global atomics
     compare_fused("fused3w", "large-cell", main, 2, 4, (32,) * 3, 4096,
                   seed=4)
+    compare_bwd_planar_sides(3, 2, (32,) * 3)
 
     gen = torch.Generator().manual_seed(5)
     cells = torch.rand((6, 3, 7, 7, 7), generator=gen).cuda()
@@ -1658,14 +1684,16 @@ def _pair(mod, cells, pts, g, cfg):
 def small_cloud_sweep_phase():
     """fused2d against fused2w, blend + bwd device ms in turns (fused2w,
     fused2d, fused2d, fused2w) at the small clouds and around them: the
-    measurement behind route.FUSED2D_MAX_Q / FUSED2D_MAX_PAIRS.  Then the
-    fused op at path (b)'s shapes, forward and backward, through the route
-    the rule gives, against the plain versions."""
+    measurement behind route.FUSED2D_MIN_CELLS / FUSED2D_MAX_Q /
+    FUSED2D_MAX_PAIRS.  Then the fused op at path (b)'s shapes, forward
+    and backward, through the route the rule gives, against the plain
+    versions."""
     cfg = SamplerConfig(dim=2)
     rows = []
     for n, q in [(N, 200), (N, 1024), (N, 2047), (N, 2731), (N, 3072),
                  (N, 3584), (N, 4096), (N, Q), (32, 4096), (32, 6144),
-                 (32, 7168), (32, 8192), (32, 16384), (8, 512), (8, 8192),
+                 (32, 7168), (32, 8192), (32, 16384), (16, 1024),
+                 (16, 4096), (16, 8192), (8, 512), (8, 8192),
                  (8, 16384), (8, 24576), (8, 32768), (8, Q)]:
         cells, pts, g = _fused_inputs(n, C, (H, W), q, seed=10, lo=-1.0,
                                      hi=1.0)
@@ -2014,12 +2042,13 @@ SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 6144, 8192, Q)]
             + [(16, C, 24, Q)]
             + [(16, C, 32, q) for q in (2048, 9000, 32768, 65536, Q)]
             + [(16, C, 64, q)
-               for q in (16384, 32768, 49152, 65536, 81920, Q)]
+               for q in (16384, 32768, 49152, 65536, 81920, Q, 131072)]
             + [(8, C, 80, Q)]
             + [(16, c, 96, Q) for c in (2, 3, C)]
             + [(N5, C, S5, q)
-               for q in (32768, 40960, 49152, 65536, 81920, Q, Q5)]
-            + [(n, C, S5, Q) for n in (4, 6)])
+               for q in (32768, 40960, 49152, 65536, 81920, Q, 131072,
+                         Q5)]
+            + [(n, C, S5, Q) for n in (4, 6, 12)])
 
 
 def small_cloud_3d_sweep_phase(points=SWEEP_3D):
@@ -2481,7 +2510,8 @@ WIDE_CHANNELS = (12, 16)
 # (dim, N, S, Q): the sweep's stacks and point counts at each of them
 WIDE_SWEEP = ([(2, N, H, q) for q in (1024, 16384, Q)]
               + [(3, N3, S3, q) for q in (1024, 2048, 4096, 8192, 16384, Q)]
-              + [(3, N5, S5, q) for q in (4096, 8192, 16384, 32768, Q)])
+              + [(3, N5, S5, q)
+                 for q in (4096, 8192, 16384, 32768, 65536, Q)])
 
 
 def wide_kernel_phase():
@@ -2509,6 +2539,8 @@ def wide_kernel_phase():
                   seed=5)
     compare_fused("fused3w", "C=16 large-cell", m3, 2, 16, (32,) * 3, 4096,
                   seed=5)
+    compare_bwd_planar_sides(2, 2, (128, 128), c=16)
+    compare_bwd_planar_sides(3, 2, (32,) * 3, c=16)
     compare_mega(f"C={C_WIDE} path (a)", m2, N, C_WIDE, H, W, Q)
     for c in (9, 12, 32, 124):
         compare_mega(f"channels-{c}", m2, 8, c, 12, 10, 4099, seed=2)
@@ -2527,7 +2559,7 @@ def wide_route_sweep_phase():
     v1 pair, blend + bwd device ms (torch.profiler, 10 calls a window,
     v1, groups, groups, v1, the larger turn kept) at C = 12 and 16 over
     WIDE_SWEEP, inputs drawn on the card: the measurement behind
-    route.FUSED2W_WIDE_MAX_C / FUSED2W_WIDE_MAX_Q / FUSED3W_WIDE_MAX_Q /
+    route.FUSED2W_WIDE_MAX_C / FUSED2W_WIDE_MAX_Q /
     FUSED3W_WIDE_MAX_Q_OVER_L2.  Prints how many points the rule sends to
     the slower of the two."""
     rows = []
@@ -3586,6 +3618,78 @@ def _v1_planar_sweep():
           f"{wrong}", flush=True)
 
 
+def w_bwd_layout_sweep_phase():
+    """The measurement behind fused2w.bwd_geometry: fused2w_bwd and
+    fused3w_bwd at the main paths' shapes (96 x C x 16^2 and 50 x C x
+    16^3, 100 000 points) at C = 4, 8 and 16 over every layout of
+    fused2w.bwd_alternatives, each held to the rule's result and timed in
+    turns (the zero fill, the transpose and the wrapper's allocations
+    included); then the planar sweep (_w_bwd_planar_sweep)."""
+    for dim, n, s in ((2, N, H), (3, N3, S3)):
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        for c in (C, 8, C_WIDE):
+            gen = _cuda_gen(47)
+            pts = torch.rand((Q, dim), generator=gen, device="cuda") * 2 - 1
+            g = torch.randn((1 + 2 * dim, c, Q), generator=gen,
+                            device="cuda")
+            geoms = fused2w.bwd_alternatives(dim, n, c, Q, spatial)
+            runs = {k: functools.partial(fused2w.launch_bwd, g, pts,
+                                         spatial, cfg, n, v)
+                    for k, v in geoms.items()}
+            _sweep(f"fused{dim}w_bwd layout sweep ({n}x{c}x{s}^{dim}, "
+                   f"Q={Q})", runs, geoms, runs["rule"](), reps=5)
+            del pts, g, runs
+    torch.cuda.empty_cache()
+    _w_bwd_planar_sweep()
+
+
+def _w_bwd_planar_sweep():
+    """fused2w_bwd's / fused3w_bwd's planar bound
+    (fused2w.PLANAR_POINTS_PER_TEXEL): the rule's lanes adding into the
+    cotangent in place against the texel-major scratch at C = 4 over
+    W_PLANAR_SWEEP, held to each other and timed in turns; prints the
+    points where the rule picks the slower destination."""
+    wrong = []
+    for dim, n, s, qs in W_PLANAR_SWEEP:
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        gen = _cuda_gen(48)
+        for q in qs:
+            pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+            g = torch.randn((1 + 2 * dim, C, q), generator=gen,
+                            device="cuda")
+            rule = fused2w.bwd_geometry(dim, n, C, q, spatial)
+            geoms = {"rule": rule, ("scratch" if rule.planar else "planar"):
+                     rule._replace(planar=not rule.planar)}
+            runs = {k: functools.partial(fused2w.launch_bwd, g, pts,
+                                         spatial, cfg, n, v)
+                    for k, v in geoms.items()}
+            ms = _sweep(f"w bwd planar sweep ({n}x{C}x{s}^{dim}, Q={q}, "
+                        f"{q / s ** dim:.4f} a texel)", runs, geoms,
+                        runs["rule"](), reps=5)
+            if min(ms, key=ms.get) != "rule":
+                wrong.append((dim, n, s, q))
+            del pts, g, runs
+        torch.cuda.empty_cache()
+    print(f"w bwd planar sweep: the rule picks the slower destination at "
+          f"{len(wrong)} of {sum(len(p[3]) for p in W_PLANAR_SWEEP)} "
+          f"points {wrong}", flush=True)
+
+
+# (dim, N, S, point counts) of fused2w_bwd's / fused3w_bwd's planar sweep
+# at C = 4: config 5's volume and a 2D stack of the same bytes (over the
+# L2), the large cells and the main paths' stacks (in the L2)
+W_PLANAR_SWEEP = (
+    (3, N5, S5, (4096, 8192, 16384, 20480, 24576, 32768, 65536, 131072)),
+    (2, N5, 1024, (4096, 8192, 16384, 20480, 24576, 28672, 32768, 65536,
+                   131072)),
+    (3, 2, 32, (64, 256, 1024, 4096, 16384, 65536)),
+    (2, 2, 128, (64, 256, 1024, 4096, 16384, 65536)),
+    (3, N3, S3, (64, 256, 1024, 4096, 16384)),
+    (2, N, H, (64, 256, 1024, 4096, 16384)))
+
+
 # (dim, N, S, point counts) of the v1 blend's planar sweep at C = 16:
 # config 5's volume and a 2D stack of the same bytes (both over the L2),
 # the large cells and path (a)'s stacks (in the L2)
@@ -4060,6 +4164,7 @@ def main():
     _timed(scatter_sweep_phase)
     _timed(gather_sweep_phase)
     _timed(v1_layout_sweep_phase)
+    _timed(w_bwd_layout_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

@@ -54,7 +54,11 @@
 //   channel group of 4) adding float4 records into a zeroed texel-major
 //   (*S, N, C) scratch (in L2 at path (a)), so that a warp's reductions
 //   reach L2 in shared sectors; the tiled transpose writes the
-//   (N, C, *S) cotangent.  No shared-memory atomics.
+//   (N, C, *S) cotangent.  No shared-memory atomics.  That launcher,
+//   fused_scatter_bwd (declared in csrc/texel_scatter.cuh), is also
+//   fused2w_bwd's and fused3w_bwd's, which can add into the cotangent in
+//   place (planar) below a measured number of points a texel; the v1
+//   bwd never does.
 // f32 atomics are not deterministic: the bwd's sums change in the last
 // bits from run to run; they agree with the plain version to 1e-4 of
 // the largest value (chip_smoke.py).  The plain versions
@@ -105,8 +109,9 @@ __global__ void __launch_bounds__(THREADS)
 
 // Block (bx, by): queries [bx * kQBlock, ...), channel groups [by *
 // block_groups, ...) of c (csrc/texel_scatter.cuh), into the zeroed
-// texel-major scratch (*S, N, C); VEC: scatter_vec.
-template <int D, int G, bool VEC>
+// texel-major scratch (*S, N, C), or where PLANAR the zeroed cells
+// cotangent (N, C, *S); VEC: scatter_vec.
+template <int D, int G, bool VEC, bool PLANAR>
 __global__ void __launch_bounds__(csm::kScatterMaxThreads)
     scatter_kernel(const float* __restrict__ g,
                    const float* __restrict__ points,
@@ -114,8 +119,8 @@ __global__ void __launch_bounds__(csm::kScatterMaxThreads)
                    CellGeom<D> geom, int q, csm::ScatterLayout lay,
                    SamplerParams p) {
   const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
-  csm::scatter_block<D, G, VEC>(csm::ScatterQuery{qi < q, qi}, g, q, points,
-                                scratch, n, c, lay, geom, p);
+  csm::scatter_block<D, G, VEC, PLANAR>(csm::ScatterQuery{qi < q, qi}, g, q,
+                                        points, scratch, n, c, lay, geom, p);
 }
 
 // rows (Q, 1 + 2D, C) of the blend gathered from vol, the texel-major copy
@@ -162,29 +167,56 @@ cudaError_t launch_blend(const float* cells, const float* points, float* vol,
                         s);
 }
 
-// The scatter into scratch (texel-major (*S, N, C), zeroed), then the
-// transpose into out (N, C, *S).
+}  // namespace
+
+namespace csm {
+
 template <int D>
-cudaError_t launch_bwd(const float* g, const float* points, float* scratch,
-                       float* out, int n, int c, const CellGeom<D>& geom,
-                       int q, const csm::ScatterLayout& lay, int threads,
-                       const SamplerParams& p, cudaStream_t s) {
+cudaError_t fused_scatter_bwd(const float* g, const float* points,
+                              float* scratch, float* out, int n, int c,
+                              const CellGeom<D>& geom, int q,
+                              const ScatterLayout& lay, int threads,
+                              bool planar, const SamplerParams& p,
+                              cudaStream_t s) {
   if (n == 0 || c == 0 || geom.texels == 0) return cudaGetLastError();
   if (q > 0) {
-    const cudaError_t err = csm::launch_scatter<D>(
-        lay, c, threads, csm::cdiv(q, kQBlock), s,
-        [](auto gw, auto vec) {
-          return &scatter_kernel<D, decltype(gw)::value,
-                                 decltype(vec)::value>;
-        },
-        g, points, scratch, n, c, geom, q, lay, p);
+    const auto scatter = [&](auto pick, float* dst) {
+      return launch_scatter<D>(lay, c, threads, cdiv(q, kQBlock), s, pick, g,
+                               points, dst, n, c, geom, q, lay, p);
+    };
+    // planar cells take scalar reductions whatever the channel count
+    const cudaError_t err =
+        planar ? scatter(
+                     [](auto gw, auto) {
+                       return &scatter_kernel<D, decltype(gw)::value, false,
+                                              true>;
+                     },
+                     out)
+               : scatter(
+                     [](auto gw, auto vec) {
+                       return &scatter_kernel<D, decltype(gw)::value,
+                                              decltype(vec)::value, false>;
+                     },
+                     scratch);
     if (err != cudaSuccess) return err;
   }
-  return csm::transpose(scratch, out, geom.texels,
-                        static_cast<int64_t>(n) * c, 4, s);
+  if (planar) return cudaGetLastError();
+  return transpose(scratch, out, geom.texels, static_cast<int64_t>(n) * c, 4,
+                   s);
 }
 
-}  // namespace
+template cudaError_t fused_scatter_bwd<2>(const float*, const float*, float*,
+                                          float*, int, int,
+                                          const CellGeom<2>&, int,
+                                          const ScatterLayout&, int, bool,
+                                          const SamplerParams&, cudaStream_t);
+template cudaError_t fused_scatter_bwd<3>(const float*, const float*, float*,
+                                          float*, int, int,
+                                          const CellGeom<3>&, int,
+                                          const ScatterLayout&, int, bool,
+                                          const SamplerParams&, cudaStream_t);
+
+}  // namespace csm
 
 extern "C" {
 
@@ -236,12 +268,12 @@ int fused_v1_bwd2(const void* g, const void* points, void* scratch,
                   int kernel, int padding, int align, int multicell,
                   int strict, float off_step, float off_stop, void* stream) {
   const int sizes[2] = {w, h};
-  return launch_bwd<2>(
+  return csm::fused_scatter_bwd<2>(
       static_cast<const float*>(g), static_cast<const float*>(points),
       static_cast<float*>(scratch), static_cast<float*>(out), n, c,
       geom_of<2>(sizes), q,
       csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
-      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+      false, csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }
@@ -253,12 +285,12 @@ int fused_v1_bwd3(const void* g, const void* points, void* scratch,
                   int multicell, int strict, float off_step, float off_stop,
                   void* stream) {
   const int sizes[3] = {w, h, d};
-  return launch_bwd<3>(
+  return csm::fused_scatter_bwd<3>(
       static_cast<const float*>(g), static_cast<const float*>(points),
       static_cast<float*>(scratch), static_cast<float*>(out), n, c,
       geom_of<3>(sizes), q,
       csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
-      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+      false, csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }

@@ -32,25 +32,40 @@
 //   not by DRAM bytes (it writes 5*C*Q floats once).
 // * bwd: the naive form, one global atomicAdd per (query, cell, corner,
 //   channel), is 100k * 96 * 4 * 4 = 154 M float atomics onto 98 k
-//   addresses: contention-bound.  Here each block owns a chunk of cells
-//   whose cotangent fits in 48 KB of shared memory, accumulates one slice
-//   of the queries into it with shared-memory atomics, and flushes the
-//   chunk once with global atomicAdd.  Grids whose single cell does not fit
-//   in the card's opted-in shared memory take global atomics directly.
-// * Channels: up to 8 a thread keeps all 5*C rows in registers; above it
-//   a grid axis walks channel groups, of at most 8 in the blend (C = 16:
-//   two of 8) and of at most 4 in the bwd, each redoing the per-(query,
-//   cell) coordinate math (fused_rows.cuh dispatch_groups), so any C
-//   takes these kernels as JAX's fused2w takes any C within VMEM.
+//   addresses.  The first design added them into chunks of cells in
+//   shared memory, flushed once with global atomics; but every shared f32
+//   add is an ATOMS.CAST.SPIN compare-and-swap loop, and those took most
+//   of the kernel (PERF.md section 6).  Now the bwd is
+//   csrc/texel_scatter.cuh's scatter through fused_scatter_bwd, the v1
+//   bwd's launcher (csrc/fused.cu): blocks of 128 queries in order stage
+//   their points and cotangents once; a warp's 32 lanes take 32 of a
+//   query's cells, compute each cell's axis tables once and add one
+//   float4 a corner into a zeroed texel-major (H, W, N, C) scratch (393 KB
+//   at the main path, in L2), so that a warp's reductions cover
+//   contiguous runs of a texel's N * C record and share 32-byte sectors:
+//   38.4 M float4 reductions where there were 153.6 M shared adds.  The
+//   tiled transpose writes the (N, C, H, W) cotangent.  Below a measured
+//   number of points a texel (ops/cuda/fused2w.py bwd_geometry) the
+//   scatter adds scalars into the zeroed cotangent in place (planar),
+//   where the scratch's fill and transpose would cost more.  No
+//   shared-memory atomics.
+// * Channels: up to 8 a blend thread keeps all 5*C rows in registers;
+//   above it a grid axis walks channel groups of at most 8, each redoing
+//   the per-(query, cell) coordinate math (fused_rows.cuh
+//   dispatch_groups).  The bwd takes groups of 4 channels over the lanes
+//   (ops/cuda/scatter.py), scalar groups of at most 8 at other counts.
+//   So any C takes these kernels as JAX's fused2w takes any C within
+//   VMEM.
 // * The TPU backward was deterministic (a sequential read-modify-write
 //   chain).  This one is not: f32 atomics add in an order that changes from
 //   run to run, so results agree with the plain version to rounding, not
 //   bit for bit.
-// The kernels are the D = 2 instances of csrc/fused_rows.cuh, which
-// fused3w (csrc/fused3w.cu) and mega2w (csrc/mega2w.cu) share.
+// The blend is the D = 2 instance of csrc/fused_rows.cuh, which fused3w
+// (csrc/fused3w.cu) and mega2w (csrc/mega2w.cu) share.
 #include <cuda_runtime.h>
 
 #include "fused_rows.cuh"
+#include "texel_scatter.cuh"
 
 namespace {
 
@@ -72,7 +87,7 @@ int fused2w_blend(const void* cells, const void* points, void* out, int n,
                   float off_stop, void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups<csm::fused::kBlendGroup>(
+  return csm::fused::dispatch_groups(
       c, [&](auto gw, auto one) {
     return csm::fused::launch_blend<2, decltype(gw)::value,
                                      decltype(one)::value>(
@@ -82,21 +97,25 @@ int fused2w_blend(const void* cells, const void* points, void* out, int n,
   });
 }
 
-// dcells (N, C, H, W) must be zeroed.
-int fused2w_bwd(const void* g, const void* points, void* dcells, int n,
-                int c, int h, int w, int q, int kernel, int padding, int align,
-                int multicell, int strict, float off_step, float off_stop,
-                void* stream) {
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups<csm::fused::kBwdGroup>(
-      c, [&](auto gw, auto one) {
-    return csm::fused::launch_bwd<2, decltype(gw)::value,
-                                     decltype(one)::value>(
-        static_cast<const float*>(g), static_cast<const float*>(points),
-        static_cast<float*>(dcells), n, c, geom2(h, w), q, p,
-        static_cast<cudaStream_t>(stream));
-  });
+// g (5, C, Q), points, scratch (texel-major (H, W, N, C), zeroed; not
+// used where planar), dcells (N, C, H, W), zeroed where planar; n, c, h,
+// w, q; the launch layout of ops/cuda/fused2w.py bwd_geometry (width,
+// block groups, lane groups, lanes, threads, planar); then the sampler
+// arguments as fused2w_blend's.
+int fused2w_bwd(const void* g, const void* points, void* scratch,
+                void* dcells, int n, int c, int h, int w, int q, int width,
+                int block_groups, int lane_groups, int lanes, int threads,
+                int planar, int kernel, int padding, int align, int multicell,
+                int strict, float off_step, float off_stop, void* stream) {
+  return csm::fused_scatter_bwd<2>(
+      static_cast<const float*>(g), static_cast<const float*>(points),
+      static_cast<float*>(scratch), static_cast<float*>(dcells), n, c,
+      geom2(h, w), q,
+      csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
+      planar != 0,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop),
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* csm_error_string(int err) {

@@ -26,19 +26,27 @@
 //   main path it does 50 x 100 000 x 8 x 4 x 7 FMAs (~0.033 ms at the f32
 //   peak): bound by operations and the per-(query, cell) coordinate math
 //   (three sincospif).
-// * bwd: shared-memory atomics per chunk of cells, flushed once with
-//   global atomicAdd, as fused2w_bwd.  A 4 x 16^3 f32 cell is 64 KiB, over
-//   the 48 KB a block gets without opting in, so a block opts in to the
-//   card's limit (227 KB on the H100: 3 cells per chunk) and runs 512
-//   threads, one block per SM.  A cell above the limit (4 x 32^3) takes
-//   global atomics directly.  f32 atomics: not deterministic.
-// * Channels: above 8, channel groups on a grid axis, of at most 8 in the
-//   blend and 4 in the bwd, as fused2w (csrc/fused2w.cu); the bwd's
-//   chunks hold one group's planes.
-// The kernels are the D = 3 instances of csrc/fused_rows.cuh.
+// * bwd: the first design added into chunks of cells in shared memory
+//   (a 4 x 16^3 cell is 64 KiB: 3 cells a chunk, 17 chunks, 512 threads
+//   and one block an SM), 160 M shared f32 adds a call at the main path,
+//   each an ATOMS.CAST.SPIN compare-and-swap loop (PERF.md section 6).
+//   Now it is fused2w_bwd's design (csrc/fused2w.cu): texel_scatter.cuh's
+//   scatter through fused_scatter_bwd (csrc/fused.cu), a warp's lanes
+//   over 32 of a query's cells adding one float4 a corner into a zeroed
+//   texel-major (D, H, W, N, C) scratch (3.3 MB, in L2): 40 M float4
+//   reductions, no shared-memory atomics; the tiled transpose writes the
+//   (N, C, D, H, W) cotangent.  Below a measured number of points a
+//   texel (ops/cuda/fused2w.py bwd_geometry) the scatter adds scalars
+//   into the zeroed cotangent in place (planar).  f32 atomics: not
+//   deterministic.
+// * Channels: above 8, the blend's channel groups of at most 8 on a grid
+//   axis, as fused2w's (csrc/fused2w.cu); the bwd's groups of 4 over the
+//   lanes (ops/cuda/scatter.py).
+// The blend is the D = 3 instance of csrc/fused_rows.cuh.
 #include <cuda_runtime.h>
 
 #include "fused_rows.cuh"
+#include "texel_scatter.cuh"
 
 extern "C" {
 
@@ -48,7 +56,7 @@ int fused3w_blend(const void* cells, const void* points, void* out, int n,
                   float off_stop, void* stream) {
   const csm::SamplerParams p = csm::make_params(
       kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups<csm::fused::kBlendGroup>(
+  return csm::fused::dispatch_groups(
       c, [&](auto gw, auto one) {
     return csm::fused::launch_blend<3, decltype(gw)::value,
                                      decltype(one)::value>(
@@ -58,21 +66,26 @@ int fused3w_blend(const void* cells, const void* points, void* out, int n,
   });
 }
 
-// dcells (N, C, D, H, W) must be zeroed.
-int fused3w_bwd(const void* g, const void* points, void* dcells, int n,
-                int c, int d, int h, int w, int q, int kernel, int padding,
-                int align, int multicell, int strict, float off_step,
-                float off_stop, void* stream) {
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups<csm::fused::kBwdGroup>(
-      c, [&](auto gw, auto one) {
-    return csm::fused::launch_bwd<3, decltype(gw)::value,
-                                     decltype(one)::value>(
-        static_cast<const float*>(g), static_cast<const float*>(points),
-        static_cast<float*>(dcells), n, c, csm::cell_geom3(d, h, w), q, p,
-        static_cast<cudaStream_t>(stream));
-  });
+// g (7, C, Q), points, scratch (texel-major (D, H, W, N, C), zeroed; not
+// used where planar), dcells (N, C, D, H, W), zeroed where planar; n, c,
+// d, h, w, q; the launch layout of ops/cuda/fused2w.py bwd_geometry
+// (width, block groups, lane groups, lanes, threads, planar); then the
+// sampler arguments as fused3w_blend's.
+int fused3w_bwd(const void* g, const void* points, void* scratch,
+                void* dcells, int n, int c, int d, int h, int w, int q,
+                int width, int block_groups, int lane_groups, int lanes,
+                int threads, int planar, int kernel, int padding, int align,
+                int multicell, int strict, float off_step, float off_stop,
+                void* stream) {
+  return csm::fused_scatter_bwd<3>(
+      static_cast<const float*>(g), static_cast<const float*>(points),
+      static_cast<float*>(scratch), static_cast<float*>(dcells), n, c,
+      csm::cell_geom3(d, h, w), q,
+      csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
+      planar != 0,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // The fused rows of one query, in 2D and 3D, and the kernels built from
-// them: fused2w / fused3w (value, jacobian, diagonal Hessian, summed over
-// the multicell ensemble, and its cells transpose), shared with the mega2w
-// train-step kernel.
+// them: fused2w's and fused3w's blends (value, jacobian, diagonal
+// Hessian, summed over the multicell ensemble), shared with the mega2w
+// train-step kernel, whose splat adds their transpose (splat_query,
+// splat_query_range).  The corner walk serves every fused kernel.
 //
 // Rows, in the JAX package's order: value, d/dx_i for each grid axis i,
 // then d2/dx_i2 for each grid axis i (1 + 2D rows).  Grid axis 0 (x)
@@ -255,22 +256,16 @@ cudaError_t dispatch_channels(int c, F&& f) {
 namespace fused {
 
 constexpr int kBlendThreads = 128;
-// 256 threads while four chunks share an SM; 512 for a chunk that takes
-// the SM's whole shared memory (the 64 KiB 3D cell), or too few warps
-// would wait on the shared-memory atomics.
-constexpr int kBwdThreadsSmall = 256;
-constexpr int kBwdThreadsLarge = 512;
 
-// Channels: up to kMaxChannels a thread keeps all C channels' rows in
-// registers (ONE: the whole stack is one group, C == G, as compile-time
-// constants).  Above it a grid axis walks channel groups, each redoing the
-// per-(query, cell) coordinate math: the blend's of at most kBlendGroup
-// channels (C = 12: two of 6; C = 16: two of 8), the bwd's of at most
-// kBwdGroup (C = 16: four of 4), whose cotangent registers and
-// shared-memory chunks are half as wide.  Groups of 4 took fused2w_bwd
-// at 96 x 16 x 16^2 from 3.56 to 2.61 ms and fused3w's blend + bwd at
-// 16 x 16 x 128^3 below the v1 pair's, but fused3w_bwd at 50 x 16 x 16^3
-// from 3.69 to 4.51 ms (PERF.md section 4; route.py routes by it).
+// Channels: up to kMaxChannels a blend thread keeps all C channels' rows
+// in registers (ONE: the whole stack is one group, C == G, as
+// compile-time constants).  Above it a grid axis walks channel groups of
+// at most kBlendGroup channels (C = 12: two of 6; C = 16: two of 8),
+// each redoing the per-(query, cell) coordinate math.  mega2w's wide
+// splat (csrc/mega2w.cu) adds into shared chunks in groups of at most
+// kBwdGroup (C = 16: four of 4), whose cotangent registers and chunks
+// are half as wide.  fused2w's and fused3w's bwds are
+// csrc/texel_scatter.cuh's scatter (fused_scatter_bwd), not this file's.
 constexpr int kBlendGroup = kMaxChannels;
 constexpr int kBwdGroup = 4;
 
@@ -313,72 +308,6 @@ __global__ void __launch_bounds__(kBlendThreads)
   }
 }
 
-// Block (bx, by, bz) accumulates queries [bx * q_per_block, ...) into cells
-// [by * cells_per_chunk, ...), channels [bz * G, bz * G + cg).  SMEM: in
-// shared memory, flushed once at the end; otherwise straight into dcells.
-// dcells must be zeroed.
-template <int D, int G, bool ONE, bool SMEM>
-__global__ void __launch_bounds__(kBwdThreadsLarge)
-    bwd_kernel(const float* __restrict__ g, const float* __restrict__ points,
-               float* __restrict__ dcells, int n, int c, CellGeom<D> geom,
-               int q, int cells_per_chunk, int q_per_block,
-               SamplerParams p) {
-  extern __shared__ float sacc[];
-  const int c0 = ONE ? 0 : blockIdx.z * G;
-  const int cg = ONE ? G : min(G, c - c0);
-  const int cs = ONE ? G : c;
-  const int64_t cell_stride = static_cast<int64_t>(cs) * geom.texels;
-  const int group_elems = cg * geom.texels;
-  const int n0 = blockIdx.y * cells_per_chunk;
-  const int n1 = min(n, n0 + cells_per_chunk);
-  const int chunk_elems = (n1 - n0) * group_elems;
-  float* chunk_out = dcells + n0 * cell_stride +
-                     static_cast<int64_t>(c0) * geom.texels;
-  if (SMEM) {
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) sacc[e] = 0.0f;
-    __syncthreads();
-  }
-
-  const int q0 = blockIdx.x * q_per_block;
-  const int q1 = min(q, q0 + q_per_block);
-  for (int qi = q0 + threadIdx.x; qi < q1; qi += blockDim.x) {
-    float gv[kRows<D>][G];
-#pragma unroll
-    for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        gv[r][j] = j < cg ? __ldg(g + static_cast<int64_t>(r * cs + c0 + j) *
-                                          q + qi)
-                          : 0.0f;
-    float pt[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-    if constexpr (ONE) {
-      splat_query<D, G>(SMEM ? sacc : chunk_out, geom, n0, n1, n, pt, p, gv);
-    } else if (SMEM) {
-      splat_query_range<D, G>(sacc, group_elems, geom, n0, n1, n, cg, pt, p,
-                              gv);
-    } else {
-      splat_query_range<D, G>(chunk_out, cell_stride, geom, n0, n1, n, cg,
-                              pt, p, gv);
-    }
-  }
-
-  if (SMEM) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < chunk_elems; e += blockDim.x) {
-      const float v = sacc[e];
-      if (v == 0.0f) continue;
-      if constexpr (ONE) {
-        atomicAdd(chunk_out + e, v);
-      } else {
-        const int ln = e / group_elems;
-        atomicAdd(chunk_out + ln * cell_stride + (e - ln * group_elems), v);
-      }
-    }
-  }
-}
-
 template <int D, int G, bool ONE>
 cudaError_t launch_blend(const float* cells, const float* points, float* out,
                          int n, int c, const CellGeom<D>& g, int q,
@@ -391,70 +320,25 @@ cudaError_t launch_blend(const float* cells, const float* points, float* out,
   return cudaGetLastError();
 }
 
-template <int D, int G, bool ONE>
-cudaError_t launch_bwd(const float* g, const float* points, float* dcells,
-                       int n, int c, const CellGeom<D>& geom, int q,
-                       const SamplerParams& p, cudaStream_t stream) {
-  if (q == 0 || n == 0 || geom.texels == 0) return cudaGetLastError();
-  DeviceLimits lim;
-  cudaError_t err = device_limits(&lim);
-  if (err != cudaSuccess) return err;
-
-  // chunks of cells of one channel group: up to 48 KB, or as many groups
-  // of a larger cell as the opted-in limit holds; above it global atomics
-  const int groups = ONE ? 1 : channel_groups(c, kBwdGroup);
-  const int64_t cell_bytes = static_cast<int64_t>(G) * geom.texels * 4;
-  const bool smem = cell_bytes <= lim.smem_optin;
-  const int64_t budget =
-      cell_bytes <= kStaticSmemBytes ? kStaticSmemBytes : lim.smem_optin;
-  const int cells_per_chunk =
-      smem ? static_cast<int>(std::min<int64_t>(n, budget / cell_bytes)) : n;
-  const int chunks = cdiv(n, cells_per_chunk);
-  const size_t bytes = smem ? static_cast<size_t>(cells_per_chunk) * cell_bytes
-                            : 0;
-  const int threads =
-      bytes > static_cast<size_t>(kStaticSmemBytes) ? kBwdThreadsLarge
-                                                    : kBwdThreadsSmall;
-  // as many blocks as fit on the card at once, at most 4 per SM, but no
-  // block with fewer queries than threads
-  const int per_sm =
-      smem ? std::max(1, std::min<int>(4, lim.smem_per_sm /
-                                              static_cast<int>(bytes + 1024)))
-           : 4;
-  const int q_blocks = std::max(
-      1, std::min(cdiv(per_sm * lim.sms, chunks * groups), cdiv(q, threads)));
-  const int q_per_block = cdiv(q, q_blocks);
-  const dim3 grid(cdiv(q, q_per_block), chunks, groups);
-  if (smem) {
-    auto* kernel = &bwd_kernel<D, G, ONE, true>;
-    err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, bytes, stream>>>(g, points, dcells, n, c, geom, q,
-                                             cells_per_chunk, q_per_block, p);
-  } else {
-    bwd_kernel<D, G, ONE, false><<<grid, threads, 0, stream>>>(
-        g, points, dcells, n, c, geom, q, cells_per_chunk, q_per_block, p);
-  }
-  return cudaGetLastError();
-}
-
 // Calls launch(std::integral_constant<int, G>, std::bool_constant<ONE>)
-// for c channels: c <= kMaxChannels as one group (G = c, ONE), more as
-// groups of group_width(c, MOST), which is over MOST / 2 for c > MOST.
-template <int MOST, typename F>
+// for the blend of c channels: c <= kMaxChannels as one group (G = c,
+// ONE), more as groups of group_width(c, kBlendGroup), which is over
+// kBlendGroup / 2 for c > kBlendGroup.
+template <typename F>
 cudaError_t dispatch_groups(int c, F&& launch) {
   if (c <= kMaxChannels) {
     return dispatch_channels(c, [&](auto cc) {
       return launch(cc, std::true_type{});
     });
   }
-  return dispatch_channels(group_width(c, MOST), [&](auto gw) -> cudaError_t {
-    constexpr int G = decltype(gw)::value;
-    if constexpr (G > MOST / 2 && G <= MOST)
-      return launch(gw, std::false_type{});
-    else
-      return cudaErrorInvalidValue;
-  });
+  return dispatch_channels(
+      group_width(c, kBlendGroup), [&](auto gw) -> cudaError_t {
+        constexpr int G = decltype(gw)::value;
+        if constexpr (G > kBlendGroup / 2 && G <= kBlendGroup)
+          return launch(gw, std::false_type{});
+        else
+          return cudaErrorInvalidValue;
+      });
 }
 
 }  // namespace fused

@@ -1,7 +1,8 @@
 // The transpose of the fused rows for one block of queries, added into
 // the cells with a warp's lanes over (query, cell), in 2D and 3D: the
 // backward body that fused3b_bwd (csrc/fused3b.cu), fused3s_bwd
-// (csrc/fused3s.cu) and the v1 bwd (csrc/fused.cu) share.
+// (csrc/fused3s.cu), and through fused_scatter_bwd below the v1 bwd
+// (csrc/fused.cu), fused2w_bwd and fused3w_bwd share.
 //
 // Why lanes over cells: the texel-major layout (*S, N, C) keeps one
 // texel's N * C values together, and the cells of one query are shifted
@@ -23,6 +24,10 @@
 // corner for a group of 4 channels (VEC), scalars otherwise.  At C = 16
 // the lanes run over (cell, group of 4): 16 cells x 4 groups a query, so
 // a warp's 32 float4 reductions cover 8 cells' contiguous 64 bytes.
+// PLANAR adds scalars into the cells' own (N, C, *S) layout instead: for
+// a call with few points a texel of a large stack, where zeroing and
+// transposing a texel-major scratch would cost more than the sectors it
+// saves.
 //
 // Measured at config 5 on the H100 (PERF.md section 6): the reductions
 // now take ~0.2 of fused3b_bwd's ~1.2 ms kernel at C = 4; the walk (the
@@ -79,10 +84,11 @@ struct ScatterQuery {
   int col;
 };
 
-// dst[k] += v[k], k < cg, atomically; float4 atomics where VEC (G a
-// multiple of 4 and cg == G, 16-byte aligned).
+// dst[k * stride] += v[k], k < cg, atomically; float4 atomics where VEC
+// (G a multiple of 4, cg == G and stride 1, 16-byte aligned).
 template <int G, bool VEC>
 __device__ __forceinline__ void add_channels(float* dst, int cg,
+                                             int64_t stride,
                                              const float (&v)[G]) {
   if constexpr (VEC) {
     static_assert(G % 4 == 0, "float4 reductions");
@@ -93,7 +99,7 @@ __device__ __forceinline__ void add_channels(float* dst, int cg,
   } else {
 #pragma unroll
     for (int k = 0; k < G; ++k)
-      if (k < cg) atomicAdd(dst + k, v[k]);
+      if (k < cg) atomicAdd(dst + k * stride, v[k]);
   }
 }
 
@@ -104,17 +110,19 @@ inline bool scatter_vec(int c, int width) {
   return width % 4 == 0 && c % width == 0;
 }
 
-// The block's scatter into the texel-major (*S, N, C) out, which must
-// hold the sum so far (zeros).  Thread t < kScatterQueries holds staging
-// slot t: `mine` says whether it is a query and which column; the valid
-// slots are compacted in order.  VEC: scatter_vec.  Every thread of the
-// block must call it.
-template <int D, int G, bool VEC>
+// The block's scatter into the texel-major (*S, N, C) out, or where
+// PLANAR into the cells' own (N, C, *S) layout (scalar reductions, each
+// channel a plane apart), which must hold the sum so far (zeros).
+// Thread t < kScatterQueries holds staging slot t: `mine` says whether
+// it is a query and which column; the valid slots are compacted in
+// order.  VEC: scatter_vec.  Every thread of the block must call it.
+template <int D, int G, bool VEC, bool PLANAR = false>
 __device__ __forceinline__ void scatter_block(
     ScatterQuery mine, const float* __restrict__ g, int cols,
     const float* __restrict__ pts, float* __restrict__ out, int n, int c,
     const ScatterLayout& lay, const CellGeom<D>& geom,
     const SamplerParams& p) {
+  static_assert(!(VEC && PLANAR), "planar cells take scalar reductions");
   constexpr int R = kRows<D>;
   constexpr int Q = kScatterQueries;
   extern __shared__ float smem[];
@@ -183,7 +191,11 @@ __device__ __forceinline__ void scatter_block(
           for (int jj = 0; jj < G; ++jj)
             gv[r][jj] =
                 jj < cg ? gsm[(r * cb + c0 - cblk + jj) * Q + j] : 0.0f;
-        float* base = out + static_cast<int64_t>(ni) * c + c0;
+        // a texel's records (*S, N, C), or a cell's planes (N, C, *S)
+        const int64_t texel_stride = PLANAR ? 1 : static_cast<int64_t>(n) * c;
+        const int64_t chan_stride = PLANAR ? geom.texels : 1;
+        float* base = out + (static_cast<int64_t>(ni) * c + c0) *
+                                (PLANAR ? geom.texels : 1);
         for_each_table_corner<D>(
             geom, a, [&](const int (&)[D], int idx, const float (&wr)[R]) {
               float v[G];
@@ -194,8 +206,8 @@ __device__ __forceinline__ void scatter_block(
                 for (int r = 0; r < R; ++r) s = fmaf(wr[r], gv[r][jj], s);
                 v[jj] = s;
               }
-              add_channels<G, VEC>(base + static_cast<int64_t>(idx) * n * c,
-                                   cg, v);
+              add_channels<G, VEC>(base + idx * texel_stride, cg,
+                                   chan_stride, v);
             });
       }
     }
@@ -236,5 +248,20 @@ cudaError_t launch_scatter(const ScatterLayout& lay, int c, int threads,
     return cudaGetLastError();
   });
 }
+
+// The fused op's bwd over points in query order, defined in csrc/fused.cu
+// for D = 2 and 3: the v1 bwd's, fused2w_bwd's and fused3w_bwd's.  g (1 +
+// 2D, C, Q) at points (Q, D), in blocks of kScatterQueries queries in
+// order with the layout `lay` and `threads` a block, is added into
+// scratch (texel-major (*S, N, C), zeroed), which the tiled transpose then
+// writes out as the cells cotangent out (N, C, *S); where `planar`, the
+// scatter adds into out (zeroed) in place and scratch is not used.
+template <int D>
+cudaError_t fused_scatter_bwd(const float* g, const float* points,
+                              float* scratch, float* out, int n, int c,
+                              const CellGeom<D>& geom, int q,
+                              const ScatterLayout& lay, int threads,
+                              bool planar, const SamplerParams& p,
+                              cudaStream_t s);
 
 }  // namespace csm

@@ -27,7 +27,8 @@ from ..config import SamplerConfig, effective_align
 from ..coords import offset_lattice
 from ..generic import blend as plain_blend
 from ..generic import splat as plain_splat
-from .build import BLOCK_SMEM_BYTES, check, load_kernels
+from .build import (BLOCK_SMEM_BYTES, H100_SMS, RESERVED_SMEM_BYTES,
+                    SM_SMEM_BYTES, check, load_kernels)
 from .fused2w import KERNEL_IDS, PADDING_IDS, cuda_device
 
 __all__ = ["BlendGeometry", "SplatGeometry", "blend", "blend_geometry",
@@ -88,11 +89,6 @@ def launch_pairs(entry: str, pointers, cfg: SamplerConfig, n: int, c: int,
     check(lib, err, f"{entry} launch")
 
 
-# the H100 SXM's SMs, and the shared memory of one of them with the 1 KB
-# the card reserves a block
-H100_SMS = 132
-SM_SMEM_BYTES = 228 * 1024
-RESERVED_SMEM_BYTES = 1024
 # the staged blend's mbarrier ahead of its cells (csrc/blend_splat.cu
 # kBarrierBytes)
 BARRIER_BYTES = 16

@@ -30,6 +30,11 @@ BUILD_ROOT = _PKG.parent / "build"
 # the shared memory a block may opt in to on the H100 (232 448 bytes); the
 # C entry points check it against the device's own limit
 BLOCK_SMEM_BYTES = 227 * 1024
+# the H100 SXM's SMs, and the shared memory of one of them with the 1 KB
+# the card reserves a block
+H100_SMS = 132
+SM_SMEM_BYTES = 228 * 1024
+RESERVED_SMEM_BYTES = 1024
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -103,17 +108,22 @@ def nvcc_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.fused2w_blend, lib.fused2w_bwd, lib.fused2d_blend,
-               lib.fused2d_bwd):
+    for fn in (lib.fused2w_blend, lib.fused2d_blend, lib.fused2d_bwd):
         # 3 data pointers; n, c, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
         fn.restype = i32
-    for fn in (lib.fused3w_blend, lib.fused3w_bwd, lib.fused3d_blend,
-               lib.fused3d_bwd):
+    for fn in (lib.fused3w_blend, lib.fused3d_blend, lib.fused3d_bwd):
         # 3 data pointers; n, c, d, h, w, q, kernel, padding, align,
         # multicell, strict; the offset lattice's step and stop; the stream
         fn.argtypes = [ptr, ptr, ptr] + [i32] * 11 + [f32, f32, ptr]
+        fn.restype = i32
+    for dim, fn in ((2, lib.fused2w_bwd), (3, lib.fused3w_bwd)):
+        # g, points, scratch, dcells; n, c, the dim sizes, q, the scatter
+        # layout (width, block groups, lane groups, lanes, threads),
+        # planar, kernel, padding, align, multicell, strict; the offset
+        # lattice's step and stop; the stream
+        fn.argtypes = [ptr] * 4 + [i32] * (14 + dim) + [f32, f32, ptr]
         fn.restype = i32
     for dim, (blend, bwd) in ((2, (lib.fused_v1_blend2, lib.fused_v1_bwd2)),
                               (3, (lib.fused_v1_blend3, lib.fused_v1_bwd3))):

@@ -11,7 +11,8 @@ d2/dx2, d2/dy2, d2/dz2 summed over the cells, and the exact transpose.
   csrc/fused3w.cu.  A tensor on the CPU takes the plain version; a CUDA
   tensor launches the kernel on the current stream, or raises for what the
   kernel does not take.  Each wrapper counts its launches in its
-  ``launches`` attribute.
+  ``launches`` attribute.  The bwd's launch layout and its planar bound
+  are fused2w_bwd's (ops/cuda/fused2w.py ``bwd_geometry``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,7 @@ from typing import Tuple
 import torch
 
 from ..config import SamplerConfig
-from .fused2w import (kernel_blend, kernel_bwd, plain_fused_blend,
-                      plain_fused_bwd)
+from .fused2w import bwd, kernel_blend, plain_fused_blend, plain_fused_bwd
 
 __all__ = ["fused_blend", "fused_bwd", "plain_fused_blend", "plain_fused_bwd"]
 
@@ -45,8 +45,7 @@ def fused_bwd(g: torch.Tensor, points: torch.Tensor,
     cotangent ``g``; kernel on CUDA tensors, plain on CPU ones."""
     if g.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_bwd(g, points, tuple(in_spatial), cfg, n_cells)
-    dcells = kernel_bwd("fused3w_bwd", 3, g, points, tuple(in_spatial), cfg,
-                        n_cells)
+    dcells = bwd(g, points, tuple(in_spatial), cfg, n_cells)
     fused_bwd.launches += 1
     return dcells
 

@@ -25,8 +25,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..config import SamplerConfig
-from .blend_splat import H100_SMS, RESERVED_SMEM_BYTES, SM_SMEM_BYTES
-from .build import BLOCK_SMEM_BYTES, check, load_kernels
+from .build import (BLOCK_SMEM_BYTES, H100_SMS, RESERVED_SMEM_BYTES,
+                    SM_SMEM_BYTES, check, load_kernels)
 from .fused2w import (check_kernel_inputs, cuda_device, plain_fused_blend,
                       plain_fused_bwd, sampler_args)
 

@@ -69,32 +69,31 @@ MIN_PAIRS = 1 << 18
 # more takes the plain route
 INDEX_LIMIT = 2**31
 # the most channels a fused2w / fused3w thread keeps in registers at once
-# (csrc/fused_rows.cuh kMaxChannels).  Above it both walk channel groups,
-# and the rule picks between them and the v1 pair (texel-major gathers
-# and scatters) by chip_smoke.py's wide_route_sweep_phase (PERF.md
-# section 4): in 2D fused2w up to FUSED2W_WIDE_MAX_C channels at up to
-# FUSED2W_WIDE_MAX_Q queries, the v1 pair otherwise; in 3D fused3w up to
-# FUSED3W_WIDE_MAX_Q queries, or up to FUSED3W_WIDE_MAX_Q_OVER_L2 over a
-# stack larger than the L2 (STACK_L2_BYTES), where the v1 pair's copy of
-# the cells and its scratch cost most, the v1 pair otherwise.  Each the
-# last point where the channel groups won: fused2w on 96 x 12 x 16^2 at
-# 1024 points, not at 16 384 nor at 16 channels; fused3w on 50 x 12 x
-# 16^3 at 1024 (lost at 2048), on 16 x C x 128^3 at 16 384 (lost at
-# 32 768) at C = 12 and 16.  At 50 x 16 x 16^3 and 1024 points the v1
-# pair won by 2-5%, the one point the rule sends to the slower kernel.
+# (csrc/fused_rows.cuh kMaxChannels).  Above it both blends walk channel
+# groups, and the rule picks between them and the v1 pair (texel-major
+# gathers; the bwds share one scatter) by chip_smoke.py's
+# wide_route_sweep_phase (PERF.md section 4): in 2D fused2w up to
+# FUSED2W_WIDE_MAX_C channels at up to FUSED2W_WIDE_MAX_Q queries, the v1
+# pair otherwise; in 3D fused3w up to FUSED3W_WIDE_MAX_Q_OVER_L2 queries
+# over a stack larger than the L2 (STACK_L2_BYTES), where the v1 blend's
+# copy of the cells costs most, the v1 pair otherwise.  Each the last point where the channel groups
+# won: fused2w on 96 x 12 x 16^2 at 1024 points (at 16 384 it tied,
+# 0.2705 against 0.2712 ms; lost at 16 channels); fused3w on 16 x C x
+# 128^3 at 32 768 (lost at 100 000) at C = 12 and 16.  On 50 x C x 16^3
+# fused3w lost at every count from 1024 to 100 000, by 14-50%.
 FUSED_MAX_CHANNELS = 8
 FUSED2W_WIDE_MAX_C = 12
 FUSED2W_WIDE_MAX_Q = 1024
-FUSED3W_WIDE_MAX_Q = 1024
-FUSED3W_WIDE_MAX_Q_OVER_L2 = 16384
-# in 2D up to 8 channels, fused2d up to FUSED2D_MAX_Q queries or up to
-# FUSED2D_MAX_PAIRS (cell, query) pairs, fused2w otherwise: each the last
-# point where fused2d won in chip_smoke.py's sweep (PERF.md section 4).
-# fused2d won at 96 cells x 3584 points, lost at 96 x 4096; won at 8 x
-# 16384 and 32 x 4096 (2^17 pairs), lost at 8 x 24576 and 32 x 7168.  At
-# 32 x 6144 (196 608 pairs) it won by 4%, but at 8 x 24576, as many pairs,
-# it lost by 27%: the pair bound stops below both.
-FUSED2D_MAX_Q = 3584
+FUSED3W_WIDE_MAX_Q_OVER_L2 = 32768
+# in 2D up to 8 channels, fused2d over FUSED2D_MIN_CELLS cells or more up
+# to FUSED2D_MAX_Q queries or up to FUSED2D_MAX_PAIRS (cell, query)
+# pairs, fused2w otherwise: each the last point where fused2d won in
+# chip_smoke.py's sweep (PERF.md section 4).  Against the texel-major
+# fused2w_bwd, fused2d won at 96 cells x 3072 points, lost at 96 x 3584;
+# won at 32 x 4096 (2^17 pairs), lost at 32 x 6144; and lost at 8 cells
+# at every count from 512 to 100 000 (by 2-3x).
+FUSED2D_MIN_CELLS = 32
+FUSED2D_MAX_Q = 3072
 FUSED2D_MAX_PAIRS = 1 << 17
 # in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q queries where a
 # cell's channel group fits shared memory (fused3d.supports); fused3s, in
@@ -102,25 +101,21 @@ FUSED2D_MAX_PAIRS = 1 << 17
 # of FUSED3S_MIN_STACK_BYTES or more with FUSED3S_MIN_CHANNELS channels
 # and FUSED3S_MIN_PLANES (cell, channel) planes or more; fused3w
 # otherwise: each the last point where the kernel won in chip_smoke.py's
-# sweep (PERF.md section 4).  fused3d won at 6144 points at 8 and 50
-# cells; at 8192 it lost at 8 cells and tied at 50.  fused3s (at 16 x 4
-# x S^3 unless named) won at 100 000 on 64^3 (67 MB) and lost on 8 x 4 x
-# 80^3 (65.5 MB); won on 16 x 3 x 96^3 and lost on 16 x 2 x 96^3; won on
-# 6 x 4 x 128^3 and lost on 4 x 4 x 128^3 (with its backward before the
-# lanes over cells; its sort costs ~0.15 ms at 100 000 points, which a
-# stack that L2 holds or a thin one does not pay back).  With the lanes
-# over cells it won at 49 152 points on the stacks the bound applies to,
-# 64^3 and 128^3 (by 22% and 21%), and lost at 32 768 on each; on 128^3
-# it also won at 40 960 (by 8%), the one point there the bound sends to
-# the slower kernel.  It also won below the stack bound (16 x 4 x 24^3
-# and 32^3, 8 x 4 x 80^3), which stays until a sweep places it (PERF.md
-# section 6).
+# sweep (PERF.md section 4).  fused3d won at 6144 points at 50 cells (by
+# 2%) and lost at 8192; at 8 cells fused3w won at 6144 (0.034 against
+# 0.066 ms), the one point the bound sends to the slower kernel.
+# fused3s (at 16 x 4 x S^3 unless named) lost on 8 x 4 x 80^3 (65.5 MB)
+# and below the stack bound but on 16 x 4 x 32^3 at 100 000 (by 4%).
+# Against the texel-major fused3w_bwd it won at 81 920 points on 64^3
+# and lost at 65 536, and on 128^3 won at 100 000 and lost at 81 920 (by
+# 2%, the one point there the bound sends to the slower kernel); it won
+# on 64 planes (16 x 4 x 96^3 and 128^3) and lost on 48 (16 x 3 x 96^3)
+# and 24 (6 x 4 x 128^3).
 FUSED3D_MAX_Q = 6144
-FUSED3S_MIN_Q = 49_152
+FUSED3S_MIN_Q = 81_920
 FUSED3S_MIN_STACK_BYTES = 16 * 4 * 64**3 * 4
 FUSED3S_MIN_CHANNELS = 3
-FUSED3S_MIN_PLANES = 24
-
+FUSED3S_MIN_PLANES = 64
 
 def rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
          n_pairs: int) -> str:
@@ -197,17 +192,18 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     whose rows mix alignments; a tensor over the 32-bit indexing); else
     above FUSED_MAX_CHANNELS channels ``"fused2w"`` in 2D up to
     FUSED2W_WIDE_MAX_C channels at up to FUSED2W_WIDE_MAX_Q queries,
-    ``"fused3w"`` in 3D up to FUSED3W_WIDE_MAX_Q queries (up to
-    FUSED3W_WIDE_MAX_Q_OVER_L2 over a stack larger than STACK_L2_BYTES),
-    and ``"fused"`` (the v1 kernels) otherwise; in 3D
+    ``"fused3w"`` in 3D over a stack larger than STACK_L2_BYTES up to
+    FUSED3W_WIDE_MAX_Q_OVER_L2 queries, and ``"fused"`` (the v1 kernels)
+    otherwise; in 3D
     ``"fused3d"`` up to FUSED3D_MAX_Q queries where its chunks fit shared
     memory (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
     FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
     planes or more, in zeros and border padding (fused3s.supports),
-    ``"fused3w"`` otherwise; in 2D ``"fused2d"`` up to FUSED2D_MAX_Q
-    queries or FUSED2D_MAX_PAIRS (cell, query) pairs where its chunks fit
-    shared memory (fused2d.supports), ``"fused2w"`` otherwise.  Off the
+    ``"fused3w"`` otherwise; in 2D ``"fused2d"`` over FUSED2D_MIN_CELLS
+    cells or more up to FUSED2D_MAX_Q queries or FUSED2D_MAX_PAIRS (cell,
+    query) pairs where its chunks fit shared memory (fused2d.supports),
+    ``"fused2w"`` otherwise.  Off the
     card the same kernel routes apply, whose wrappers take the plain
     version on the CPU."""
     n, c, *spatial = cells_shape
@@ -223,8 +219,8 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
             return ("fused2w" if c <= FUSED2W_WIDE_MAX_C
                     and n_queries <= FUSED2W_WIDE_MAX_Q else "fused")
         over_l2 = 4 * n * c * math.prod(spatial) > STACK_L2_BYTES
-        most = FUSED3W_WIDE_MAX_Q_OVER_L2 if over_l2 else FUSED3W_WIDE_MAX_Q
-        return "fused3w" if n_queries <= most else "fused"
+        return ("fused3w" if over_l2
+                and n_queries <= FUSED3W_WIDE_MAX_Q_OVER_L2 else "fused")
     if dim == 3:
         if (n_queries <= FUSED3D_MAX_Q
                 and fused3d.supports(cfg, cells_shape)):
@@ -235,8 +231,8 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
                 and fused3s.supports(cfg, cells_shape)):
             return "fused3s"
         return "fused3w"
-    small = (n_queries <= FUSED2D_MAX_Q
-             or n * n_queries <= FUSED2D_MAX_PAIRS)
+    small = n >= FUSED2D_MIN_CELLS and (
+        n_queries <= FUSED2D_MAX_Q or n * n_queries <= FUSED2D_MAX_PAIRS)
     if small and fused2d.supports(cfg, cells_shape):
         return "fused2d"
     return "fused2w"

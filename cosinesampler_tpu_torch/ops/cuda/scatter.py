@@ -14,8 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from .blend_splat import RESERVED_SMEM_BYTES, SM_SMEM_BYTES
-from .build import BLOCK_SMEM_BYTES
+from .build import BLOCK_SMEM_BYTES, RESERVED_SMEM_BYTES, SM_SMEM_BYTES
 
 __all__ = ["MAX_BLOCK_CHANNELS", "QUERIES", "THREADS", "ScatterGeometry",
            "scatter_alternatives", "scatter_geometry"]

@@ -10,8 +10,9 @@ where the route sends it there (ops/cuda/route.py ``fused_rule``), over
   measured for this blend by dimension), with the lanes of
   ``blend_geometry``.
 * The bwd is csrc/texel_scatter.cuh's scatter into a texel-major scratch,
-  with scatter.py's rule for dense blocks (every block of 128 queries full
-  but the last), 128 threads a block in 3D.
+  with the layout of fused2w_bwd's and fused3w_bwd's (``bwd_geometry`` is
+  fused2w.py's ``bwd_lanes``: scatter.py's rule for dense blocks, 128
+  threads a block in 3D).
 
 ``blend_geometry`` / ``bwd_geometry`` are the host's choices; the C
 entry points take them as integers and check them.  chip_smoke.py's
@@ -23,11 +24,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+from .fused2w import bwd_lanes as bwd_geometry
 from .fused3s import planar
 from .gather import (MAX_GROUPS, MAX_THREADS, QUERIES, GatherGeometry,
                      gather_alternatives, gather_geometry)
-from .scatter import (THREADS, ScatterGeometry, scatter_alternatives,
-                      scatter_geometry)
+from .scatter import THREADS, scatter_alternatives
 
 __all__ = ["PLANAR_POINTS_PER_TEXEL", "V1Blend", "blend_alternatives",
            "blend_geometry", "bwd_alternatives", "bwd_geometry"]
@@ -96,16 +97,6 @@ def blend_geometry(dim: int, n: int, c: int, q: int, spatial) -> V1Blend:
         lanes = gather_geometry(n, c)
     return V1Blend(lanes,
                    planar=planar(q, spatial, PLANAR_POINTS_PER_TEXEL[dim]))
-
-
-def bwd_geometry(dim: int, n: int, c: int) -> ScatterGeometry:
-    """The v1 bwd's scatter layout: scatter.py's rule for dense blocks
-    (each block of 128 queries full but the last), with 128 threads a
-    block in 3D: at 3D path (a) (50 x 16 x 16^3) 128 threads took
-    0.87-0.89 ms and 256 0.92-0.94, in 2D (96 x 16 x 16^2) 1.05 against
-    0.84 (chip_smoke.py v1_layout_sweep_phase, PERF.md section 6)."""
-    geom = scatter_geometry(n, c, dense=True, dim=dim)
-    return geom._replace(threads=THREADS) if dim == 3 else geom
 
 
 def blend_alternatives(dim: int, n: int, c: int, q: int, spatial):

@@ -179,8 +179,8 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
     planes or more (config 5's 16 x 4 x 128^3 with fresh points), each
     bound checked on both sides at the sweep's points; fused3w otherwise,
     JAX's fused3s shape (2 x 2 x 32^3 at 2048) included, where fused3s
-    lost on the card; above 8 channels fused3w's channel groups for small
-    clouds (tests/test_torch_port_wide.py holds that bound)."""
+    lost on the card; above 8 channels the v1 pair for stacks the L2
+    holds (tests/test_torch_port_wide.py holds that rule)."""
     rule = route.fused_rule
     cfg = TConfig(dim=3)
     refl = TConfig(dim=3, padding_mode="reflection")
@@ -207,14 +207,17 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
     assert route.FUSED3S_MIN_STACK_BYTES == 4 * 16 * 4 * 64**3
     for shape, want in [((16, 4, 64, 64, 64), "fused3s"),
                         ((8, 4, 80, 80, 80), "fused3w"),
-                        ((16, 3, 96, 96, 96), "fused3s"),
+                        ((16, 4, 96, 96, 96), "fused3s"),
+                        ((16, 3, 96, 96, 96), "fused3w"),
                         ((16, 2, 96, 96, 96), "fused3w"),
-                        ((6, 4, 128, 128, 128), "fused3s"),
+                        ((6, 4, 128, 128, 128), "fused3w"),
                         ((4, 4, 128, 128, 128), "fused3w")]:
         assert rule(cfg, shape, 100_000) == want, shape
-    assert rule(cfg, big, 32_768) == "fused3w"
-    assert rule(cfg, big, 49_152) == "fused3s"
-    assert rule(cfg, (50, 16, 16, 16, 16), 200) == "fused3w"
+    assert route.FUSED3S_MIN_PLANES == 64
+    assert rule(cfg, big, 65_536) == "fused3w"
+    assert rule(cfg, big, 81_920) == "fused3s"
+    assert rule(cfg, (16, 4, 64, 64, 64), 81_920) == "fused3s"
+    assert rule(cfg, (50, 16, 16, 16, 16), 200) == "fused"
     assert rule(cfg, ref, 200, "cuda", torch.float64) == "plain"
 
 

@@ -133,8 +133,8 @@ SLICE = {2: dict(n_cells=6, cell_dim=12, cell_size=8, hidden=16),
 @pytest.mark.parametrize("dim", [2, 3], ids=["2d-allen-cahn",
                                              "3d-helmholtz"])
 def test_wide_slice_loss_and_grads_match_jax(dim):
-    """pinn.loss_fused at C = 12 through the rule's route (fused2w's and
-    fused3w's channel groups at these sizes), against
+    """pinn.loss_fused at C = 12 through the rule's route (fused2w's
+    channel groups in 2D, the v1 pair in 3D at these sizes), against
     jax.value_and_grad(pinn.loss_fused) on the same weights and points:
     loss rtol 1e-5, every leaf rtol 1e-4 (the reference's dloss/dcells
     bar)."""
@@ -148,7 +148,7 @@ def test_wide_slice_loss_and_grads_match_jax(dim):
         {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(pts),
         jcfg)
     assert route.fused_rule(tcfg.sampler, np_params["cells"].shape, 200,
-                            "cuda") == f"fused{dim}w"
+                            "cuda") == ("fused2w" if dim == 2 else "fused")
     before = fused_v1.fused_bwd.launches
     params = params_from_numpy(np_params, "cpu")
     loss = tpinn.loss_fused(params, torch.from_numpy(pts), tcfg)
@@ -183,36 +183,36 @@ def test_wide_trainer_two_steps_on_cpu():
 def test_fused_rule_follows_the_jax_order():
     """route.fused_rule as a pure function of shapes, dtypes and device
     type: plain for what no CUDA kernel takes; above 8 channels the v1
-    kernels, but fused3w's channel groups for small 3D clouds; the 3D
-    kernels in 3D (fused3d for these small clouds;
-    tests/test_torch_port_fused3ds.py holds the 3D branch), fused2d for
-    small 2D clouds whose channel group fits shared memory, fused2w
-    otherwise; off the card the same kernel routes."""
+    kernels (fused3w's channel groups only over stacks larger than the
+    L2, tests/test_torch_port_wide.py); the 3D kernels in 3D (fused3d for
+    these small clouds; tests/test_torch_port_fused3ds.py holds the 3D
+    branch), fused2d for small 2D clouds over FUSED2D_MIN_CELLS cells or
+    more whose channel group fits shared memory, fused2w otherwise; off
+    the card the same kernel routes."""
     cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
     max_q, pairs = route.FUSED2D_MAX_Q, route.FUSED2D_MAX_PAIRS
+    fewest = route.FUSED2D_MIN_CELLS
     rule = route.fused_rule
     assert rule(cfg2, (96, 4, 16, 16), 100_000) == "fused2w"
     # the sweep's points (PERF.md section 4), each to its faster kernel
-    # but 32 x 6144, where fused2d won by 4% at the pair count at which it
-    # lost by 27% at 8 cells
     for n, q, want in [(96, 2047, "fused2d"), (96, 2731, "fused2d"),
-                       (96, 3072, "fused2d"), (96, 3584, "fused2d"),
+                       (96, 3072, "fused2d"), (96, 3584, "fused2w"),
                        (96, 4096, "fused2w"), (32, 4096, "fused2d"),
                        (32, 6144, "fused2w"), (32, 7168, "fused2w"),
-                       (32, 8192, "fused2w"), (8, 8192, "fused2d"),
-                       (8, 16384, "fused2d"), (8, 24576, "fused2w"),
-                       (8, 32768, "fused2w")]:
+                       (32, 8192, "fused2w"), (8, 512, "fused2w"),
+                       (8, 8192, "fused2w"), (8, 16384, "fused2w"),
+                       (8, 24576, "fused2w"), (8, 32768, "fused2w")]:
         assert rule(cfg2, (n, 4, 16, 16), q) == want, (n, q)
     assert rule(cfg2, (96, 4, 16, 16), max_q) == "fused2d"
     assert rule(cfg2, (96, 4, 16, 16), max_q + 1) == "fused2w"
-    assert rule(cfg2, (8, 4, 16, 16), pairs // 8) == "fused2d"
-    assert rule(cfg2, (8, 4, 16, 16), pairs // 8 + 1) == "fused2w"
+    assert rule(cfg2, (fewest, 4, 16, 16), pairs // fewest) == "fused2d"
+    assert rule(cfg2, (fewest, 4, 16, 16), pairs // fewest + 1) == "fused2w"
+    assert rule(cfg2, (fewest - 1, 4, 16, 16), 100) == "fused2w"
     assert rule(cfg3, (50, 4, 16, 16, 16), 100) == "fused3d"
     for shape in ((96, 16, 16, 16), (50, 16, 16, 16, 16)):
         cfg = cfg2 if len(shape) == 4 else cfg3
         assert rule(cfg, shape, 100_000) == "fused"
-        assert rule(cfg, shape, 100) == ("fused" if cfg is cfg2
-                                         else "fused3w")
+        assert rule(cfg, shape, 100) == "fused"
     assert rule(cfg2, (96, 9, 16, 16), 1024) == "fused2w"
     assert rule(cfg2, (96, 9, 16, 16), 100_000) == "fused"
     # a 4 x 256^2 cell (1 MB) is over a block's shared memory
@@ -232,7 +232,7 @@ def test_fused_rule_follows_the_jax_order():
                 (8, 4, 8, 8, 8), 100, "cuda", F32) == "fused3d"
     # off the card the wrappers decide: the CPU takes the plain versions
     assert rule(cfg2, (96, 4, 16, 16), 100_000, "cpu", F64) == "fused2w"
-    assert rule(cfg3, (8, 16, 8, 8, 8), 100, "cpu", F64) == "fused3w"
+    assert rule(cfg3, (8, 16, 8, 8, 8), 100, "cpu", F64) == "fused"
     assert rule(cfg3, (8, 16, 8, 8, 8), 100_000, "cpu", F64) == "fused"
     assert rule(cfg2, (96, 4, 16, 16), 100_000, "mixed", F64) == "fused2w"
 

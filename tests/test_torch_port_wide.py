@@ -119,10 +119,10 @@ def test_fused_rule_above_8_channels():
     """route.fused_rule above 8 channels, shapes alone: in 2D fused2w's
     channel groups up to FUSED2W_WIDE_MAX_C channels at up to
     FUSED2W_WIDE_MAX_Q queries and the v1 pair otherwise; in 3D fused3w's
-    up to FUSED3W_WIDE_MAX_Q queries (FUSED3W_WIDE_MAX_Q_OVER_L2 over a
-    stack larger than the L2) and the v1 pair above.  Each bound at the
-    sweep's points on its two sides (chip_smoke.py
-    wide_route_sweep_phase, PERF.md section 4)."""
+    up to FUSED3W_WIDE_MAX_Q_OVER_L2 queries over a stack larger than the
+    L2 and the v1 pair otherwise.  Each bound at the sweep's points on
+    its two sides (chip_smoke.py wide_route_sweep_phase, PERF.md
+    section 4)."""
     rule = route.fused_rule
     cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
     assert route.FUSED2W_WIDE_MAX_C == 12
@@ -131,15 +131,14 @@ def test_fused_rule_above_8_channels():
         for c, groups in ((9, True), (12, True), (16, False), (32, False)):
             want = "fused2w" if groups and q <= 1024 else "fused"
             assert rule(cfg2, (96, c, 16, 16), q) == want, (c, q)
+    bound = route.FUSED3W_WIDE_MAX_Q_OVER_L2
     for c in (12, 16):
-        for n, s, bound in ((50, 16, route.FUSED3W_WIDE_MAX_Q),
-                            (16, 128, route.FUSED3W_WIDE_MAX_Q_OVER_L2)):
-            for q, want in ((1024, "fused3w"), (bound, "fused3w"),
-                            (bound + 1, "fused"), (32768, "fused"),
-                            (100_000, "fused")):
-                assert rule(cfg3, (n, c, s, s, s), q) == want, (n, c, q)
-    assert route.FUSED3W_WIDE_MAX_Q == 1024
-    assert route.FUSED3W_WIDE_MAX_Q_OVER_L2 == 16384
+        for q in (1024, 16384, 32768, 100_000):
+            assert rule(cfg3, (50, c, 16, 16, 16), q) == "fused", (c, q)
+        for q, want in ((1024, "fused3w"), (bound, "fused3w"),
+                        (bound + 1, "fused"), (100_000, "fused")):
+            assert rule(cfg3, (16, c, 128, 128, 128), q) == want, (c, q)
+    assert route.FUSED3W_WIDE_MAX_Q_OVER_L2 == 32768
     # what no kernel takes stays plain above 8 channels too
     assert rule(cfg3, (50, 16, 16, 16, 16), 1024, "cuda",
                 torch.float64) == "plain"
