@@ -34,7 +34,12 @@ blend_splat.splat_geometry, blend_splat.blend_geometry,
 mega2w.geometry, scatter.scatter_geometry and gather.gather_geometry), and
 so is fused2w_bwd's and fused3w_bwd's scatter, with its destination
 (the texel-major scratch or the cotangent in place) on both sides of its
-planar bound (the sweep behind fused2w.bwd_geometry).
+planar bound (the sweep behind fused2w.bwd_geometry), and fused2w_blend's
+and fused3w_blend's gather (cell lanes, threads, the texel-major copy or
+the cells in place: the sweep behind v1.narrow_lanes and the planar
+bound), each blend held to its plain version under every interpolant,
+padding, multicell and align_corners setting, strict reference, and C
+in {1, 3, 4, 8, 12, 16}, through both reads.
 The layout move between the cells and the texel-major volume
 (fused3b.cells_to_vol / vol_to_cells, a tiled transpose on the card) is
 held to torch's permuted copy bit for bit and counted on the planned
@@ -58,12 +63,14 @@ fused3d_bwd, fused3s_blend / fused3s_bwd) are held to their plain
 versions, timed against fused3w and fused3b (the sweep behind the 3D
 rule), and the 3D fused trainer runs through them with fresh points: 50 x
 4 x 16^3 at 1024 points (fused3d), 16 x 4 x 32^3 at 4096 (the rule's
-fused3w) and config 5's 16 x 4 x 128^3 at 100 000 (fused3s), 3 steps
+fused3w) and config 5's 16 x 4 x 128^3 at 393 216 (fused3s), 3 steps
 each.  fused3b's channel groups are held to its plain versions at C = 16
 on config 5's volume, and the vol-resident trainer runs there at C = 16
 (16 x 16 x 128^3, 3 steps) against the query-ordered v1 trainer.  The
 calls no kernel takes (f64, strict 2D with align_corners off, 2^31
-elements) must take the counted plain route and match the CPU, and
+elements) must take the counted plain route and match the CPU, so must
+a fused op call and a step of the 2D and 3D fused, the megakernel and
+the vol-resident trainers at precision "bf16" (matching "exact"), and
 exact mode must give the same losses under
 torch.set_float32_matmul_precision("high").  It checks from the launch
 counters that each path went through its kernels and no other, compares
@@ -82,6 +89,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -703,6 +711,82 @@ def fused3w_kernel_phase():
     if not rel_e <= REL_TOL:
         raise RuntimeError("3D points cotangent disagrees with the plain path")
     return {"fused3w_blend": errs[0], "fused3w_bwd": errs[1]}
+
+
+# --- fused2w_blend / fused3w_blend: the texel-major gather -------------------
+
+# the blends' settings: every interpolant, padding mode, multicell and
+# align_corners, and strict reference where the kernels take it (in 2D
+# with align_corners only)
+W_BLEND_SETTINGS = [
+    dict(kernel=k, padding_mode=p, multicell=m, align_corners=a)
+    for k in ("cosine", "linear", "smoothstep")
+    for p in ("zeros", "border", "reflection")
+    for m in (True, False) for a in (True, False)]
+W_BLEND_STRICT = {
+    2: [dict(padding_mode="reflection", multicell=m, strict_reference=True)
+        for m in (True, False)],
+    3: [dict(padding_mode="reflection", multicell=m, align_corners=a,
+             strict_reference=True) for m in (True, False)
+        for a in (True, False)]}
+W_BLEND_CHANNELS = (1, 3, 4, 8, 12, 16)
+
+
+def _w_blend_reads(dim, n, c, q, spatial):
+    """The rule's layout and the same lanes through the other read (the
+    texel-major copy or the cells in place)."""
+    rule = v1.blend_geometry(dim, n, c, q, spatial)
+    return {"rule": rule, "other read": rule._replace(planar=not rule.planar)}
+
+
+def compare_w_blend(dim, what, cfg, n, c, spatial, q, seed):
+    """fused{dim}w_blend through each of _w_blend_reads's layouts against
+    plain_fused_blend on the same inputs (points to +-1.4); the worst
+    relative error."""
+    cells, pts, _ = _fused_inputs(n, c, spatial, q, seed, **WIDE)
+    want = fused2w.plain_fused_blend(cells, pts, cfg)
+    worst = 0.0
+    for name, geom in _w_blend_reads(dim, n, c, q, spatial).items():
+        got = fused2w.launch_blend(cells, pts, cfg, geom)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"fused{dim}w_blend {what} {name}: shape or "
+                               "non-finite values")
+        _, rel = _rel_err(got, want)
+        if not rel <= REL_TOL:
+            raise RuntimeError(f"fused{dim}w_blend {what} {name} "
+                               f"{tuple(geom)}: disagrees with the plain "
+                               f"version ({rel:.3e})")
+        worst = max(worst, rel)
+    return worst
+
+
+def w_blend_kernel_phase():
+    """fused2w_blend and fused3w_blend against plain_fused_blend at 1e-4
+    of each row's largest |plain|, each through the rule's layout and the
+    other read (texel-major copy or planar): every
+    setting of W_BLEND_SETTINGS and the strict ones at C = 3 (scalar
+    loads) and 4 (float4), and C in W_BLEND_CHANNELS in each padding
+    mode, at N = 6 on small cells, 1000 points to +-1.4 (a full and a
+    partial block of 128 queries)."""
+    for dim, spatial in ((2, (12, 10)), (3, (7, 8, 9))):
+        worst, count = 0.0, 0
+        for kw in W_BLEND_SETTINGS + W_BLEND_STRICT[dim]:
+            for c in (3, 4):
+                worst = max(worst, compare_w_blend(
+                    dim, f"{kw} C={c}", SamplerConfig(dim=dim, **kw), 6, c,
+                    spatial, 1000, seed=40 + c))
+                count += 1
+        for c in W_BLEND_CHANNELS:
+            for pad in ("zeros", "border", "reflection"):
+                worst = max(worst, compare_w_blend(
+                    dim, f"{pad} C={c}",
+                    SamplerConfig(dim=dim, padding_mode=pad), 6, c, spatial,
+                    1000, seed=50 + c))
+                count += 1
+        print(f"compare fused{dim}w_blend: {count} settings x (rule, other "
+              f"read) against plain, worst rel err "
+              f"{worst:.3e} (tolerance {REL_TOL:g})", flush=True)
 
 
 # --- fused3b ------------------------------------------------------------------
@@ -1691,7 +1775,9 @@ def small_cloud_sweep_phase():
     cfg = SamplerConfig(dim=2)
     rows = []
     for n, q in [(N, 200), (N, 1024), (N, 2047), (N, 2731), (N, 3072),
-                 (N, 3584), (N, 4096), (N, Q), (32, 4096), (32, 6144),
+                 (N, 3584), (N, 4096), (N, Q), (64, 2731), (64, 3072),
+                 (48, 2048), (48, 2731), (32, 1024), (32, 2048),
+                 (32, 4096), (32, 6144),
                  (32, 7168), (32, 8192), (32, 16384), (16, 1024),
                  (16, 4096), (16, 8192), (8, 512), (8, 8192),
                  (8, 16384), (8, 24576), (8, 32768), (8, Q)]:
@@ -2033,11 +2119,16 @@ def _fused3b_with_plan(cells, pts, g, cfg):
 
 # (cells, channels, cell size, points) of the 3D small-cloud sweep: the
 # stacks and clouds of path (c) and of the JAX dispatch tests, the two
-# sides of fused3d's bound (6144 / 8192 points at 50 and 8 cells), and
+# sides of fused3d's bound (6144 / 8192 points at 50 and 8 cells) and
+# its clouds at 8, 16 and 24 cells (the bound's cell count), and
 # fresh points on stacks over the L2 on the two sides of each of
 # fused3s's bounds (points, stack bytes, channels, (cell, channel) planes)
-SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 6144, 8192, Q)]
-            + [(8, C, S3, q) for q in (6144, 8192)]
+SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 3072, 4096, 6144, 8192,
+                                      Q)]
+            + [(8, C, S3, q) for q in (1024, 2048, 4096, 6144, 8192)]
+            + [(16, C, S3, q) for q in (1024, 2048, 4096, 6144)]
+            + [(n, C, S3, q) for n in (24, 32)
+               for q in (1024, 2048, 3072, 4096, 6144)]
             + [(2, 2, 32, 2048)]
             + [(16, C, 24, Q)]
             + [(16, C, 32, q) for q in (2048, 9000, 32768, 65536, Q)]
@@ -2045,9 +2136,10 @@ SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 6144, 8192, Q)]
                for q in (16384, 32768, 49152, 65536, 81920, Q, 131072)]
             + [(8, C, 80, Q)]
             + [(16, c, 96, Q) for c in (2, 3, C)]
+            + [(16, C, 64, 262144)]
             + [(N5, C, S5, q)
                for q in (32768, 40960, 49152, 65536, 81920, Q, 131072,
-                         Q5)]
+                         262144, 393216, 524288, Q5)]
             + [(n, C, S5, Q) for n in (4, 6, 12)])
 
 
@@ -2112,7 +2204,8 @@ def _fused_routed(name):
 def small_cloud_3d_trainer_phase():
     """Path (c): the 3D fused trainer at 50 x 4 x 16^3 with 1024 fresh
     points a step, at the mid volume 16 x 4 x 32^3 with 4096 and on config
-    5's 16 x 4 x 128^3 with 100 000, each through the kernels the rule
+    5's 16 x 4 x 128^3 with route.FUSED3S_MIN_Q (393 216), each through
+    the kernels the rule
     gives (one blend and one bwd a step, no other kernel, no plain
     route).  For the first two, the losses against the same run on the
     CPU (the first at LOSS_RTOL, each within GRAD_TOL) and one step's loss
@@ -2126,7 +2219,7 @@ def small_cloud_3d_trainer_phase():
             ("mid volume", pinn.PINNConfig(dim=3, n_cells=N_MID,
                                            cell_size=S_MID, pde="helmholtz"),
              Q_MID),
-            ("large volume", MODEL_5, Q)]:
+            ("large volume", MODEL_5, route.FUSED3S_MIN_Q)]:
         shape = (model.n_cells, model.cell_dim, *(model.cell_size,) * 3)
         kind = route.fused_rule(model.sampler, shape, q)
         launched = (f"{kind}_blend", f"{kind}_bwd")
@@ -2280,6 +2373,8 @@ def plain_route_phase():
     op in strict 2D with align_corners off, and an order-0 blend over a
     stack of 2^31 elements."""
     def checked(what, fn, expect_plain=True):
+        """fn() with every launch count read around it: the plain route
+        only, or where not expect_plain, no plain launch."""
         _reset_counts()
         result = fn()
         torch.cuda.synchronize()
@@ -2288,6 +2383,9 @@ def plain_route_phase():
         if expect_plain and (not launches.get("plain")
                              or set(launches) != {"plain"}):
             raise RuntimeError(f"{what}: expected the plain route only")
+        if not expect_plain and (launches.get("plain") or not launches):
+            raise RuntimeError(f"{what}: expected kernels and no plain "
+                               "launch")
         return result
 
     gen = torch.Generator().manual_seed(13)
@@ -2339,6 +2437,8 @@ def plain_route_phase():
               f"cells grad {errs[1]:.3e} (tolerance {tol:g})", flush=True)
         if max(errs) > tol:
             raise RuntimeError(f"{what}: card and CPU disagree")
+
+    _bf16_phase(checked)
 
     # 2 x 4 x 16384^2 = 2^31 elements (8.6 GB): over the kernels' 32-bit
     # indexing
@@ -2417,6 +2517,75 @@ def tf32_phase():
         print(f"step under '{precision}': 2D fused {fused_ms:.4f} ms, "
               f"config-5 vol-resident {vol_ms:.4f} ms (peak {peak:.3f} GiB)",
               flush=True)
+
+
+def _step_loss_and_grads(cfg, pts, seed, **step_kw):
+    """The loss of one train step (pinn.make_train_step with ``step_kw``)
+    on the card from the weights of ``seed`` and the gradient it applied,
+    the cells in the (N, C, *S) layout; vol-resident steps take the
+    kernel layout and a plan of make_vol_plan."""
+    params = pinn.init_params(torch.Generator().manual_seed(seed), cfg,
+                              "cuda")
+    pts = pts.cuda()
+    args = ()
+    if step_kw.get("vol_resident"):
+        params = pinn.params_to_vol(params, cfg, pts.shape[0])
+        args = (tfused.make_vol_plan(pts, (cfg.n_cells, cfg.cell_dim,
+                                           *(cfg.cell_size,) * cfg.dim),
+                                     cfg.sampler),)
+    step = pinn.make_train_step(
+        cfg, torch.optim.Adam(params.values(), lr=1e-3), **step_kw)
+    loss = float(step(params, pts, *args))
+    grads = {k: v.grad.detach().clone() for k, v in params.items()}
+    if step_kw.get("vol_resident"):
+        grads["cells"] = fused3b.vol_to_cells(grads["cells"])
+    return loss, {k: v.cpu() for k, v in grads.items()}
+
+
+def _bf16_phase(checked):
+    """The fix of a fused op call at precision "bf16" raising on the card:
+    such calls take the counted plain route, whose plain versions compute
+    in f32, and agree with the same call at "exact" (loss rtol LOSS_RTOL,
+    leaves GRAD_TOL): one fused op call (96 x 4 x 16^2, 100 000 points,
+    the rows and the cells cotangent), one step of the 2D and 3D fused
+    trainers (main paths), of the megakernel trainer (mega2w refuses
+    bf16: autograd of the fused loss) and of the vol-resident trainer
+    (16 x 4 x 32^3, 100 000 fixed points); each exact reading is taken
+    through its kernels, with no plain launch."""
+    cells, pts, g = _fused_inputs(N, C, (H, W), Q, seed=16)
+
+    def op(precision):
+        def run():
+            leaf = cells.clone().requires_grad_(True)
+            out = tfused.sample_features_with_derivs(
+                leaf, pts, SamplerConfig(dim=2, precision=precision))
+            loss = (out * g).sum()
+            loss.backward()
+            return float(loss), {"rows": out.detach().cpu(),
+                                 "cells": leaf.grad.cpu()}
+        return run
+
+    _compare_losses("bf16 fused op on the card (plain route) vs exact",
+                    checked("bf16 fused op", op("bf16")),
+                    checked("exact fused op", op("exact"),
+                            expect_plain=False))
+    vol_cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=32,
+                              pde="helmholtz")
+    for what, cfg, q, kw in [
+            ("2D fused", pinn.PINNConfig(), Q, dict(fused=True)),
+            ("3D fused", MODEL_3D, Q, dict(fused=True)),
+            ("2D megakernel", pinn.PINNConfig(), Q, dict(megakernel=True)),
+            ("vol-resident 16x4x32^3", vol_cfg, Q,
+             dict(vol_resident=True))]:
+        pts_t = _trainer_points(q, cfg.dim, seed=17)
+        bf16 = dataclasses.replace(cfg, precision="bf16")
+        got = checked(f"bf16 {what} trainer step",
+                      lambda: _step_loss_and_grads(bf16, pts_t, 17, **kw))
+        want = checked(f"exact {what} trainer step",
+                       lambda: _step_loss_and_grads(cfg, pts_t, 17, **kw),
+                       expect_plain=False)
+        _compare_losses(f"bf16 {what} trainer step on the card (plain "
+                        "route) vs exact", got, want)
 
 
 def wide_time_phase():
@@ -2559,9 +2728,10 @@ def wide_route_sweep_phase():
     v1 pair, blend + bwd device ms (torch.profiler, 10 calls a window,
     v1, groups, groups, v1, the larger turn kept) at C = 12 and 16 over
     WIDE_SWEEP, inputs drawn on the card: the measurement behind
-    route.FUSED2W_WIDE_MAX_C / FUSED2W_WIDE_MAX_Q /
-    FUSED3W_WIDE_MAX_Q_OVER_L2.  Prints how many points the rule sends to
-    the slower of the two."""
+    route.fused_rule above 8 channels (fused2w / fused3w where their bwd
+    adds in place, the v1 pair elsewhere; the two blends are one kernel
+    there).  Prints how many points the rule sends to the slower of the
+    two."""
     rows = []
     for c in WIDE_CHANNELS:
         for dim, n, s, q in WIDE_SWEEP:
@@ -3438,9 +3608,11 @@ def splat_sweep_phase():
         torch.cuda.empty_cache()
 
 
-def _sweep(what, runs, geoms, want, reps=10):
+def _sweep(what, runs, geoms, want, reps=10, timer=None):
     """Each of ``runs`` held to ``want`` within REL_TOL, then timed in turns
-    (the list, then reversed); prints and returns each geometry's ms."""
+    (the list, then reversed) by ``timer(fn, reps)`` (CUDA events around
+    ``reps`` calls by default); prints and returns each geometry's ms."""
+    timer = timer or _time_ms
     for name, fn in runs.items():
         _, err = _rel_err(fn().reshape(1, -1), want.reshape(1, -1))
         if not err <= REL_TOL:
@@ -3448,7 +3620,7 @@ def _sweep(what, runs, geoms, want, reps=10):
                                f"rule's ({err:.3e})")
     ms = {k: [] for k in runs}
     for k in list(runs) + list(runs)[::-1]:
-        ms[k].append(_time_ms(runs[k], reps))
+        ms[k].append(timer(runs[k], reps))
     print(f"{what}: " + "; ".join(f"{k} {tuple(geoms[k])} {sum(v) / 2:.4f} ms"
                                   for k, v in ms.items()), flush=True)
     return {k: sum(v) / 2 for k, v in ms.items()}
@@ -3677,6 +3849,68 @@ def _w_bwd_planar_sweep():
           f"points {wrong}", flush=True)
 
 
+def w_blend_layout_sweep_phase():
+    """The measurement behind v1.narrow_lanes (fused2w_blend's and
+    fused3w_blend's layout up to 8 channels): the two blends at the main
+    paths' shapes (96 x C x 16^2 and 50 x C x 16^3, 100 000 points) at
+    C = 1, 3, 4 and 8 over every layout of v1.blend_alternatives (cell
+    lanes, threads, the read), each held to the rule's result
+    and timed in turns, by CUDA events around 20 calls and by device ms
+    (torch.profiler, which leaves out the host's share); then the planar
+    sweep (_w_blend_planar_sweep)."""
+    for dim, n, s in ((2, N, H), (3, N3, S3)):
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        for c in (1, 3, C, 8):
+            gen = _cuda_gen(49)
+            cells = torch.rand((n, c, *spatial), generator=gen,
+                               device="cuda")
+            pts = torch.rand((Q, dim), generator=gen, device="cuda") * 2 - 1
+            geoms = v1.blend_alternatives(dim, n, c, Q, spatial)
+            runs = {k: functools.partial(fused2w.launch_blend, cells, pts,
+                                         cfg, v) for k, v in geoms.items()}
+            _sweep(f"fused{dim}w_blend layout sweep ({n}x{c}x{s}^{dim}, "
+                   f"Q={Q})", runs, geoms, runs["rule"](), reps=20)
+            _sweep(f"fused{dim}w_blend layout sweep ({n}x{c}x{s}^{dim}, "
+                   f"Q={Q}), device", runs, geoms, runs["rule"](), reps=20,
+                   timer=lambda fn, reps: _device_ms(fn, reps=reps))
+            del cells, pts, runs
+    torch.cuda.empty_cache()
+    _w_blend_planar_sweep()
+
+
+def _w_blend_planar_sweep():
+    """fused2w_blend's / fused3w_blend's planar bound
+    (v1.NARROW_PLANAR_POINTS_PER_TEXEL): the rule's lanes reading the
+    cells in place against the texel-major copy at C = 4 over
+    W_BLEND_PLANAR_SWEEP, held to each other and timed in turns (CUDA
+    events); prints the points where the rule picks the slower read."""
+    wrong = []
+    for dim, n, s, qs in W_BLEND_PLANAR_SWEEP:
+        cfg = SamplerConfig(dim=dim)
+        spatial = (s,) * dim
+        gen = _cuda_gen(50)
+        cells = torch.rand((n, C, *spatial), generator=gen, device="cuda")
+        for q in qs:
+            pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
+            rule = v1.blend_geometry(dim, n, C, q, spatial)
+            geoms = {"rule": rule, ("copy" if rule.planar else "planar"):
+                     rule._replace(planar=not rule.planar)}
+            runs = {k: functools.partial(fused2w.launch_blend, cells, pts,
+                                         cfg, v) for k, v in geoms.items()}
+            ms = _sweep(f"w blend planar sweep ({n}x{C}x{s}^{dim}, Q={q}, "
+                        f"{q / s ** dim:.4f} a texel)", runs, geoms,
+                        runs["rule"](), reps=5)
+            if min(ms, key=ms.get) != "rule":
+                wrong.append((dim, n, s, q))
+            del pts, runs
+        del cells
+        torch.cuda.empty_cache()
+    print(f"w blend planar sweep: the rule picks the slower read at "
+          f"{len(wrong)} of {sum(len(p[3]) for p in W_BLEND_PLANAR_SWEEP)} "
+          f"points {wrong}", flush=True)
+
+
 # (dim, N, S, point counts) of fused2w_bwd's / fused3w_bwd's planar sweep
 # at C = 4: config 5's volume and a 2D stack of the same bytes (over the
 # L2), the large cells and the main paths' stacks (in the L2)
@@ -3688,6 +3922,14 @@ W_PLANAR_SWEEP = (
     (2, 2, 128, (64, 256, 1024, 4096, 16384, 65536)),
     (3, N3, S3, (64, 256, 1024, 4096, 16384)),
     (2, N, H, (64, 256, 1024, 4096, 16384)))
+
+
+# (dim, N, S, point counts) of fused2w_blend's / fused3w_blend's planar
+# sweep at C = 4: the bwd's stacks, the main paths' up to their 100 000
+# points
+W_BLEND_PLANAR_SWEEP = W_PLANAR_SWEEP[:4] + (
+    (3, N3, S3, (256, 1024, 4096, 16384, 32768, 65536, Q)),
+    (2, N, H, (256, 1024, 4096, 16384, 32768, 65536, Q)))
 
 
 # (dim, N, S, point counts) of the v1 blend's planar sweep at C = 16:
@@ -4112,6 +4354,7 @@ def main():
     _timed(points_cotangent_phase)
     errs["mega2w"] = _timed(mega_kernel_phase)
     errs.update(_timed(fused3w_kernel_phase))
+    _timed(w_blend_kernel_phase)
     errs.update(_timed(fused3b_kernel_phase))
     _timed(layout_phase)
     ghost_errs, ghost_det = _timed(fused3b_ghost_kernel_phase)
@@ -4165,6 +4408,7 @@ def main():
     _timed(gather_sweep_phase)
     _timed(v1_layout_sweep_phase)
     _timed(w_bwd_layout_sweep_phase)
+    _timed(w_blend_layout_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

@@ -40,11 +40,16 @@
 //   holding all 16 channels, so that each (query, cell) is walked once
 //   and the four lanes' 64-byte records of one texel make two whole
 //   lines; in 3D two lanes of 8 interleaved channels.  The cell lanes
-//   add by warp shuffles; each query's rows go to a (Q, 1 + 2D, C)
-//   temporary (a few whole sectors a query, where (1 + 2D, C, Q) stores
-//   in query order take one each) for the tiled transpose.  Below a
-//   measured number of points a texel the gather reads the cells in
-//   place (planar), as fused3s_blend does.  Staging chunks of cells in
+//   add by warp shuffles and store the (1 + 2D, C, Q) rows directly: the
+//   queries come in order, so a warp's stores cover whole sectors (a
+//   (Q, 1 + 2D, C) temporary and a second transpose, fused3s_blend's
+//   store for its scattered queries, took 0.46 against 0.43 ms in 2D and
+//   0.69 against 0.65 in 3D; PERF.md section 6).  Below a measured number
+//   of points a texel the gather reads the cells in place (planar), as
+//   fused3s_blend does.  That launcher, fused_gather_blend (declared in
+//   csrc/texel_gather.cuh), is also fused2w_blend's and fused3w_blend's
+//   (up to 8 channels a lane holds all of them, a few lanes over a
+//   query's cells; ops/cuda/v1.py).  Staging chunks of cells in
 //   shared memory lost in 2D (0.50-0.56 ms against 0.45, the walk alone
 //   slower in the staged kernel), as did splitting a (query, cell)'s
 //   axis tables over its lanes by shuffles (3D 1.06 against 0.67 ms):
@@ -93,17 +98,17 @@ CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
 
 // Block (bx, by): queries [bx * kQBlock, ...), channels [by * groups * G,
 // ...) of c, gathered from the texel-major vol (*S, N, C), or where PLANAR
-// from the cells (N, C, *S) themselves (csrc/texel_gather.cuh), into rows
-// (Q, 1 + 2D, C).
+// from the cells (N, C, *S) themselves (csrc/texel_gather.cuh), into out
+// (1 + 2D, C, Q).
 template <int D, int G, bool VEC, int THREADS, bool PLANAR>
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const float* __restrict__ vol,
-                  const float* __restrict__ points, float* __restrict__ rows,
+                  const float* __restrict__ points, float* __restrict__ out,
                   int n, int c, CellGeom<D> geom, int q,
                   csm::GatherLayout lay, SamplerParams p) {
   const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
-  csm::gather_block<D, G, VEC, true, PLANAR>(
-      csm::GatherQuery{qi < q, qi}, points, vol, rows, q, n, c, lay, geom,
+  csm::gather_block<D, G, VEC, false, PLANAR>(
+      csm::GatherQuery{qi < q, qi}, points, vol, out, q, n, c, lay, geom,
       p);
 }
 
@@ -123,53 +128,49 @@ __global__ void __launch_bounds__(csm::kScatterMaxThreads)
                                         points, scratch, n, c, lay, geom, p);
 }
 
-// rows (Q, 1 + 2D, C) of the blend gathered from vol, the texel-major copy
-// made here, or from the cells in place (planar); then the transpose into
-// out (1 + 2D, C, Q).  A lane takes at most 8 channels, or 16 in 2D.
-template <int D>
-cudaError_t launch_blend(const float* cells, const float* points, float* vol,
-                         float* rows, float* out, int n, int c,
-                         const CellGeom<D>& geom, int q,
-                         const csm::GatherLayout& lay, int threads,
-                         bool planar, const SamplerParams& p,
-                         cudaStream_t s) {
-  if (q == 0 || c == 0) return cudaGetLastError();
-  const size_t out_bytes = static_cast<size_t>(kRows<D>) * c * q * 4;
-  if (n == 0 || geom.texels == 0) return cudaMemsetAsync(out, 0, out_bytes, s);
-  cudaError_t err = cudaSuccess;
-  if (!planar) {
-    err = csm::transpose(cells, vol, static_cast<int64_t>(n) * c,
-                         geom.texels, 4, s);
-    if (err != cudaSuccess) return err;
-  }
-  const unsigned blocks = csm::cdiv(q, kQBlock);
-  const auto gather = [&](auto pick, const float* src) {
-    return csm::launch_gather<D == 2 ? 16 : csm::kMaxChannels>(
-        lay, c, threads, blocks, s, pick, src, points, rows, n, c, geom, q,
-        lay, p);
-  };
-  // planar cells take scalar loads whatever the channel count
-  err = planar ? gather(
-                     [](auto gw, auto, auto th) {
-                       return &gather_kernel<D, decltype(gw)::value, false,
-                                             decltype(th)::value, true>;
-                     },
-                     cells)
-               : gather(
-                     [](auto gw, auto vec, auto th) {
-                       return &gather_kernel<D, decltype(gw)::value,
-                                             decltype(vec)::value,
-                                             decltype(th)::value, false>;
-                     },
-                     vol);
-  if (err != cudaSuccess) return err;
-  return csm::transpose(rows, out, q, static_cast<int64_t>(kRows<D>) * c, 4,
-                        s);
-}
-
 }  // namespace
 
 namespace csm {
+
+template <int D>
+cudaError_t fused_gather_blend(const float* cells, const float* points,
+                               float* vol, float* out, int n, int c,
+                               const CellGeom<D>& geom, int q,
+                               const GatherLayout& lay, int threads,
+                               bool planar, const SamplerParams& p,
+                               cudaStream_t s) {
+  if (q == 0 || c == 0) return cudaGetLastError();
+  const size_t out_bytes = static_cast<size_t>(kRows<D>) * c * q * 4;
+  if (n == 0 || geom.texels == 0) return cudaMemsetAsync(out, 0, out_bytes, s);
+  if (!planar) {
+    const cudaError_t err = transpose(
+        cells, vol, static_cast<int64_t>(n) * c, geom.texels, 4, s);
+    if (err != cudaSuccess) return err;
+  }
+  // planar cells take scalar loads whatever the channel count
+  const auto pick = [planar](auto gw, auto vec, auto th) {
+    constexpr int G = decltype(gw)::value;
+    constexpr int T = decltype(th)::value;
+    return planar ? &gather_kernel<D, G, false, T, true>
+                  : &gather_kernel<D, G, decltype(vec)::value, T, false>;
+  };
+  return launch_gather<D == 2 ? 16 : kMaxChannels>(
+      lay, c, threads, cdiv(q, kQBlock), s, pick, planar ? cells : vol,
+      points, out, n, c, geom, q, lay, p);
+}
+
+template cudaError_t fused_gather_blend<2>(const float*, const float*,
+                                           float*, float*, int, int,
+                                           const CellGeom<2>&, int,
+                                           const GatherLayout&, int, bool,
+                                           const SamplerParams&,
+                                           cudaStream_t);
+template cudaError_t fused_gather_blend<3>(const float*, const float*,
+                                           float*, float*, int, int,
+                                           const CellGeom<3>&, int,
+                                           const GatherLayout&, int, bool,
+                                           const SamplerParams&,
+                                           cudaStream_t);
 
 template <int D>
 cudaError_t fused_scatter_bwd(const float* g, const float* points,
@@ -221,38 +222,39 @@ template cudaError_t fused_scatter_bwd<3>(const float*, const float*, float*,
 extern "C" {
 
 // The blends: cells, points, vol (the texel-major copy; unused where
-// planar), rows (Q, 1 + 2D, C), out (1 + 2D, C, Q); n, c, the sizes, q;
-// the launch layout of ops/cuda/v1.py (width, groups, cell lanes,
-// threads, planar); then fused2w's sampler arguments.
+// planar), out (1 + 2D, C, Q); n, c, the sizes, q; the launch layout of
+// ops/cuda/v1.py blend_geometry (width, groups, cell lanes, threads,
+// planar); then fused2w's sampler arguments.  fused2w_blend and
+// fused3w_blend take the same.
 int fused_v1_blend2(const void* cells, const void* points, void* vol,
-                    void* rows, void* out, int n, int c, int h, int w, int q,
-                    int width, int groups, int cell_lanes, int threads,
-                    int planar, int kernel, int padding, int align,
-                    int multicell, int strict, float off_step,
-                    float off_stop, void* stream) {
+                    void* out, int n, int c, int h, int w, int q, int width,
+                    int groups, int cell_lanes, int threads, int planar,
+                    int kernel, int padding, int align, int multicell,
+                    int strict, float off_step, float off_stop,
+                    void* stream) {
   const int sizes[2] = {w, h};
-  return launch_blend<2>(
+  return csm::fused_gather_blend<2>(
       static_cast<const float*>(cells), static_cast<const float*>(points),
-      static_cast<float*>(vol), static_cast<float*>(rows),
-      static_cast<float*>(out), n, c, geom_of<2>(sizes), q,
-      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
+      static_cast<float*>(vol), static_cast<float*>(out), n, c,
+      geom_of<2>(sizes), q, csm::GatherLayout{width, groups, cell_lanes},
+      threads, planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));
 }
 
 int fused_v1_blend3(const void* cells, const void* points, void* vol,
-                    void* rows, void* out, int n, int c, int d, int h, int w,
-                    int q, int width, int groups, int cell_lanes, int threads,
+                    void* out, int n, int c, int d, int h, int w, int q,
+                    int width, int groups, int cell_lanes, int threads,
                     int planar, int kernel, int padding, int align,
                     int multicell, int strict, float off_step,
                     float off_stop, void* stream) {
   const int sizes[3] = {w, h, d};
-  return launch_blend<3>(
+  return csm::fused_gather_blend<3>(
       static_cast<const float*>(cells), static_cast<const float*>(points),
-      static_cast<float*>(vol), static_cast<float*>(rows),
-      static_cast<float*>(out), n, c, geom_of<3>(sizes), q,
-      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
+      static_cast<float*>(vol), static_cast<float*>(out), n, c,
+      geom_of<3>(sizes), q, csm::GatherLayout{width, groups, cell_lanes},
+      threads, planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
       static_cast<cudaStream_t>(stream));

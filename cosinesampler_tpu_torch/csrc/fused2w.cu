@@ -22,14 +22,26 @@
 //   and gather through one-hot MXU contractions, because the TPU has no
 //   per-lane gather and no atomics.  Hopper has both, so none of that
 //   survives: no binning, no windows, no slot layout.
-// * blend: one thread per query loops over the N cells and keeps the 5*C
-//   sums in registers; it reads 4 corners x C channels per cell straight
-//   from global memory.  The f32 cell stack of the main path (96 x 4 x
-//   16 x 16, 393 KB) exceeds a block's 227 KB of shared memory but sits in
-//   the 50 MB L2, and the threads of a warp walk the cells in lockstep, so
-//   the gathers of one step fall in one 4 KB cell.  It is bound by those
-//   L1/L2 gathers and the per-(query, cell) coordinate math (two sincospif),
-//   not by DRAM bytes (it writes 5*C*Q floats once).
+// * blend: the first design, a thread a query over its N cells reading
+//   4 corners x C channels a cell from the planar cells, made one 4-byte
+//   load a (query, cell, corner, channel): 153.6 M loads at the main path
+//   (96 x 4 x 16 x 16, 100 000 points), a warp's 32 scattered queries
+//   touching ~20 sectors of a 1 KB plane to use 4 bytes of each.  A probe
+//   of it (PERF.md section 6) put the loads at ~0.05 of its 0.18 ms and
+//   the walk (axis tables, corner weights, the FMAs) at 0.13.  Now the
+//   blend is csrc/texel_gather.cuh's gather through fused_gather_blend,
+//   the v1 blend's launcher (csrc/fused.cu): a tiled transpose copies the
+//   cells into a texel-major (H, W, N, C) temporary (393 KB at the main
+//   path, in L2), and blocks of 128 queries in order give each query a
+//   few lanes over its cells (ops/cuda/v1.py narrow_lanes), each holding
+//   all C channels, so that each (query, cell) is walked once and at a
+//   corner the lanes' neighbouring 16-byte records of one texel share
+//   sectors: 38.4 M float4 loads.  The cell lanes add their rows by warp
+//   shuffles in a fixed order (deterministic), and the lanes store the
+//   (5, C, Q) rows directly, a warp's queries in order covering whole
+//   sectors.  Where a call reads few cell values for the stack's size
+//   (ops/cuda/v1.py blend_geometry, measured) the gather reads the cells
+//   in place (planar): there the copy would cost more than it saves.
 // * bwd: the naive form, one global atomicAdd per (query, cell, corner,
 //   channel), is 100k * 96 * 4 * 4 = 154 M float atomics onto 98 k
 //   addresses.  The first design added them into chunks of cells in
@@ -49,10 +61,10 @@
 //   scatter adds scalars into the zeroed cotangent in place (planar),
 //   where the scratch's fill and transpose would cost more.  No
 //   shared-memory atomics.
-// * Channels: up to 8 a blend thread keeps all 5*C rows in registers;
-//   above it a grid axis walks channel groups of at most 8, each redoing
-//   the per-(query, cell) coordinate math (fused_rows.cuh
-//   dispatch_groups).  The bwd takes groups of 4 channels over the lanes
+// * Channels: up to 8 a blend lane keeps all 5*C rows in registers;
+//   above it the blend takes the v1 blend's layout (lanes of up to 16
+//   channels, channel blocks on a grid axis; ops/cuda/v1.py
+//   blend_geometry).  The bwd takes groups of 4 channels over the lanes
 //   (ops/cuda/scatter.py), scalar groups of at most 8 at other counts.
 //   So any C takes these kernels as JAX's fused2w takes any C within
 //   VMEM.
@@ -60,11 +72,12 @@
 //   chain).  This one is not: f32 atomics add in an order that changes from
 //   run to run, so results agree with the plain version to rounding, not
 //   bit for bit.
-// The blend is the D = 2 instance of csrc/fused_rows.cuh, which fused3w
-// (csrc/fused3w.cu) and mega2w (csrc/mega2w.cu) share.
+// Both kernels walk each (query, cell)'s corners with csrc/fused_rows.cuh,
+// which fused3w (csrc/fused3w.cu) and mega2w (csrc/mega2w.cu) share.
 #include <cuda_runtime.h>
 
 #include "fused_rows.cuh"
+#include "texel_gather.cuh"
 #include "texel_scatter.cuh"
 
 namespace {
@@ -81,20 +94,23 @@ csm::CellGeom<2> geom2(int h, int w) {
 
 extern "C" {
 
-int fused2w_blend(const void* cells, const void* points, void* out, int n,
-                  int c, int h, int w, int q, int kernel, int padding,
-                  int align, int multicell, int strict, float off_step,
-                  float off_stop, void* stream) {
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups(
-      c, [&](auto gw, auto one) {
-    return csm::fused::launch_blend<2, decltype(gw)::value,
-                                     decltype(one)::value>(
-        static_cast<const float*>(cells), static_cast<const float*>(points),
-        static_cast<float*>(out), n, c, geom2(h, w), q, p,
-        static_cast<cudaStream_t>(stream));
-  });
+// cells (N, C, H, W), points, vol (the texel-major (H, W, N, C) copy;
+// unused where planar), out (5, C, Q); n, c, h, w, q; the launch layout
+// of ops/cuda/v1.py blend_geometry (width, groups, cell lanes, threads,
+// planar); kernel, padding, align, multicell, strict; the offset
+// lattice's step and stop; the stream.
+int fused2w_blend(const void* cells, const void* points, void* vol,
+                  void* out, int n, int c, int h, int w, int q, int width,
+                  int groups, int cell_lanes, int threads, int planar,
+                  int kernel, int padding, int align, int multicell,
+                  int strict, float off_step, float off_stop, void* stream) {
+  return csm::fused_gather_blend<2>(
+      static_cast<const float*>(cells), static_cast<const float*>(points),
+      static_cast<float*>(vol), static_cast<float*>(out), n, c, geom2(h, w),
+      q, csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop),
+      static_cast<cudaStream_t>(stream));
 }
 
 // g (5, C, Q), points, scratch (texel-major (H, W, N, C), zeroed; not

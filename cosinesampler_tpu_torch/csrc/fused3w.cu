@@ -20,12 +20,20 @@
 // * The TPU kernels bin queries by (z, y), cut per-bin windows and gather
 //   through one-hot MXU contractions, because the TPU has no per-lane
 //   gather and no atomics.  None of that is carried over.
-// * blend: one thread per query loops over the N cells, reads 8 corners x
-//   C channels per cell from global memory (the 50 x 4 x 16^3 f32 stack,
-//   3.3 MB, sits in L2) and keeps the 7*C sums in registers.  At the 3D
-//   main path it does 50 x 100 000 x 8 x 4 x 7 FMAs (~0.033 ms at the f32
-//   peak): bound by operations and the per-(query, cell) coordinate math
-//   (three sincospif).
+// * blend: the first design, a thread a query over its N cells reading
+//   8 corners x C channels a cell from the planar cells, one 4-byte load
+//   a (query, cell, corner, channel): 160 M loads at the 3D main path
+//   (50 x 4 x 16^3, 100 000 points), a warp's scattered queries touching
+//   ~31 sectors of a 16 KB plane each.  A probe of it (PERF.md section
+//   6) put the loads at ~0.077 of its 0.23 ms and the walk at 0.15.  Now
+//   it is fused2w_blend's design (csrc/fused2w.cu): texel_gather.cuh's
+//   gather through fused_gather_blend over a texel-major (D, H, W, N, C)
+//   copy (3.3 MB, in L2), a few cell lanes a query holding all C
+//   channels, 40 M float4 loads, the (7, C, Q) rows stored directly; the
+//   cells read in place (planar) where a call reads few cell values for
+//   the stack's size.  At the 3D main path it does 50 x 100 000 x 8 x 4 x
+//   7 FMAs (~0.033 ms at the f32 peak): bound by operations and the
+//   per-(query, cell) coordinate math (three sincospif).
 // * bwd: the first design added into chunks of cells in shared memory
 //   (a 4 x 16^3 cell is 64 KiB: 3 cells a chunk, 17 chunks, 512 threads
 //   and one block an SM), 160 M shared f32 adds a call at the main path,
@@ -39,31 +47,37 @@
 //   texel (ops/cuda/fused2w.py bwd_geometry) the scatter adds scalars
 //   into the zeroed cotangent in place (planar).  f32 atomics: not
 //   deterministic.
-// * Channels: above 8, the blend's channel groups of at most 8 on a grid
-//   axis, as fused2w's (csrc/fused2w.cu); the bwd's groups of 4 over the
-//   lanes (ops/cuda/scatter.py).
-// The blend is the D = 3 instance of csrc/fused_rows.cuh.
+// * Channels: above 8, the blend takes the v1 blend's layout (lanes of up
+//   to 8 interleaved channels, channel blocks on a grid axis), as
+//   fused2w's (csrc/fused2w.cu); the bwd's groups of 4 over the lanes
+//   (ops/cuda/scatter.py).
+// Both kernels walk each (query, cell)'s corners with csrc/fused_rows.cuh.
 #include <cuda_runtime.h>
 
 #include "fused_rows.cuh"
+#include "texel_gather.cuh"
 #include "texel_scatter.cuh"
 
 extern "C" {
 
-int fused3w_blend(const void* cells, const void* points, void* out, int n,
-                  int c, int d, int h, int w, int q, int kernel, int padding,
-                  int align, int multicell, int strict, float off_step,
-                  float off_stop, void* stream) {
-  const csm::SamplerParams p = csm::make_params(
-      kernel, padding, align, multicell, strict, off_step, off_stop);
-  return csm::fused::dispatch_groups(
-      c, [&](auto gw, auto one) {
-    return csm::fused::launch_blend<3, decltype(gw)::value,
-                                     decltype(one)::value>(
-        static_cast<const float*>(cells), static_cast<const float*>(points),
-        static_cast<float*>(out), n, c, csm::cell_geom3(d, h, w), q, p,
-        static_cast<cudaStream_t>(stream));
-  });
+// cells (N, C, D, H, W), points, vol (the texel-major (D, H, W, N, C)
+// copy; unused where planar), out (7, C, Q); n, c, d, h, w, q; the launch
+// layout of ops/cuda/v1.py blend_geometry (width, groups, cell lanes,
+// threads, planar); then the sampler arguments as fused2w_blend's.
+int fused3w_blend(const void* cells, const void* points, void* vol,
+                  void* out, int n, int c, int d, int h, int w, int q,
+                  int width, int groups, int cell_lanes, int threads,
+                  int planar, int kernel, int padding, int align,
+                  int multicell, int strict, float off_step, float off_stop,
+                  void* stream) {
+  return csm::fused_gather_blend<3>(
+      static_cast<const float*>(cells), static_cast<const float*>(points),
+      static_cast<float*>(vol), static_cast<float*>(out), n, c,
+      csm::cell_geom3(d, h, w), q,
+      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
+      csm::make_params(kernel, padding, align, multicell, strict, off_step,
+                       off_stop),
+      static_cast<cudaStream_t>(stream));
 }
 
 // g (7, C, Q), points, scratch (texel-major (D, H, W, N, C), zeroed; not

@@ -1,8 +1,9 @@
-// The fused rows of one query, in 2D and 3D, and the kernels built from
-// them: fused2w's and fused3w's blends (value, jacobian, diagonal
-// Hessian, summed over the multicell ensemble), shared with the mega2w
-// train-step kernel, whose splat adds their transpose (splat_query,
-// splat_query_range).  The corner walk serves every fused kernel.
+// The fused rows of one query, in 2D and 3D (value, jacobian, diagonal
+// Hessian, summed over the multicell ensemble): the per-query blend of
+// the mega2w train-step kernel and of the staged small-cloud kernels
+// (csrc/staged_cells.cuh), whose splats add their transpose (splat_query,
+// splat_query_range).  The corner walk serves every fused kernel,
+// csrc/texel_gather.cuh's and csrc/texel_scatter.cuh's too.
 //
 // Rows, in the JAX package's order: value, d/dx_i for each grid axis i,
 // then d2/dx_i2 for each grid axis i (1 + 2D rows).  Grid axis 0 (x)
@@ -22,7 +23,7 @@ namespace csm {
 
 // The most channels whose rows a fused or mega2w thread keeps in
 // registers at once: a stack of more channels is walked in groups of at
-// most this many (fused::dispatch_groups).
+// most this many.
 constexpr int kMaxChannels = 8;
 
 template <int D>
@@ -255,91 +256,16 @@ cudaError_t dispatch_channels(int c, F&& f) {
 
 namespace fused {
 
-constexpr int kBlendThreads = 128;
-
-// Channels: up to kMaxChannels a blend thread keeps all C channels' rows
-// in registers (ONE: the whole stack is one group, C == G, as
-// compile-time constants).  Above it a grid axis walks channel groups of
-// at most kBlendGroup channels (C = 12: two of 6; C = 16: two of 8),
-// each redoing the per-(query, cell) coordinate math.  mega2w's wide
-// splat (csrc/mega2w.cu) adds into shared chunks in groups of at most
-// kBwdGroup (C = 16: four of 4), whose cotangent registers and chunks
-// are half as wide.  fused2w's and fused3w's bwds are
-// csrc/texel_scatter.cuh's scatter (fused_scatter_bwd), not this file's.
+// mega2w's channel groups above kMaxChannels (csrc/mega2w.cu): its blend
+// walks groups of at most kBlendGroup channels (C = 12: two of 6; C = 16:
+// two of 8), each redoing the per-(query, cell) coordinate math, and its
+// wide splat adds into shared chunks in groups of at most kBwdGroup (C =
+// 16: four of 4), whose cotangent registers and chunks are half as wide.
+// The fused op's blends and bwds are csrc/texel_gather.cuh's gather and
+// csrc/texel_scatter.cuh's scatter (fused_gather_blend,
+// fused_scatter_bwd), not this file's.
 constexpr int kBlendGroup = kMaxChannels;
 constexpr int kBwdGroup = 4;
-
-// One thread per query: its 1 + 2D rows over all n cells, in registers,
-// for channels [by * G, by * G + cg) of c.
-template <int D, int G, bool ONE>
-__global__ void __launch_bounds__(kBlendThreads)
-    blend_kernel(const float* __restrict__ cells,
-                 const float* __restrict__ points, float* __restrict__ out,
-                 int n, int c, CellGeom<D> g, int q, SamplerParams p) {
-  const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= q) return;
-  float pt[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) pt[i] = points[D * qi + i];
-  float acc[kRows<D>][G];
-  if constexpr (ONE) {
-    blend_query<D, G>(cells, g, n, pt, p, acc);
-#pragma unroll
-    for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        out[static_cast<int64_t>(r * G + j) * q + qi] = acc[r][j];
-  } else {
-    const int c0 = blockIdx.y * G;
-    const int cg = min(G, c - c0);
-#pragma unroll
-    for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[r][j] = 0.0f;
-    blend_query_range<D, G>(cells + static_cast<int64_t>(c0) * g.texels,
-                            static_cast<int64_t>(c) * g.texels, g, 0, n, n,
-                            cg, pt, p, acc);
-#pragma unroll
-    for (int r = 0; r < kRows<D>; ++r)
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        if (j < cg)
-          out[static_cast<int64_t>(r * c + c0 + j) * q + qi] = acc[r][j];
-  }
-}
-
-template <int D, int G, bool ONE>
-cudaError_t launch_blend(const float* cells, const float* points, float* out,
-                         int n, int c, const CellGeom<D>& g, int q,
-                         const SamplerParams& p, cudaStream_t stream) {
-  if (q == 0) return cudaGetLastError();
-  const dim3 grid(cdiv(q, kBlendThreads),
-                  ONE ? 1 : channel_groups(c, kBlendGroup));
-  blend_kernel<D, G, ONE><<<grid, kBlendThreads, 0, stream>>>(
-      cells, points, out, n, c, g, q, p);
-  return cudaGetLastError();
-}
-
-// Calls launch(std::integral_constant<int, G>, std::bool_constant<ONE>)
-// for the blend of c channels: c <= kMaxChannels as one group (G = c,
-// ONE), more as groups of group_width(c, kBlendGroup), which is over
-// kBlendGroup / 2 for c > kBlendGroup.
-template <typename F>
-cudaError_t dispatch_groups(int c, F&& launch) {
-  if (c <= kMaxChannels) {
-    return dispatch_channels(c, [&](auto cc) {
-      return launch(cc, std::true_type{});
-    });
-  }
-  return dispatch_channels(
-      group_width(c, kBlendGroup), [&](auto gw) -> cudaError_t {
-        constexpr int G = decltype(gw)::value;
-        if constexpr (G > kBlendGroup / 2 && G <= kBlendGroup)
-          return launch(gw, std::false_type{});
-        else
-          return cudaErrorInvalidValue;
-      });
-}
 
 }  // namespace fused
 }  // namespace csm

@@ -1,7 +1,8 @@
 // The fused rows of one block of queries, gathered from the texel-major
 // (*S, N, C) volume with a few lanes a query, in 2D and 3D: the forward
 // body that fused3b_blend (csrc/fused3b.cu), fused3s_blend
-// (csrc/fused3s.cu) and the v1 blend (csrc/fused.cu) share, the mirror of
+// (csrc/fused3s.cu), and through fused_gather_blend below the v1 blend
+// (csrc/fused.cu), fused2w_blend and fused3w_blend share, the mirror of
 // csrc/texel_scatter.cuh.
 //
 // Why a few lanes a query: the texel-major layout keeps one texel's N * C
@@ -255,5 +256,21 @@ cudaError_t launch_gather(const GatherLayout& lay, int c, int threads,
     if (lay.width == WIDE) return launch(std::integral_constant<int, WIDE>{});
   return dispatch_channels(lay.width, launch);
 }
+
+// The fused op's blend over points in query order, defined in
+// csrc/fused.cu for D = 2 and 3: the v1 blend's, fused2w_blend's and
+// fused3w_blend's.  The tiled transpose copies the cells (N, C, *S) into
+// vol, a texel-major (*S, N, C) temporary, and gather_block serves
+// blocks of kGatherQueries queries in order with the layout `lay` and
+// `threads` a block, its lanes storing the rows out (1 + 2D, C, Q)
+// directly (queries in order: a warp's stores cover whole sectors);
+// where `planar` it reads the cells in place and vol is not used.
+template <int D>
+cudaError_t fused_gather_blend(const float* cells, const float* points,
+                               float* vol, float* out, int n, int c,
+                               const CellGeom<D>& geom, int q,
+                               const GatherLayout& lay, int threads,
+                               bool planar, const SamplerParams& p,
+                               cudaStream_t s);
 
 }  // namespace csm

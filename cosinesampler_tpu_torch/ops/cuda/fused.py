@@ -13,12 +13,14 @@ beat fused2w's / fused3w's channel groups (ops/cuda/route.py
   package's ``xla_fused_blend`` / ``xla_fused_bwd``); they are the oracle
   the kernels are held to.
 * ``fused_blend`` / ``fused_bwd`` wrap the hand-written CUDA kernels in
-  csrc/fused.cu, with the launch layouts of ops/cuda/v1.py.  The blend
-  gathers from a texel-major (*S, N, C) copy of the cells (or the cells
-  in place, planar) with a few lanes a query (csrc/texel_gather.cuh),
-  each query's rows going to a (Q, 1+2d, C) temporary that a tiled
-  transpose writes out as (1+2d, C, Q).  The bwd adds into a zeroed texel-major scratch with a warp's lanes
-  over (query, cell) (csrc/texel_scatter.cuh), which the tiled transpose
+  csrc/fused.cu, with the launch layouts of ops/cuda/v1.py, through the
+  launchers fused2w_blend / fused3w_blend and fused2w_bwd / fused3w_bwd
+  share.  The blend gathers from a texel-major (*S, N, C) copy of the
+  cells (or the cells in place, planar) with a few lanes a query
+  (csrc/texel_gather.cuh), each query's rows going to a (Q, 1+2d, C)
+  temporary that a tiled transpose writes out as (1+2d, C, Q).  The bwd
+  adds into a zeroed texel-major scratch with a warp's lanes over
+  (query, cell) (csrc/texel_scatter.cuh), which the tiled transpose
   writes out as (N, C, *S).  The wrapper allocates the temporaries.  A
   tensor on the CPU takes the plain version; a CUDA tensor launches the
   kernel on the current stream, or raises for what the kernel does not
@@ -32,35 +34,22 @@ from typing import Tuple
 import torch
 
 from ..config import SamplerConfig
-from .fused2w import launch, plain_fused_blend, plain_fused_bwd
+from .fused2w import (gather_blend, launch, plain_fused_blend,
+                      plain_fused_bwd)
 from .fused3b import vol_layout
 from .scatter import ScatterGeometry
-from .v1 import V1Blend, blend_geometry, bwd_geometry
+from .v1 import BlendGeometry, blend_geometry, bwd_geometry
 
 __all__ = ["fused_blend", "fused_bwd", "launch_blend", "launch_bwd",
            "plain_fused_blend", "plain_fused_bwd"]
 
 
 def launch_blend(cells: torch.Tensor, points: torch.Tensor,
-                 cfg: SamplerConfig, geom: V1Blend) -> torch.Tensor:
+                 cfg: SamplerConfig, geom: BlendGeometry) -> torch.Tensor:
     """fused_blend's kernels with the launch layout ``geom``
     (ops/cuda/v1.py), on the card; not counted."""
-    n, c, *spatial = cells.shape
-    dim, q = len(spatial), points.shape[0]
-    if dim not in (2, 3) or cfg.dim != dim or points.shape[1:] != (dim,):
-        raise ValueError(f"the v1 blend takes a {cfg.dim}D config, cells "
-                         f"(N, C, *S) and points (Q, {cfg.dim}); got "
-                         f"{tuple(cells.shape)} and {tuple(points.shape)}")
-    rows = 1 + 2 * dim
-    vol = (cells if geom.planar else
-           torch.empty(vol_layout(n, c, spatial), dtype=torch.float32,
-                       device=cells.device))
-    qrows = torch.empty((q, rows, c), dtype=torch.float32,
-                        device=cells.device)
-    out = torch.empty((rows, c, q), dtype=torch.float32, device=cells.device)
-    launch(f"fused_v1_blend{dim}", cells, points, (vol, qrows, out), cfg, n,
-           c, tuple(spatial), geom.args())
-    return out
+    return gather_blend(f"fused_v1_blend{cells.dim() - 2}", cells, points,
+                        cfg, geom)
 
 
 def launch_bwd(g: torch.Tensor, points: torch.Tensor,

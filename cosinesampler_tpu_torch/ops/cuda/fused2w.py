@@ -12,6 +12,16 @@ versions in this module:
   version; a CUDA tensor launches the kernel on the current stream, or
   raises for what the kernel does not take.  Each wrapper counts its
   launches in its ``launches`` attribute.
+* The blend, fused2w_blend here and fused3w_blend in ops/cuda/fused3w.py,
+  is csrc/texel_gather.cuh's gather over blocks of 128 queries in order
+  from a texel-major (*S, N, C) copy of the cells made by a tiled
+  transpose, or below a measured number of points a texel from the cells
+  in place (planar), with the launch layout of ops/cuda/v1.py
+  ``blend_geometry``, the v1 blend's launcher, its lanes storing the
+  rows directly; ``gather_blend`` allocates the copy for all three
+  blends.
+  chip_smoke.py's ``w_blend_layout_sweep_phase`` times the rule against
+  ``v1.blend_alternatives``.
 * The bwd, fused2w_bwd here and fused3w_bwd in ops/cuda/fused3w.py, is
   csrc/texel_scatter.cuh's scatter over blocks of 128 queries in order
   into a zeroed texel-major (*S, N, C) scratch, which a tiled transpose
@@ -21,10 +31,11 @@ versions in this module:
   chip_smoke.py's ``w_bwd_layout_sweep_phase`` times the rule against
   ``bwd_alternatives``.
 
-The launch helpers (``launch``, ``kernel_blend``, ``kernel_bwd``,
-``sampler_args``) serve the 3D wrappers (ops/cuda/fused3w.py), the
-small-cloud wrappers (ops/cuda/fused2d.py), the v1 wrappers
-(ops/cuda/fused.py) and mega2w too.
+The launch helpers (``launch``, ``gather_blend``, ``kernel_blend``,
+``kernel_bwd``, ``sampler_args``) serve the 3D wrappers
+(ops/cuda/fused3w.py), the small-cloud wrappers (ops/cuda/fused2d.py,
+ops/cuda/fused3d.py), the v1 wrappers (ops/cuda/fused.py) and mega2w
+too.
 """
 
 from __future__ import annotations
@@ -38,8 +49,9 @@ from .. import generic
 from ..config import SamplerConfig
 from ..coords import offset_lattice
 from .build import check, load_kernels
-from .scatter import (THREADS, ScatterGeometry, scatter_alternatives,
-                      scatter_geometry)
+from .scatter import THREADS, ScatterGeometry, scatter_alternatives
+from .v1 import BlendGeometry, blend_geometry
+from .v1 import bwd_geometry as bwd_lanes
 
 KERNEL_IDS = {"cosine": 0, "linear": 1, "smoothstep": 2}
 PADDING_IDS = {"zeros": 0, "border": 1, "reflection": 2}
@@ -159,9 +171,8 @@ def launch(entry: str, first: torch.Tensor, points: torch.Tensor, outs,
 
 def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
                  points: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
-    """(1+2d, C, Q) from the fused blend kernel ``entry`` of dimension
-    ``dim`` (fused2w_blend, fused3w_blend, fused2d_blend, ...) on CUDA
-    tensors."""
+    """(1+2d, C, Q) from the staged small-cloud blend kernel ``entry`` of
+    dimension ``dim`` (fused2d_blend, fused3d_blend) on CUDA tensors."""
     device = cuda_device(cells, points)
     check_kernel_inputs(cfg, cells, points)
     if (cfg.dim != dim or cells.dim() != 2 + dim or points.dim() != 2
@@ -222,20 +233,6 @@ class BwdGeometry(NamedTuple):
         return (*self.lanes.args(), int(self.planar))
 
 
-def bwd_lanes(dim: int, n: int, c: int) -> ScatterGeometry:
-    """The scatter layout of the fused op's bwds over points in query
-    order (fused2w_bwd, fused3w_bwd and the v1 bwd): scatter.py's rule for
-    dense blocks (each block of 128 queries full but the last), with 128
-    threads a block in 3D.  At the 3D main path (50 x C x 16^3, 100 000
-    points) 128 threads took 0.27-0.29, 0.48-0.50 and 0.87-0.88 ms at
-    C = 4, 8 and 16 against 256's 0.30-0.33, 0.50-0.52 and 0.93-0.96; in
-    2D (96 x C x 16^2) 256 took 0.26-0.27, 0.45-0.46 and 0.83-0.85
-    against 128's 0.26-0.27, 0.46 and 1.05-1.08 (chip_smoke.py
-    w_bwd_layout_sweep_phase, two runs, PERF.md section 6)."""
-    geom = scatter_geometry(n, c, dense=True, dim=dim)
-    return geom._replace(threads=THREADS) if dim == 3 else geom
-
-
 def bwd_geometry(dim: int, n: int, c: int, q: int, spatial) -> BwdGeometry:
     """The bwd's layout for N cells of C channels over ``spatial`` at Q
     points in query order: bwd_lanes's, planar below
@@ -292,13 +289,54 @@ def launch_bwd(g: torch.Tensor, points: torch.Tensor,
     return dcells
 
 
+def gather_blend(entry: str, cells: torch.Tensor, points: torch.Tensor,
+                 cfg: SamplerConfig, geom: BlendGeometry) -> torch.Tensor:
+    """(1+2d, C, Q) from the gather blend ``entry`` (fused2w_blend,
+    fused3w_blend, fused_v1_blend2 / 3: csrc/fused.cu fused_gather_blend)
+    with the launch layout ``geom`` (ops/cuda/v1.py), on CUDA tensors;
+    not counted.  The wrapper allocates the texel-major (*S, N, C) copy,
+    where the layout is not planar."""
+    n, c, *spatial = cells.shape
+    dim, q = len(spatial), points.shape[0]
+    if dim not in (2, 3) or cfg.dim != dim or points.shape[1:] != (dim,):
+        raise ValueError(f"{entry} takes a {cfg.dim}D config, cells (N, C, "
+                         f"*S) and points (Q, {cfg.dim}); got "
+                         f"{tuple(cells.shape)} and {tuple(points.shape)}")
+    vol = (cells if geom.planar else
+           torch.empty((*spatial, n, c), dtype=torch.float32,
+                       device=cells.device))
+    out = torch.empty((1 + 2 * dim, c, q), dtype=torch.float32,
+                      device=cells.device)
+    launch(entry, cells, points, (vol, out), cfg, n, c, tuple(spatial),
+           geom.args())
+    return out
+
+
+def launch_blend(cells: torch.Tensor, points: torch.Tensor,
+                 cfg: SamplerConfig, geom: BlendGeometry) -> torch.Tensor:
+    """fused2w_blend / fused3w_blend (by the dimension of the cells) with
+    the launch layout ``geom``, on the card; not counted."""
+    return gather_blend(f"fused{cells.dim() - 2}w_blend", cells, points,
+                        cfg, geom)
+
+
+def blend(cells: torch.Tensor, points: torch.Tensor,
+          cfg: SamplerConfig) -> torch.Tensor:
+    """launch_blend with v1.blend_geometry's layout, on the card; not
+    counted."""
+    n, c, *spatial = cells.shape
+    return launch_blend(cells, points, cfg,
+                        blend_geometry(len(spatial), n, c, points.shape[0],
+                                       spatial))
+
+
 def fused_blend(cells: torch.Tensor, points: torch.Tensor,
                 cfg: SamplerConfig) -> torch.Tensor:
     """(5, C, Q) multicell-summed value/jac/diag-Hessian of (N, C, H, W)
     cells at (Q, 2) points; kernel on CUDA tensors, plain on CPU ones."""
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
-    out = kernel_blend("fused2w_blend", 2, cells, points, cfg)
+    out = blend(cells, points, cfg)
     fused_blend.launches += 1
     return out
 

@@ -11,8 +11,10 @@ d2/dx2, d2/dy2, d2/dz2 summed over the cells, and the exact transpose.
   csrc/fused3w.cu.  A tensor on the CPU takes the plain version; a CUDA
   tensor launches the kernel on the current stream, or raises for what the
   kernel does not take.  Each wrapper counts its launches in its
-  ``launches`` attribute.  The bwd's launch layout and its planar bound
-  are fused2w_bwd's (ops/cuda/fused2w.py ``bwd_geometry``).
+  ``launches`` attribute.  The blend is fused2w_blend's gather over a
+  texel-major copy of the cells with the layout of ops/cuda/v1.py
+  ``blend_geometry``; the bwd's launch layout and its planar bound are
+  fused2w_bwd's (ops/cuda/fused2w.py ``bwd_geometry``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Tuple
 import torch
 
 from ..config import SamplerConfig
-from .fused2w import bwd, kernel_blend, plain_fused_blend, plain_fused_bwd
+from .fused2w import blend, bwd, plain_fused_blend, plain_fused_bwd
 
 __all__ = ["fused_blend", "fused_bwd", "plain_fused_blend", "plain_fused_bwd"]
 
@@ -33,7 +35,7 @@ def fused_blend(cells: torch.Tensor, points: torch.Tensor,
     cells at (Q, 3) points; kernel on CUDA tensors, plain on CPU ones."""
     if cells.device.type == "cpu" and points.device.type == "cpu":
         return plain_fused_blend(cells, points, cfg)
-    out = kernel_blend("fused3w_blend", 3, cells, points, cfg)
+    out = blend(cells, points, cfg)
     fused_blend.launches += 1
     return out
 

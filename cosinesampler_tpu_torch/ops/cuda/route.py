@@ -17,8 +17,10 @@ everything else goes to blend_o / splat_o.
 
 A call that no kernel takes goes to the ``"plain"`` route, the plain
 PyTorch version on the call's own CUDA device, as the JAX package sends it
-to XLA: f64 tensors, and tensors whose element counts pass the kernels'
-32-bit indexing.  ``sampler_rule`` makes that decision for the public
+to XLA: f64 tensors, tensors whose element counts pass the kernels'
+32-bit indexing, and fused op calls at a precision the kernels do not
+compute ("bf16", "fast"; ``vol_rule`` for the planned and vol-resident
+ops).  ``sampler_rule`` makes that decision for the public
 sampler and ``fused_rule`` for the fused op (ops/fused.py), after the JAX
 package's ``_fused_blend`` / ``_fused_bwd`` order: plain; fused2d
 or fused2w in 2D and fused3d, fused3s or fused3w in 3D up to
@@ -46,10 +48,10 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import SamplerConfig, effective_align
-from . import blend_splat, fused2d, fused3d, fused3s, percell, slab
+from . import blend_splat, fused2d, fused2w, fused3d, fused3s, percell, slab
 
 __all__ = ["GridPlans", "blend", "fused_rule", "pick", "pick_fused", "rule",
-           "run_plain", "sampler_rule", "splat"]
+           "run_plain", "sampler_rule", "splat", "vol_rule"]
 
 # a stack up to this many bytes keeps splat_o's global atomics in L2 (the
 # H100's 50 MB): blend_o / splat_o won there (16 x 4 x 16^3 and 32^3 at
@@ -68,51 +70,54 @@ MIN_PAIRS = 1 << 18
 # the kernels index with 32-bit ints: a tensor of this many elements or
 # more takes the plain route
 INDEX_LIMIT = 2**31
-# the most channels a fused2w / fused3w thread keeps in registers at once
-# (csrc/fused_rows.cuh kMaxChannels).  Above it both blends walk channel
-# groups, and the rule picks between them and the v1 pair (texel-major
-# gathers; the bwds share one scatter) by chip_smoke.py's
-# wide_route_sweep_phase (PERF.md section 4): in 2D fused2w up to
-# FUSED2W_WIDE_MAX_C channels at up to FUSED2W_WIDE_MAX_Q queries, the v1
-# pair otherwise; in 3D fused3w up to FUSED3W_WIDE_MAX_Q_OVER_L2 queries
-# over a stack larger than the L2 (STACK_L2_BYTES), where the v1 blend's
-# copy of the cells costs most, the v1 pair otherwise.  Each the last point where the channel groups
-# won: fused2w on 96 x 12 x 16^2 at 1024 points (at 16 384 it tied,
-# 0.2705 against 0.2712 ms; lost at 16 channels); fused3w on 16 x C x
-# 128^3 at 32 768 (lost at 100 000) at C = 12 and 16.  On 50 x C x 16^3
-# fused3w lost at every count from 1024 to 100 000, by 14-50%.
+# the precisions the fused op's kernels compute (all in f32); a CUDA call
+# at another ("bf16", "fast") takes the plain route, whose plain versions
+# compute in f32 at every precision, as on the CPU
+KERNEL_PRECISIONS = ("exact", "highest")
+# up to this many channels the fused op takes fused2d / fused2w in 2D
+# and fused3d / fused3s / fused3w in 3D by the bounds below.  Above it
+# fused2w's and fused3w's blends are the v1 blend (one gather, one
+# layout rule: ops/cuda/v1.py blend_geometry) and their bwds the v1 bwd's
+# scatter but for one mode: below fused2w.PLANAR_POINTS_PER_TEXEL points
+# a texel they add into the cotangent in place.  So the rule takes
+# fused2w / fused3w there and the v1 pair elsewhere: chip_smoke.py's
+# wide_route_sweep_phase (PERF.md section 4) read the two within 1% of
+# each other at every point where fused3w's bwd takes the scratch, and
+# fused3w 1.1-1.8x faster where it adds in place (16 x C x 128^3 at up
+# to 16 384 points, C = 12 and 16).
 FUSED_MAX_CHANNELS = 8
-FUSED2W_WIDE_MAX_C = 12
-FUSED2W_WIDE_MAX_Q = 1024
-FUSED3W_WIDE_MAX_Q_OVER_L2 = 32768
 # in 2D up to 8 channels, fused2d over FUSED2D_MIN_CELLS cells or more up
 # to FUSED2D_MAX_Q queries or up to FUSED2D_MAX_PAIRS (cell, query)
 # pairs, fused2w otherwise: each the last point where fused2d won in
 # chip_smoke.py's sweep (PERF.md section 4).  Against the texel-major
-# fused2w_bwd, fused2d won at 96 cells x 3072 points, lost at 96 x 3584;
-# won at 32 x 4096 (2^17 pairs), lost at 32 x 6144; and lost at 8 cells
-# at every count from 512 to 100 000 (by 2-3x).
-FUSED2D_MIN_CELLS = 32
-FUSED2D_MAX_Q = 3072
-FUSED2D_MAX_PAIRS = 1 << 17
-# in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q queries where a
-# cell's channel group fits shared memory (fused3d.supports); fused3s, in
-# zeros and border padding, at FUSED3S_MIN_Q queries or more over a stack
-# of FUSED3S_MIN_STACK_BYTES or more with FUSED3S_MIN_CHANNELS channels
-# and FUSED3S_MIN_PLANES (cell, channel) planes or more; fused3w
-# otherwise: each the last point where the kernel won in chip_smoke.py's
-# sweep (PERF.md section 4).  fused3d won at 6144 points at 50 cells (by
-# 2%) and lost at 8192; at 8 cells fused3w won at 6144 (0.034 against
-# 0.066 ms), the one point the bound sends to the slower kernel.
-# fused3s (at 16 x 4 x S^3 unless named) lost on 8 x 4 x 80^3 (65.5 MB)
-# and below the stack bound but on 16 x 4 x 32^3 at 100 000 (by 4%).
-# Against the texel-major fused3w_bwd it won at 81 920 points on 64^3
-# and lost at 65 536, and on 128^3 won at 100 000 and lost at 81 920 (by
-# 2%, the one point there the bound sends to the slower kernel); it won
-# on 64 planes (16 x 4 x 96^3 and 128^3) and lost on 48 (16 x 3 x 96^3)
-# and 24 (6 x 4 x 128^3).
-FUSED3D_MAX_Q = 6144
-FUSED3S_MIN_Q = 81_920
+# fused2w blend and bwd, fused2d won at 96 cells x 2731 points and tied
+# at 96 x 3072 (0.1032 against 0.1028 ms, blend + bwd), won at 64 x 3072
+# (196 608 pairs) and 48 x 2731, lost at 32 cells at every count from
+# 1024 (by 8-12%) and at 16 and 8 cells (by 2x).
+FUSED2D_MIN_CELLS = 48
+FUSED2D_MAX_Q = 2731
+FUSED2D_MAX_PAIRS = 1 << 18
+# in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q_PER_CELL queries a
+# cell and FUSED3D_MAX_Q queries where a cell's channel group fits shared
+# memory (fused3d.supports: its blocks stage chunks of cells, so few
+# cells fill few SMs); fused3s, in zeros and border padding, at
+# FUSED3S_MIN_Q queries or more over a stack of FUSED3S_MIN_STACK_BYTES
+# or more with FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES
+# (cell, channel) planes or more; fused3w otherwise, by chip_smoke.py's
+# sweep in two calls (PERF.md section 4).  Against the texel-major
+# fused3w blend and bwd, fused3d won at 50 cells up to 4096 points (by
+# 5-20%) and lost from 6144, at 24 and 32 cells up to 2048 and lost from
+# 4096, and lost at 8 cells at every count (fused3w 1.5-2x faster); at
+# 16 cells x 1024-2048 and 24-32 cells x 3072 the faster of the two
+# flipped between the calls (by 3-12%).  fused3s lost on 8 x 4 x 80^3
+# (65.5 MB) and below the stack bound; on 16 x 4 x 128^3 it won from
+# 393 216 points in both calls (2.52 against 2.60-2.83 ms), flipped at
+# 262 144 (by 4%) and lost up to 131 072 (1.70 against 1.46); it won on
+# 64 planes (16 x 4 x 96^3 and 128^3) and lost on 48 (16 x 3 x 96^3) and
+# 24 (6 x 4 x 128^3).
+FUSED3D_MAX_Q_PER_CELL = 96
+FUSED3D_MAX_Q = 4096
+FUSED3S_MIN_Q = 393_216
 FUSED3S_MIN_STACK_BYTES = 16 * 4 * 64**3 * 4
 FUSED3S_MIN_CHANNELS = 3
 FUSED3S_MIN_PLANES = 64
@@ -188,15 +193,15 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     """The route of one fused op call (blend and bwd alike) over (N, C, *S)
     cells and ``n_queries`` shared points, where ``dtype`` is the promoted
     dtype of its tensors: ``"plain"`` for CUDA calls no fused kernel takes
-    (a dtype other than f32; strict reference in 2D with align_corners off,
-    whose rows mix alignments; a tensor over the 32-bit indexing); else
-    above FUSED_MAX_CHANNELS channels ``"fused2w"`` in 2D up to
-    FUSED2W_WIDE_MAX_C channels at up to FUSED2W_WIDE_MAX_Q queries,
-    ``"fused3w"`` in 3D over a stack larger than STACK_L2_BYTES up to
-    FUSED3W_WIDE_MAX_Q_OVER_L2 queries, and ``"fused"`` (the v1 kernels)
-    otherwise; in 3D
-    ``"fused3d"`` up to FUSED3D_MAX_Q queries where its chunks fit shared
-    memory (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
+    (a dtype other than f32; a precision not in KERNEL_PRECISIONS; strict
+    reference in 2D with align_corners off, whose rows mix alignments; a
+    tensor over the 32-bit indexing); else
+    above FUSED_MAX_CHANNELS channels ``"fused2w"`` / ``"fused3w"`` where
+    their bwd adds into the cotangent in place (fused2w.bwd_geometry's
+    planar) and ``"fused"`` (the v1 kernels) otherwise; in 3D
+    ``"fused3d"`` up to FUSED3D_MAX_Q_PER_CELL queries a cell and
+    FUSED3D_MAX_Q queries where its chunks fit shared memory
+    (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
     FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
     planes or more, in zeros and border padding (fused3s.supports),
@@ -212,17 +217,14 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
                   dim * n_queries) >= INDEX_LIMIT
     if device_type == "cuda" and (
             dtype != torch.float32 or too_big
+            or cfg.precision not in KERNEL_PRECISIONS
             or (cfg.strict_reference and dim == 2 and not cfg.align_corners)):
         return "plain"
     if c > FUSED_MAX_CHANNELS:
-        if dim == 2:
-            return ("fused2w" if c <= FUSED2W_WIDE_MAX_C
-                    and n_queries <= FUSED2W_WIDE_MAX_Q else "fused")
-        over_l2 = 4 * n * c * math.prod(spatial) > STACK_L2_BYTES
-        return ("fused3w" if over_l2
-                and n_queries <= FUSED3W_WIDE_MAX_Q_OVER_L2 else "fused")
+        planar = fused2w.bwd_geometry(dim, n, c, n_queries, spatial).planar
+        return f"fused{dim}w" if planar else "fused"
     if dim == 3:
-        if (n_queries <= FUSED3D_MAX_Q
+        if (n_queries <= min(FUSED3D_MAX_Q, FUSED3D_MAX_Q_PER_CELL * n)
                 and fused3d.supports(cfg, cells_shape)):
             return "fused3d"
         if (n_queries >= FUSED3S_MIN_Q
@@ -236,6 +238,17 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     if small and fused2d.supports(cfg, cells_shape):
         return "fused2d"
     return "fused2w"
+
+
+def vol_rule(cfg: SamplerConfig, device_type: str = "cuda") -> str:
+    """The route of one call of the slot-resident fused op over a
+    kernel-layout volume (ops/fused.py: the planned and vol-resident ops),
+    blend and bwd alike: ``"plain"`` for a CUDA call at a precision not in
+    KERNEL_PRECISIONS, ``"fused3b"`` otherwise, whose wrappers take the
+    plain versions on the CPU."""
+    if device_type == "cuda" and cfg.precision not in KERNEL_PRECISIONS:
+        return "plain"
+    return "fused3b"
 
 
 def run_plain(fn, *args):

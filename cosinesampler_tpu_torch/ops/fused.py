@@ -11,8 +11,9 @@ forward is a fused blend kernel and its backward the matching transpose
 kernel, on the route ops/cuda/route.py ``fused_rule`` gives the call, in
 the JAX package's order: the plain version on the card for what no kernel
 takes (f64, strict reference in 2D with align_corners off, tensors over
-32-bit indexing); fused2d (ops/cuda/fused2d.py) for small 2D clouds and
-fused2w (ops/cuda/fused2w.py) for the others; in 3D fused3d
+32-bit indexing, the precisions "bf16" and "fast"); fused2d
+(ops/cuda/fused2d.py) for small 2D clouds and fused2w
+(ops/cuda/fused2w.py) for the others; in 3D fused3d
 (ops/cuda/fused3d.py) for small clouds, fused3s (ops/cuda/fused3s.py)
 for many points over large stacks and fused3w (ops/cuda/fused3w.py) for
 the others, up to 8 channels; above 8, fused2w's / fused3w's channel
@@ -29,7 +30,9 @@ plan the layout is the identity.  With a brick plan (``make_sample_plan``
 / ``make_vol_plan``, ops/cuda/fused3b.py) it is the planned op: the cells
 are permuted into the bricked kernels' layout on every call and sampled
 through ``fused3b_blend_vol``.  ``make_fused_vol`` gives the same op over a
-volume kept in that layout (the vol-resident trainer).
+volume kept in that layout (the vol-resident trainer).  A CUDA call at a
+precision the kernels do not compute takes the plain route there too
+(ops/cuda/route.py ``vol_rule``), in the same slot and volume layouts.
 
 The points cotangent, when the points require grad, is the JAX package's
 ``_points_cotangent``: order-bumped ``blend_o`` launches through the
@@ -38,6 +41,7 @@ recursive autograd pair (ops/sampler.py), so it is differentiable in turn.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -149,6 +153,11 @@ class _FusedVol(torch.autograd.Function):
     def forward(ctx, vol, points, plan, cfg: SamplerConfig):
         ctx.save_for_backward(vol, points)
         ctx.plan, ctx.cfg = plan, cfg
+        # the bwd takes the blend's route
+        ctx.plain = route.vol_rule(cfg, vol.device.type) == "plain"
+        if ctx.plain:
+            return route.run_plain(fused3b.plain_fused3b_blend_vol, vol,
+                                   plan, cfg)
         return fused3b.fused3b_blend_vol(vol, plan, cfg)
 
     @staticmethod
@@ -159,8 +168,10 @@ class _FusedVol(torch.autograd.Function):
         g_p = g_p.contiguous()
         dvol = dpoints = None
         if ctx.needs_input_grad[0]:
-            dvol = fused3b.fused3b_bwd_vol(g_p, plan, (d, h, w), cfg,
-                                           n).to(vol.dtype)
+            bwd = (functools.partial(route.run_plain,
+                                     fused3b.plain_fused3b_bwd_vol)
+                   if ctx.plain else fused3b.fused3b_bwd_vol)
+            dvol = bwd(g_p, plan, (d, h, w), cfg, n).to(vol.dtype)
         if ctx.needs_input_grad[1]:
             # the slot cotangent gathered back to query order
             g_q = g_p.reshape(-1, g_p.shape[-1])[:, plan[0]].reshape(

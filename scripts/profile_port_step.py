@@ -34,7 +34,9 @@ after 3 warm-up calls; ``--fused3s`` so times fused3s's blend and bwd and
 its z sort on config 5's volume at ``--points`` uniform points (the sort
 made once for the kernels); ``--kernels`` so times fused2w's and
 fused3w's blend and bwd (96 x C x 16^2 and 50 x C x 16^3, 100 000
-points) and mega2w (96 x C x 16^2); ``--v1`` so times the v1 pair's
+points), with each one's device ms (torch.profiler) and host
+microseconds to enqueue a call, and mega2w (96 x C x 16^2); ``--v1`` so
+times the v1 pair's
 blend and bwd (ops/cuda/fused.py, the fused op's route above 8 channels)
 at path (a)'s shapes (96 x C x 16^2 and 50 x C x 16^3, 100 000 points)
 or, with ``--v1 config5``, at config 5's volume in query order (16 x C x
@@ -210,23 +212,59 @@ def _median_ms(fn, reps):
     return statistics.median(times)
 
 
+def _device_ms(fn, reps):
+    """Device ms of one call of ``fn``: the device time of every kernel,
+    fill and copy of ``reps`` calls (torch.profiler) over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def _host_us(fn, calls=50):
+    """Host microseconds to enqueue one call of ``fn``: the host clock
+    around ``calls`` calls with no synchronisation inside (the launch
+    queue holds them), the median of 5 such runs."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 def _main_kernels(card, c, reps):
     """Median ms of fused2w's and fused3w's kernels and mega2w at the 2D
-    and 3D main paths' shapes with C channels."""
+    and 3D main paths' shapes with C channels (single calls, the host's
+    share in), and each one's device ms (torch.profiler) and host
+    microseconds to enqueue a call."""
     from cosinesampler_tpu_torch.ops.config import SamplerConfig
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = 100_000
-    medians = {}
+    medians, device, host = {}, {}, {}
     for mod, dim, n in ((fused2w, 2, 96), (fused3w, 3, 50)):
         cfg = SamplerConfig(dim=dim)
         spatial = (16,) * dim
         cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
         pts = torch.rand((q, dim), generator=gen, device="cuda") * 2 - 1
         g = torch.randn((1 + 2 * dim, c, q), generator=gen, device="cuda")
-        medians[f"fused{dim}w_blend"] = _median_ms(
-            lambda: mod.fused_blend(cells, pts, cfg), reps)
-        medians[f"fused{dim}w_bwd"] = _median_ms(
-            lambda: mod.fused_bwd(g, pts, spatial, cfg, n), reps)
+        for name, fn in (
+                (f"fused{dim}w_blend",
+                 lambda: mod.fused_blend(cells, pts, cfg)),
+                (f"fused{dim}w_bwd",
+                 lambda: mod.fused_bwd(g, pts, spatial, cfg, n))):
+            medians[name] = _median_ms(fn, reps)
+            device[name] = _device_ms(fn, reps)
+            host[name] = _host_us(fn)
     cfg = SamplerConfig(dim=2)
     cells = torch.rand((96, c, 16, 16), generator=gen, device="cuda")
     pts = torch.rand((q, 2), generator=gen, device="cuda") * 2.2 - 1.1
@@ -240,8 +278,11 @@ def _main_kernels(card, c, reps):
             reps)
     print(f"{card}; kernels at C = {c} (2D 96 x {c} x 16^2, 3D 50 x {c} x "
           f"16^3, 100000 points), median of {reps}: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items()),
-          flush=True)
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items())
+          + "; device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in device.items())
+          + "; host us to enqueue a call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()), flush=True)
     return 0
 
 

@@ -148,7 +148,7 @@ def _check_blend_layout(geom, c, dim):
 def _check_blend_cover(lanes, n, c):
     for count in (QUERIES, 37, 1):
         hits = np.zeros((count, n, c), dtype=np.int64)
-        for items in _blend_items(v1.V1Blend(lanes), n, c, count):
+        for items in _blend_items(v1.BlendGeometry(lanes), n, c, count):
             np.add.at(hits, (items[:, 0], items[:, 1], items[:, 2]), 1)
         assert (hits == 1).all(), (lanes, n, c, count)
 
@@ -231,14 +231,14 @@ def test_v1_layout_rule():
     1024^2 and not from 32 768); the bwd the scatter's dense rule, with
     128 threads a block in 3D."""
     geom = gather.GatherGeometry
-    assert v1.blend_geometry(2, 96, 16, 100_000, (16, 16)) == v1.V1Blend(
+    assert v1.blend_geometry(2, 96, 16, 100_000, (16, 16)) == v1.BlendGeometry(
         geom(16, 1, 4, 256))
     assert v1.blend_geometry(2, 8, 32, 4099, (12, 10)).lanes == geom(
         16, 2, 2, 256)
     assert v1.blend_geometry(2, 8, 12, 4099, (12, 10)).lanes == geom(
         8, 2, 1, 256)
     three = v1.blend_geometry(3, 50, 16, 100_000, (16, 16, 16))
-    assert three == v1.V1Blend(geom(8, 2, 1, 256))
+    assert three == v1.BlendGeometry(geom(8, 2, 1, 256))
     assert v1.blend_geometry(3, 16, 16, 1_000_000, (128,) * 3) == three
     for dim, s, wins, loses in ((3, 128, 24576, 32768),
                                 (2, 1024, 16384, 32768)):
@@ -353,7 +353,7 @@ def test_v1_lane_walks_match_the_plain_versions_f64(dim, padding,
         want = plain_fused_blend(x, pts, cfg)
         rule = v1.blend_geometry(dim, n, c, q, spatial)
         for geom in (rule, rule._replace(planar=True),
-                     v1.V1Blend(gather.gather_geometry(n, c))):
+                     v1.BlendGeometry(gather.gather_geometry(n, c))):
             got = _blend_f64(x, pts, spatial, cfg, geom, n, c)
             torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
         dwant = plain_fused_bwd(g, pts, spatial, cfg, n)

@@ -6,7 +6,13 @@ their groups and the v1 kernels.
 
 On the CPU the kernel wrappers take their plain versions; the CUDA kernels
 themselves are compared with those on the card by chip_smoke.py.
+
+The tests are split over this file and tests/test_torch_port_wide_2.py
+(files of at most 10 tests, which xdist's loadfile queue, ordered by
+test count, runs beside tests/test_sharding.py rather than ahead of it);
+the helpers stay here.
 """
+
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +25,7 @@ from cosinesampler_tpu.ops import fused as jfused
 from cosinesampler_tpu.ops.config import SamplerConfig as JConfig
 from cosinesampler_tpu_torch.models import pinn as tpinn
 from cosinesampler_tpu_torch.ops.config import SamplerConfig as TConfig
-from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w, mega2w, route
+from cosinesampler_tpu_torch.ops.cuda import fused2w, fused3w, mega2w
 from cosinesampler_tpu_torch.utils.convert import params_from_numpy
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -101,45 +107,3 @@ def test_value_and_grad_mega_at_wide_channels_takes_the_kernel(c,
     assert set(grads) == set(want)
     for k in want:
         _close(grads[k].numpy(), want[k], 1e-4)
-
-
-def test_mega2w_supports_what_jax_admits():
-    """Any C with C + 4 <= 128 and up to 32 hidden units, as JAX's
-    mega2w.supports; 2D only."""
-    cfg = TConfig(dim=2)
-    for c in (1, 8, 9, 12, 16, 124):
-        assert mega2w.supports(cfg, (96, c, 16, 16), "allen_cahn", 16), c
-    assert not mega2w.supports(cfg, (96, 125, 16, 16), "allen_cahn", 16)
-    assert not mega2w.supports(cfg, (96, 16, 16, 16), "allen_cahn", 33)
-    assert not mega2w.supports(TConfig(dim=3), (8, 16, 8, 8, 8),
-                               "helmholtz", 16)
-
-
-def test_fused_rule_above_8_channels():
-    """route.fused_rule above 8 channels, shapes alone: in 2D fused2w's
-    channel groups up to FUSED2W_WIDE_MAX_C channels at up to
-    FUSED2W_WIDE_MAX_Q queries and the v1 pair otherwise; in 3D fused3w's
-    up to FUSED3W_WIDE_MAX_Q_OVER_L2 queries over a stack larger than the
-    L2 and the v1 pair otherwise.  Each bound at the sweep's points on
-    its two sides (chip_smoke.py wide_route_sweep_phase, PERF.md
-    section 4)."""
-    rule = route.fused_rule
-    cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
-    assert route.FUSED2W_WIDE_MAX_C == 12
-    assert route.FUSED2W_WIDE_MAX_Q == 1024
-    for q in (1024, 16384, 100_000):
-        for c, groups in ((9, True), (12, True), (16, False), (32, False)):
-            want = "fused2w" if groups and q <= 1024 else "fused"
-            assert rule(cfg2, (96, c, 16, 16), q) == want, (c, q)
-    bound = route.FUSED3W_WIDE_MAX_Q_OVER_L2
-    for c in (12, 16):
-        for q in (1024, 16384, 32768, 100_000):
-            assert rule(cfg3, (50, c, 16, 16, 16), q) == "fused", (c, q)
-        for q, want in ((1024, "fused3w"), (bound, "fused3w"),
-                        (bound + 1, "fused"), (100_000, "fused")):
-            assert rule(cfg3, (16, c, 128, 128, 128), q) == want, (c, q)
-    assert route.FUSED3W_WIDE_MAX_Q_OVER_L2 == 32768
-    # what no kernel takes stays plain above 8 channels too
-    assert rule(cfg3, (50, 16, 16, 16, 16), 1024, "cuda",
-                torch.float64) == "plain"
-    assert rule(cfg3, (50, 8, 16, 16, 16), 1024) == "fused3d"
