@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent CHECKOUT]
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card (main-path shapes and small
@@ -60,11 +60,13 @@ the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs,
 timed against fused2w (the sweep behind the fused op's rule) and routed at
 their shapes.  In 3D the small- and large-cloud kernels (fused3d_blend /
 fused3d_bwd, fused3s_blend / fused3s_bwd) are held to their plain
-versions, timed against fused3w and fused3b (the sweep behind the 3D
-rule), and the 3D fused trainer runs through them with fresh points: 50 x
-4 x 16^3 at 1024 points (fused3d), 16 x 4 x 32^3 at 4096 (the rule's
-fused3w) and config 5's 16 x 4 x 128^3 at 393 216 (fused3s), 3 steps
-each.  fused3b's channel groups are held to its plain versions at C = 16
+versions (fused3d also in every launch layout its sweep times, the
+sweep behind ops/cuda/fused3d.py's layout rule), timed against fused3w
+and fused3b (the sweep behind the 3D rule), and the 3D fused trainer runs
+through them with fresh points: 50 x 4 x 16^3 at 1024 points and 16 x 4 x
+32^3 at 4096 (both fused3d by the rule) and config 5's 16 x 4 x 128^3 at
+393 216 (fused3s), 3 steps each; with ``--parent CHECKOUT`` fused3d's
+pair is also timed in turns against that checkout's.  fused3b's channel groups are held to its plain versions at C = 16
 on config 5's volume, and the vol-resident trainer runs there at C = 16
 (16 x 16 x 128^3, 3 steps) against the query-ordered v1 trainer.  The
 calls no kernel takes (f64, strict 2D with align_corners off, 2^31
@@ -88,14 +90,17 @@ of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -1917,10 +1922,62 @@ def compare_planar(name, cfg, n, c, spatial, q, seed, lo=-1.4, hi=1.4):
     return abs_b
 
 
+# (N, C, S, Q) at which fused3d's blend and bwd are held to their plain
+# versions in every layout of fused3d.blend_alternatives /
+# bwd_alternatives: path (c), the 8-cell stack, the shapes the unstaged
+# kernels admit (16 x 4 x 32^3 at 4096, 16 x 4 x 128^3 at 1536) and N in
+# {1, 3, 6, 50} at C in {1, 3, 4, 8, 12}
+FUSED3D_LAYOUT_CASES = ([(N3, C, S3, Q_SMALL3), (8, C, S3, 512),
+                         (N_MID, C, S_MID, Q_MID), (N5, C, S5, 1536)]
+                        + [(n, c, (7, 8, 9), 2053) for n in (1, 3, 6, 50)
+                           for c in (1, 3, C, 8, 12)])
+
+
+def compare_fused3d_layouts(cfg, n, c, spatial, q, seed, lo=-1.4, hi=1.4):
+    """fused3d_blend and fused3d_bwd in every layout of
+    fused3d.blend_alternatives / bwd_alternatives (the rule's, the cells
+    in place and the texel-major copy, the cotangent in place and the
+    scratch, other cell lanes, queries a block and block sizes) against
+    their plain versions on the card, and the rule's blend bit-identical
+    across two calls (no atomics: each row is one lane's store); returns
+    the max abs errors (blend, bwd)."""
+    cells, pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
+    ref = fused3d.plain_fused_blend(cells, pts, cfg)
+    dref = fused3d.plain_fused_bwd(g, pts, spatial, cfg, n)
+    blends = fused3d.blend_alternatives(n, c, q, spatial)
+    bwds = fused3d.bwd_alternatives(n, c, q, spatial)
+    errs = {}
+    for name, lay in blends.items():
+        errs["blend", name] = _rel_err(fused3d.launch_blend(cells, pts, cfg,
+                                                            lay), ref)
+    for name, lay in bwds.items():
+        got = fused3d.launch_bwd(g, pts, spatial, cfg, n, lay)
+        errs["bwd", name] = _rel_err(got.reshape(1, -1), dref.reshape(1, -1))
+    first = fused3d.launch_blend(cells, pts, cfg, blends["rule"])
+    same = torch.equal(first, fused3d.launch_blend(cells, pts, cfg,
+                                                   blends["rule"]))
+    torch.cuda.synchronize()
+    worst = {part: max((v for (k, _), v in errs.items() if k == part),
+                       key=lambda e: e[1]) for part in ("blend", "bwd")}
+    print(f"compare fused3d layouts ({n}x{c}x{'x'.join(map(str, spatial))}, "
+          f"Q={q}): {len(blends)} blend layouts, worst rel "
+          f"{worst['blend'][1]:.3e}; {len(bwds)} bwd layouts, worst rel "
+          f"{worst['bwd'][1]:.3e} (tolerance rel {REL_TOL:g}); the rule's "
+          f"blend bit-identical across two calls: {same}", flush=True)
+    bad = [k for k, (_, rel) in errs.items() if not rel <= REL_TOL]
+    if bad or not same:
+        raise RuntimeError(f"fused3d layouts at {n}x{c}x{spatial}, Q={q}: "
+                           f"disagree with plain {bad}, bit-identical "
+                           f"{same}")
+    return worst["blend"][0], worst["bwd"][0]
+
+
 def fused3ds_kernel_phase():
     """B8 and B9 against their plain versions: fused3d at path (c)'s stack
     (50 x 4 x 16^3, Q = 200, 1024, 2047) and an opted-in 8 x 16^3 channel
-    group; fused3s at path (c)'s large volume (16 x 4 x 128^3, Q =
+    group, and in every layout its sweep times at FUSED3D_LAYOUT_CASES
+    (compare_fused3d_layouts: the blend bit-identical across calls);
+    fused3s at path (c)'s large volume (16 x 4 x 128^3, Q =
     100 000), where its launches come from, the mid volume (16 x 4 x
     32^3, Q = 4096), JAX's 2 x 2 x 32^3 at 2048 and 16 x 4 x 64^3 at
     16384, and the unplanned config-5 step's 1 000 000 points; both in
@@ -1951,6 +2008,10 @@ def fused3ds_kernel_phase():
                                    pts=_trainer_points(Q5, 3)))
     track("fused3d", compare_fused("fused3d", "opt-in 8x16^3 group", main,
                                    8, 8, (S3,) * 3, 1500, seed=22, **WIDE))
+    for n, c, s, q in FUSED3D_LAYOUT_CASES:
+        spatial = s if isinstance(s, tuple) else (s,) * 3
+        track("fused3d", compare_fused3d_layouts(main, n, c, spatial, q,
+                                                 seed=34))
     for kind in ("fused3d", "fused3s"):
         for name, kw, c in FUSED3_VARIANTS:
             cfg = SamplerConfig(dim=3, **kw)
@@ -2119,27 +2180,34 @@ def _fused3b_with_plan(cells, pts, g, cfg):
 
 # (cells, channels, cell size, points) of the 3D small-cloud sweep: the
 # stacks and clouds of path (c) and of the JAX dispatch tests, the two
-# sides of fused3d's bound (6144 / 8192 points at 50 and 8 cells) and
-# its clouds at 8, 16 and 24 cells (the bound's cell count), and
-# fresh points on stacks over the L2 on the two sides of each of
-# fused3s's bounds (points, stack bytes, channels, (cell, channel) planes)
+# sides of fused3d's bounds (points, and points a cell: at 8 cells from
+# 256 points, at 16, 24, 32 and 50 cells), small clouds on the large
+# cells fused3d takes since it stages nothing (16 x 4 x 32^3 at 1024 to
+# 4096 points, 16 x 4 x 128^3 at 1536 to 8192), and fresh points on
+# stacks over the L2 on the two sides of each of fused3s's bounds
+# (points, stack bytes, channels, (cell, channel) planes)
 SWEEP_3D = ([(N3, C, S3, q) for q in (200, 2048, 3072, 4096, 6144, 8192,
-                                      Q)]
-            + [(8, C, S3, q) for q in (1024, 2048, 4096, 6144, 8192)]
-            + [(16, C, S3, q) for q in (1024, 2048, 4096, 6144)]
+                                      12288, 16384, 24576, 32768, Q)]
+            + [(8, C, S3, q) for q in (256, 512, 768, 1024, 2048, 4096,
+                                       6144, 8192, 12288, 16384)]
+            + [(16, C, S3, q) for q in (1024, 2048, 4096, 6144, 8192,
+                                        12288)]
             + [(n, C, S3, q) for n in (24, 32)
-               for q in (1024, 2048, 3072, 4096, 6144)]
+               for q in (1024, 2048, 3072, 4096, 6144, 8192, 12288)]
             + [(2, 2, 32, 2048)]
             + [(16, C, 24, Q)]
-            + [(16, C, 32, q) for q in (2048, 9000, 32768, 65536, Q)]
+            + [(16, C, 32, q) for q in (1024, 1536, 2048, 3072, 4096, 6144,
+                                        9000, 32768, 65536, Q)]
             + [(16, C, 64, q)
                for q in (16384, 32768, 49152, 65536, 81920, Q, 131072)]
             + [(8, C, 80, Q)]
             + [(16, c, 96, Q) for c in (2, 3, C)]
             + [(16, C, 64, 262144)]
             + [(N5, C, S5, q)
-               for q in (32768, 40960, 49152, 65536, 81920, Q, 131072,
-                         262144, 393216, 524288, Q5)]
+               for q in (1536, 2048, 4096, 5120, 6144, 8192, 32768, 40960,
+                         49152,
+                         65536, 81920, Q, 131072, 262144, 393216, 524288,
+                         Q5)]
             + [(n, C, S5, Q) for n in (4, 6, 12)])
 
 
@@ -2261,13 +2329,34 @@ def small_cloud_3d_trainer_phase():
     return total
 
 
-def fused3ds_time_phase():
+def _parent_turns(parent, args):
+    """scripts/profile_port_step.py ``args`` under the package of
+    ``parent`` (a checkout of another commit, which builds its own
+    kernels) and this checkout's in turns (parent, this, this, parent),
+    each in a process of its own; prints each run's last line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "profile_port_step.py")
+    for where in (parent, here, here, parent):
+        run = subprocess.run([sys.executable, script, *args],
+                             env={**os.environ, "PYTHONPATH": where},
+                             capture_output=True, text=True, timeout=900,
+                             check=True)
+        print(f"in turns, {'parent' if where == parent else 'this checkout'}"
+              f" ({' '.join(args)}): {run.stdout.strip().splitlines()[-1]}",
+              flush=True)
+
+
+def fused3ds_time_phase(parent=None):
     """fused3d at path (c)'s small cloud (50 x 4 x 16^3, Q = 1024) and
     fused3s at its large volume (16 x 4 x 128^3, Q = 100 000): kernel and
     plain ms in turns (CUDA events; fused3s's each include a z sort),
     device ms (torch.profiler), bounds, and the z sort alone; fused3s_bwd
     at 1 000 000 points beside its bound; fused3b at C = 16 on config 5
-    beside its bound."""
+    beside its bound.  With ``parent`` (a checkout of the parent commit,
+    ``--parent``) fused3d's pair is also timed alone in turns against the
+    parent's (profile_port_step.py --fused3d)."""
+    if parent:
+        _parent_turns(parent, ["--fused3d"])
     times = {}
     cfg = SamplerConfig(dim=3)
     for kind, n, s, q in (("fused3d", N3, S3, Q_SMALL3),
@@ -2294,7 +2383,9 @@ def fused3ds_time_phase():
         for name, (kernel, plain, nbytes) in ops.items():
             bound_ms, bound_by = _bound(nbytes, flops)
             ms, plain_ms = _in_turns(kernel, plain, reps=5)
-            dev_ms = _device_ms(kernel)
+            # the largest of three windows: a window that loses events
+            # reads low (0.0000 for fused3d_blend in one run)
+            dev_ms = _device_ms(kernel, windows=3)
             times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=None,
                                device_ms=dev_ms)
@@ -3911,6 +4002,97 @@ def _w_blend_planar_sweep():
           f"points {wrong}", flush=True)
 
 
+# (N, C, S, Q) of fused3d's layout sweep: path (c) and its clouds, the
+# 8-cell stack, the large cells the unstaged kernels admit, and C = 8
+FUSED3D_SWEEP = ([(N3, C, S3, q) for q in (200, Q_SMALL3, 2047, 4096)]
+                 + [(8, C, S3, 512), (N_MID, C, S_MID, Q_SMALL3),
+                    (N_MID, C, S_MID, Q_MID), (N5, C, S5, 1536),
+                    (N3, 8, S3, Q_SMALL3)])
+# (N, S, point counts) of fused3d's planar sweep at C = 4: the blend's
+# read and the bwd's destination on both sides of their bounds
+FUSED3D_PLANAR_SWEEP = ((N3, S3, (200, 512, 1024, 1536, 2048, 4096,
+                                   16384)),
+                        (8, S3, (64, 512, 2048, 8192)),
+                        (N_MID, S_MID, (256, 1024, 2048, 4096, 16384)),
+                        (N5, S5, (1536, 8192, 16384, 32768, 65536)))
+
+
+def fused3d_layout_sweep_phase():
+    """The measurement behind fused3d.geometry: fused3d_blend and
+    fused3d_bwd over FUSED3D_SWEEP in every layout of
+    fused3d.blend_alternatives / bwd_alternatives (cell lanes, queries a
+    block, threads, the read or destination, fused3w's blocks of 128
+    queries), each held to the rule's result and timed in turns by CUDA
+    events around 20 calls and by device ms (torch.profiler); then the
+    planar sweep (_fused3d_planar_sweep)."""
+    cfg = SamplerConfig(dim=3)
+    for n, c, s, q in FUSED3D_SWEEP:
+        spatial = (s,) * 3
+        cells, pts, g = _fused_inputs(n, c, spatial, q, seed=51, lo=-1.0,
+                                     hi=1.0)
+        what = f"{n}x{c}x{s}^3, Q={q}"
+        for part, geoms, launch, args in (
+                ("blend", fused3d.blend_alternatives(n, c, q, spatial),
+                 fused3d.launch_blend, (cells, pts, cfg)),
+                ("bwd", fused3d.bwd_alternatives(n, c, q, spatial),
+                 fused3d.launch_bwd, (g, pts, spatial, cfg, n))):
+            runs = {k: functools.partial(launch, *args, v)
+                    for k, v in geoms.items()}
+            want = runs["rule"]()
+            _sweep(f"fused3d_{part} layout sweep ({what})", runs, geoms,
+                   want, reps=20)
+            _sweep(f"fused3d_{part} layout sweep ({what}), device", runs,
+                   geoms, want, reps=20,
+                   timer=lambda fn, reps: _device_ms(fn, reps=reps))
+            del runs, want
+        del cells, pts, g
+        torch.cuda.empty_cache()
+    _fused3d_planar_sweep()
+
+
+def _fused3d_planar_sweep():
+    """fused3d's planar bounds (fused3d.PLANAR_POINTS_PER_TEXEL /
+    PLANAR_VALUES for the blend's read, BWD_PLANAR_POINTS_PER_TEXEL for
+    the bwd's destination): the rule's layout against itself with the
+    other read or destination at C = 4 over FUSED3D_PLANAR_SWEEP, held to
+    each other and timed in turns by device ms (torch.profiler; CUDA
+    events around these calls read the host's enqueue); prints the points
+    where the rule picks the slower one."""
+    cfg = SamplerConfig(dim=3)
+    wrong = {"blend": [], "bwd": []}
+    for n, s, qs in FUSED3D_PLANAR_SWEEP:
+        spatial = (s,) * 3
+        for q in qs:
+            cells, pts, g = _fused_inputs(n, C, spatial, q, seed=52,
+                                         lo=-1.0, hi=1.0)
+            lays = fused3d.geometry(n, C, q, spatial)
+            for part, rule, launch, args in (
+                    ("blend", lays.blend, fused3d.launch_blend,
+                     (cells, pts, cfg)),
+                    ("bwd", lays.bwd, fused3d.launch_bwd,
+                     (g, pts, spatial, cfg, n))):
+                geoms = {"rule": rule, ("planar" if not rule.planar else
+                                        "texel-major"):
+                         rule._replace(planar=not rule.planar)}
+                runs = {k: functools.partial(launch, *args, v)
+                        for k, v in geoms.items()}
+                ms = _sweep(f"fused3d {part} planar sweep ({n}x{C}x{s}^3, "
+                            f"Q={q}, {q / s ** 3:.4f} a texel, rule planar "
+                            f"{rule.planar}), device", runs, geoms,
+                            runs["rule"](), reps=5,
+                            timer=lambda fn, reps: _device_ms(fn, reps=reps))
+                if min(ms, key=ms.get) != "rule":
+                    wrong[part].append((n, s, q))
+                del runs
+            del cells, pts, g
+        torch.cuda.empty_cache()
+    total = sum(len(p[2]) for p in FUSED3D_PLANAR_SWEEP)
+    for part, points in wrong.items():
+        print(f"fused3d {part} planar sweep: the rule picks the slower "
+              f"{'read' if part == 'blend' else 'destination'} at "
+              f"{len(points)} of {total} points {points}", flush=True)
+
+
 # (dim, N, S, point counts) of fused2w_bwd's / fused3w_bwd's planar sweep
 # at C = 4: config 5's volume and a 2D stack of the same bytes (over the
 # L2), the large cells and the main paths' stacks (in the L2)
@@ -4345,7 +4527,12 @@ def _timed(fn, *args):
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a checkout of the parent commit, "
+                    "whose fused3d pair fused3ds_time_phase times in turns "
+                    "with this one's")
+    args = ap.parse_args(argv)
     t0 = time.perf_counter()
     card = device_phase()
     _timed(build_phase)
@@ -4409,6 +4596,7 @@ def main():
     _timed(v1_layout_sweep_phase)
     _timed(w_bwd_layout_sweep_phase)
     _timed(w_blend_layout_sweep_phase)
+    _timed(fused3d_layout_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))
@@ -4419,7 +4607,7 @@ def main():
     _timed(nested_vol_step_phase)
     _timed(nested_ops_phase)
     times.update(_timed(wide_time_phase))
-    times.update(_timed(fused3ds_time_phase))
+    times.update(_timed(fused3ds_time_phase, args.parent))
     _timed(wide_step_phase)
     _timed(tf32_phase)
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

@@ -83,8 +83,6 @@ using csm::CellGeom;
 using csm::kRows;
 using csm::SamplerParams;
 
-constexpr int kQBlock = 128;          // queries of a gather or scatter block
-
 template <int D>
 CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
   CellGeom<D> g;
@@ -96,36 +94,40 @@ CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
   return g;
 }
 
-// Block (bx, by): queries [bx * kQBlock, ...), channels [by * groups * G,
-// ...) of c, gathered from the texel-major vol (*S, N, C), or where PLANAR
-// from the cells (N, C, *S) themselves (csrc/texel_gather.cuh), into out
-// (1 + 2D, C, Q).
+// Block (bx, by): queries [bx * qblock, ...) (qblock <= kGatherQueries:
+// the v1, fused2w and fused3w blends take 128, fused3d fewer), channels
+// [by * groups * G, ...) of c, gathered from the texel-major vol (*S, N,
+// C), or where PLANAR from the cells (N, C, *S) themselves
+// (csrc/texel_gather.cuh), into out (1 + 2D, C, Q).
 template <int D, int G, bool VEC, int THREADS, bool PLANAR>
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const float* __restrict__ vol,
                   const float* __restrict__ points, float* __restrict__ out,
-                  int n, int c, CellGeom<D> geom, int q,
+                  int n, int c, CellGeom<D> geom, int q, int qblock,
                   csm::GatherLayout lay, SamplerParams p) {
-  const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
+  const int t = threadIdx.x;
+  const int qi = static_cast<int>(blockIdx.x) * qblock + t;
   csm::gather_block<D, G, VEC, false, PLANAR>(
-      csm::GatherQuery{qi < q, qi}, points, vol, out, q, n, c, lay, geom,
-      p);
+      csm::GatherQuery{t < qblock && qi < q, qi}, points, vol, out, q, n, c,
+      lay, geom, p);
 }
 
-// Block (bx, by): queries [bx * kQBlock, ...), channel groups [by *
-// block_groups, ...) of c (csrc/texel_scatter.cuh), into the zeroed
-// texel-major scratch (*S, N, C), or where PLANAR the zeroed cells
-// cotangent (N, C, *S); VEC: scatter_vec.
+// Block (bx, by): queries [bx * qblock, ...) (as gather_kernel's),
+// channel groups [by * block_groups, ...) of c (csrc/texel_scatter.cuh),
+// into the zeroed texel-major scratch (*S, N, C), or where PLANAR the
+// zeroed cells cotangent (N, C, *S); VEC: scatter_vec.
 template <int D, int G, bool VEC, bool PLANAR>
 __global__ void __launch_bounds__(csm::kScatterMaxThreads)
     scatter_kernel(const float* __restrict__ g,
                    const float* __restrict__ points,
                    float* __restrict__ scratch, int n, int c,
-                   CellGeom<D> geom, int q, csm::ScatterLayout lay,
-                   SamplerParams p) {
-  const int qi = static_cast<int>(blockIdx.x * kQBlock + threadIdx.x);
-  csm::scatter_block<D, G, VEC, PLANAR>(csm::ScatterQuery{qi < q, qi}, g, q,
-                                        points, scratch, n, c, lay, geom, p);
+                   CellGeom<D> geom, int q, int qblock,
+                   csm::ScatterLayout lay, SamplerParams p) {
+  const int t = threadIdx.x;
+  const int qi = static_cast<int>(blockIdx.x) * qblock + t;
+  csm::scatter_block<D, G, VEC, PLANAR>(
+      csm::ScatterQuery{t < qblock && qi < q, qi}, g, q, points, scratch, n,
+      c, lay, geom, p);
 }
 
 }  // namespace
@@ -138,7 +140,8 @@ cudaError_t fused_gather_blend(const float* cells, const float* points,
                                const CellGeom<D>& geom, int q,
                                const GatherLayout& lay, int threads,
                                bool planar, const SamplerParams& p,
-                               cudaStream_t s) {
+                               cudaStream_t s, int qblock) {
+  if (qblock < 1 || qblock > kGatherQueries) return cudaErrorInvalidValue;
   if (q == 0 || c == 0) return cudaGetLastError();
   const size_t out_bytes = static_cast<size_t>(kRows<D>) * c * q * 4;
   if (n == 0 || geom.texels == 0) return cudaMemsetAsync(out, 0, out_bytes, s);
@@ -155,8 +158,8 @@ cudaError_t fused_gather_blend(const float* cells, const float* points,
                   : &gather_kernel<D, G, decltype(vec)::value, T, false>;
   };
   return launch_gather<D == 2 ? 16 : kMaxChannels>(
-      lay, c, threads, cdiv(q, kQBlock), s, pick, planar ? cells : vol,
-      points, out, n, c, geom, q, lay, p);
+      lay, c, threads, cdiv(q, qblock), s, pick, planar ? cells : vol,
+      points, out, n, c, geom, q, qblock, lay, p);
 }
 
 template cudaError_t fused_gather_blend<2>(const float*, const float*,
@@ -164,13 +167,13 @@ template cudaError_t fused_gather_blend<2>(const float*, const float*,
                                            const CellGeom<2>&, int,
                                            const GatherLayout&, int, bool,
                                            const SamplerParams&,
-                                           cudaStream_t);
+                                           cudaStream_t, int);
 template cudaError_t fused_gather_blend<3>(const float*, const float*,
                                            float*, float*, int, int,
                                            const CellGeom<3>&, int,
                                            const GatherLayout&, int, bool,
                                            const SamplerParams&,
-                                           cudaStream_t);
+                                           cudaStream_t, int);
 
 template <int D>
 cudaError_t fused_scatter_bwd(const float* g, const float* points,
@@ -178,12 +181,13 @@ cudaError_t fused_scatter_bwd(const float* g, const float* points,
                               const CellGeom<D>& geom, int q,
                               const ScatterLayout& lay, int threads,
                               bool planar, const SamplerParams& p,
-                              cudaStream_t s) {
+                              cudaStream_t s, int qblock) {
+  if (qblock < 1 || qblock > kScatterQueries) return cudaErrorInvalidValue;
   if (n == 0 || c == 0 || geom.texels == 0) return cudaGetLastError();
   if (q > 0) {
     const auto scatter = [&](auto pick, float* dst) {
-      return launch_scatter<D>(lay, c, threads, cdiv(q, kQBlock), s, pick, g,
-                               points, dst, n, c, geom, q, lay, p);
+      return launch_scatter<D>(lay, c, threads, cdiv(q, qblock), s, pick, g,
+                               points, dst, n, c, geom, q, qblock, lay, p);
     };
     // planar cells take scalar reductions whatever the channel count
     const cudaError_t err =
@@ -210,12 +214,14 @@ template cudaError_t fused_scatter_bwd<2>(const float*, const float*, float*,
                                           float*, int, int,
                                           const CellGeom<2>&, int,
                                           const ScatterLayout&, int, bool,
-                                          const SamplerParams&, cudaStream_t);
+                                          const SamplerParams&, cudaStream_t,
+                                          int);
 template cudaError_t fused_scatter_bwd<3>(const float*, const float*, float*,
                                           float*, int, int,
                                           const CellGeom<3>&, int,
                                           const ScatterLayout&, int, bool,
-                                          const SamplerParams&, cudaStream_t);
+                                          const SamplerParams&, cudaStream_t,
+                                          int);
 
 }  // namespace csm
 

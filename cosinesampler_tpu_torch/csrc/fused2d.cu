@@ -34,7 +34,7 @@
 // * bwd: the block accumulates its queries' cotangent into a zeroed shared
 //   copy of its chunk with shared atomics and flushes it once with global
 //   atomicAdd.  f32 atomics: not deterministic.
-// * The body is staged_cells.cuh's, shared with fused3d.cu (D = 3).
+// * The body is staged_cells.cuh's.
 #include <cuda_runtime.h>
 
 #include "staged_cells.cuh"

@@ -1,7 +1,6 @@
 // The small-cloud fused 3D blend and its transpose to the cells, for
 // NVIDIA Hopper (sm_90a): value, d/dx, d/dy, d/dz, d2/dx2, d2/dy2, d2/dz2
-// summed over the multicell ensemble, served from chunks of the cell stack
-// staged in shared memory.
+// summed over the multicell ensemble, for many cells at few points.
 //
 // fused3d_blend replaces the TPU kernel
 //   ops/pallas/fused3d.py::_fused3_blend_kernel of the JAX package
@@ -14,9 +13,9 @@
 //   bwd:   g (7, C, Q) f32 -> dcells (N, C, D, H, W) f32, the exact
 //          transpose.
 // Zeros, border and reflection padding (the JAX kernels' wide set), every
-// interpolant, multicell on and off, both align_corners; any C, a channel
-// group of one cell (at most 8 channels) within a block's opted-in shared
-// memory (4 x 16^3 is 64 KB; 4 x 32^3, 512 KB, is refused).
+// interpolant, multicell on and off, both align_corners, strict
+// reference; any C, in channel groups of at most 8; cells of any size
+// the 32-bit indexing takes.
 //
 // What bounds it on the H100 SXM (67 TFLOP/s f32, 3.35 TB/s at 700 W):
 // at the reference's 50 x 4 x 16^3 stack (3.3 MB, in L2) and a few hundred
@@ -28,47 +27,83 @@
 // * The TPU kernels keep the whole stack in VMEM and gather each query's
 //   shared 3x3x3 (4x4x4 with reflection) texel patch through 27 (64)
 //   one-hot MXU contractions against the flattened volume.  Hopper
-//   gathers per lane, so the patch and the one-hot panels go: a thread per
-//   query walks its own corners (fused_rows.cuh, per cell
+//   gathers per lane, so the patch and the one-hot panels go: a lane
+//   walks one (query, cell) pair's corners (fused_rows.cuh, per cell
 //   floor(base + offset), so reflection's 4-wide patch needs nothing
 //   extra).
-// * fused3w runs one thread per query over all cells: at 200 points that
-//   is two blocks for 132 SMs.  Here the cells are split over blocks too:
-//   block (bx, by, bz) serves queries [bx * q_per_block, ...) from a chunk
-//   of cells of channel group bz staged in shared memory (one 64 KB cell
-//   at 4 x 16^3, three blocks to an SM), and adds its partial rows into
-//   the zeroed output with f32 atomics (not bit-deterministic).
-// * bwd: the block accumulates its queries' cotangent into a zeroed shared
-//   copy of its chunk with shared atomics and flushes the nonzero entries
-//   once with global atomicAdd.  f32 atomics: not deterministic.
-// * The body is staged_cells.cuh's, shared with fused2d.cu (D = 2).
+// * fused3w's blocks serve 128 queries in order: at 1 024 points that is
+//   8 blocks for 132 SMs.  The design before split the cells over blocks
+//   instead, each staging a whole chunk of cells in shared memory
+//   (a 64 KB cell at 4 x 16^3, 19.7 MB of L2 reads to serve 171 queries
+//   a block at path (c)), adding its partial rows into a zeroed output
+//   with 1.43 M f32 atomics, and its bwd accumulating into a zeroed
+//   shared copy of the chunk with shared compare-and-swap adds, scanned
+//   and flushed with global atomics.  Now both kernels are fused3w's
+//   bodies through its launchers (csrc/fused.cu fused_gather_blend /
+//   fused_scatter_bwd) with blocks of a few queries: a warp's 32 lanes
+//   over one query's cells (ops/cuda/fused3d.py geometry), 4 queries a
+//   128-thread block, so 1 024 points make 256 blocks.
+// * blend: texel_gather.cuh's gather, the cells read in place (planar)
+//   where the layout says so, or through the tiled transpose's
+//   texel-major copy; each lane holds all C <= 8 channels of its cells'
+//   rows in registers, the cell lanes add them by warp shuffles in a
+//   fixed order and one lane stores the query's rows once into (7, C,
+//   Q): no output fill, no atomics, bit-deterministic.
+// * bwd: texel_scatter.cuh's scatter, a lane a (query, cell, channel
+//   group), adding each corner's values straight into the zeroed
+//   cotangent (planar: scalar reductions) or into a zeroed texel-major
+//   scratch (float4 reductions) that the tiled transpose writes out, by
+//   the layout.  No shared-memory atomics, no staged chunk to zero and
+//   scan.  f32 atomics: not deterministic.
 #include <cuda_runtime.h>
 
-#include "staged_cells.cuh"
+#include "fused_rows.cuh"
+#include "texel_gather.cuh"
+#include "texel_scatter.cuh"
 
 extern "C" {
 
-int fused3d_blend(const void* cells, const void* points, void* out, int n,
-                  int c, int d, int h, int w, int q, int kernel, int padding,
+// cells (N, C, D, H, W), points, vol (the texel-major (D, H, W, N, C)
+// copy; unused where planar), out (7, C, Q); n, c, d, h, w, q; the launch
+// layout of ops/cuda/fused3d.py geometry (width, groups, cell lanes,
+// threads, queries a block, planar); kernel, padding, align, multicell,
+// strict; the offset lattice's step and stop; the stream.
+int fused3d_blend(const void* cells, const void* points, void* vol,
+                  void* out, int n, int c, int d, int h, int w, int q,
+                  int width, int groups, int cell_lanes, int threads,
+                  int queries, int planar, int kernel, int padding,
                   int align, int multicell, int strict, float off_step,
                   float off_stop, void* stream) {
-  return csm::staged::launch_blend<3>(
-      cells, points, out, n, c, csm::cell_geom3(d, h, w), q,
+  return csm::fused_gather_blend<3>(
+      static_cast<const float*>(cells), static_cast<const float*>(points),
+      static_cast<float*>(vol), static_cast<float*>(out), n, c,
+      csm::cell_geom3(d, h, w), q,
+      csm::GatherLayout{width, groups, cell_lanes}, threads, planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), queries);
 }
 
-// dcells (N, C, D, H, W) must be zeroed.
-int fused3d_bwd(const void* g, const void* points, void* dcells, int n,
-                int c, int d, int h, int w, int q, int kernel, int padding,
-                int align, int multicell, int strict, float off_step,
-                float off_stop, void* stream) {
-  return csm::staged::launch_bwd<3>(
-      g, points, dcells, n, c, csm::cell_geom3(d, h, w), q,
+// g (7, C, Q), points, scratch (texel-major (D, H, W, N, C), zeroed; not
+// used where planar), dcells (N, C, D, H, W), zeroed where planar; n, c,
+// d, h, w, q; the launch layout of ops/cuda/fused3d.py geometry (width,
+// block groups, lane groups, lanes, threads, queries a block, planar);
+// then the sampler arguments as fused3d_blend's.
+int fused3d_bwd(const void* g, const void* points, void* scratch,
+                void* dcells, int n, int c, int d, int h, int w, int q,
+                int width, int block_groups, int lane_groups, int lanes,
+                int threads, int queries, int planar, int kernel,
+                int padding, int align, int multicell, int strict,
+                float off_step, float off_stop, void* stream) {
+  return csm::fused_scatter_bwd<3>(
+      static_cast<const float*>(g), static_cast<const float*>(points),
+      static_cast<float*>(scratch), static_cast<float*>(dcells), n, c,
+      csm::cell_geom3(d, h, w), q,
+      csm::ScatterLayout{width, block_groups, lane_groups, lanes}, threads,
+      planar != 0,
       csm::make_params(kernel, padding, align, multicell, strict, off_step,
                        off_stop),
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), queries);
 }
 
 }  // extern "C"

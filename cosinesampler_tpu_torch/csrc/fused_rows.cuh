@@ -1,6 +1,6 @@
 // The fused rows of one query, in 2D and 3D (value, jacobian, diagonal
 // Hessian, summed over the multicell ensemble): the per-query blend of
-// the mega2w train-step kernel and of the staged small-cloud kernels
+// the mega2w train-step kernel and of the staged small-cloud 2D kernels
 // (csrc/staged_cells.cuh), whose splats add their transpose (splat_query,
 // splat_query_range).  The corner walk serves every fused kernel,
 // csrc/texel_gather.cuh's and csrc/texel_scatter.cuh's too.
@@ -170,8 +170,8 @@ __device__ __forceinline__ void splat_query(float* acc, const CellGeom<D>& g,
   }
 }
 
-// The channel-looped kernels of csrc/staged_cells.cuh (fused2d, fused3d)
-// take any channel count: grid axis z walks groups of at most kGroupChannels
+// The channel-looped kernels of csrc/staged_cells.cuh (fused2d) take any
+// channel count: grid axis z walks groups of at most kGroupChannels
 // channels, whose rows a thread keeps in registers.
 constexpr int kGroupChannels = 8;
 

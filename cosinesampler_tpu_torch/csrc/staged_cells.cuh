@@ -1,7 +1,8 @@
-// The small-cloud fused kernels' body, shared by fused2d (D = 2) and
-// fused3d (D = 3): the fused rows (value, d/dx_i, d2/dx_i2, summed over
-// the multicell ensemble) and their cells transpose, served from chunks of
-// cells staged in shared memory.
+// The small-cloud fused 2D kernels' body (csrc/fused2d.cu), written for
+// any D: the fused rows (value, d/dx_i, d2/dx_i2, summed over the
+// multicell ensemble) and their cells transpose, served from chunks of
+// cells staged in shared memory.  (csrc/fused3d.cu says why the 3D
+// small-cloud pair stages nothing.)
 //
 // Block (bx, by, bz) serves queries [bx * q_per_block, ...) from cells
 // [by * cells_per_chunk, ...) of channel group bz (fused_rows.cuh

@@ -31,8 +31,8 @@ versions in this module:
   chip_smoke.py's ``w_bwd_layout_sweep_phase`` times the rule against
   ``bwd_alternatives``.
 
-The launch helpers (``launch``, ``gather_blend``, ``kernel_blend``,
-``kernel_bwd``, ``sampler_args``) serve the 3D wrappers
+The launch helpers (``launch``, ``gather_blend``, ``launch_bwd``,
+``kernel_blend``, ``kernel_bwd``, ``sampler_args``) serve the 3D wrappers
 (ops/cuda/fused3w.py), the small-cloud wrappers (ops/cuda/fused2d.py,
 ops/cuda/fused3d.py), the v1 wrappers (ops/cuda/fused.py) and mega2w
 too.
@@ -41,7 +41,7 @@ too.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -172,7 +172,7 @@ def launch(entry: str, first: torch.Tensor, points: torch.Tensor, outs,
 def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
                  points: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
     """(1+2d, C, Q) from the staged small-cloud blend kernel ``entry`` of
-    dimension ``dim`` (fused2d_blend, fused3d_blend) on CUDA tensors."""
+    dimension ``dim`` (fused2d_blend) on CUDA tensors."""
     device = cuda_device(cells, points)
     check_kernel_inputs(cfg, cells, points)
     if (cfg.dim != dim or cells.dim() != 2 + dim or points.dim() != 2
@@ -209,8 +209,8 @@ def _check_bwd_args(entry: str, dim: int, g: torch.Tensor,
 def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
                in_spatial: Tuple[int, ...], cfg: SamplerConfig,
                n_cells: int) -> torch.Tensor:
-    """(N, C, *in_spatial) from the fused transpose kernel ``entry`` of
-    dimension ``dim`` (fused2d_bwd, fused3d_bwd) on CUDA tensors."""
+    """(N, C, *in_spatial) from the staged small-cloud transpose kernel
+    ``entry`` of dimension ``dim`` (fused2d_bwd) on CUDA tensors."""
     device = _check_bwd_args(entry, dim, g, points, in_spatial, cfg)
     c = g.shape[1]
     dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
@@ -267,13 +267,14 @@ def bwd_alternatives(dim: int, n: int, c: int, q: int, spatial):
 
 def launch_bwd(g: torch.Tensor, points: torch.Tensor,
                in_spatial: Tuple[int, ...], cfg: SamplerConfig, n_cells: int,
-               geom: BwdGeometry) -> torch.Tensor:
-    """fused2w_bwd / fused3w_bwd (by the dimension of ``in_spatial``) with
-    the launch layout ``geom``, on the card; not counted.  The wrapper
-    allocates the zeroed texel-major scratch, or where planar zeroes the
-    cotangent instead."""
+               geom: BwdGeometry, entry: Optional[str] = None) -> torch.Tensor:
+    """fused2w_bwd / fused3w_bwd (by the dimension of ``in_spatial``), or
+    the scatter bwd ``entry`` (fused3d_bwd), with the launch layout
+    ``geom`` (its ``planar`` and ``args()``), on the card; not counted.
+    The wrapper allocates the zeroed texel-major scratch, or where planar
+    zeroes the cotangent instead."""
     dim = len(in_spatial)
-    entry = f"fused{dim}w_bwd"
+    entry = entry or f"fused{dim}w_bwd"
     device = _check_bwd_args(entry, dim, g, points, in_spatial, cfg)
     c = g.shape[1]
     shape = (n_cells, c, *in_spatial)
@@ -292,8 +293,9 @@ def launch_bwd(g: torch.Tensor, points: torch.Tensor,
 def gather_blend(entry: str, cells: torch.Tensor, points: torch.Tensor,
                  cfg: SamplerConfig, geom: BlendGeometry) -> torch.Tensor:
     """(1+2d, C, Q) from the gather blend ``entry`` (fused2w_blend,
-    fused3w_blend, fused_v1_blend2 / 3: csrc/fused.cu fused_gather_blend)
-    with the launch layout ``geom`` (ops/cuda/v1.py), on CUDA tensors;
+    fused3w_blend, fused_v1_blend2 / 3, fused3d_blend: csrc/fused.cu
+    fused_gather_blend) with the launch layout ``geom`` (ops/cuda/v1.py,
+    ops/cuda/fused3d.py: its ``planar`` and ``args()``), on CUDA tensors;
     not counted.  The wrapper allocates the texel-major (*S, N, C) copy,
     where the layout is not planar."""
     n, c, *spatial = cells.shape

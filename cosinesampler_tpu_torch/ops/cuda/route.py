@@ -98,25 +98,27 @@ FUSED2D_MIN_CELLS = 48
 FUSED2D_MAX_Q = 2731
 FUSED2D_MAX_PAIRS = 1 << 18
 # in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q_PER_CELL queries a
-# cell and FUSED3D_MAX_Q queries where a cell's channel group fits shared
-# memory (fused3d.supports: its blocks stage chunks of cells, so few
-# cells fill few SMs); fused3s, in zeros and border padding, at
+# cell and FUSED3D_MAX_Q queries; fused3s, in zeros and border padding, at
 # FUSED3S_MIN_Q queries or more over a stack of FUSED3S_MIN_STACK_BYTES
 # or more with FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES
 # (cell, channel) planes or more; fused3w otherwise, by chip_smoke.py's
-# sweep in two calls (PERF.md section 4).  Against the texel-major
-# fused3w blend and bwd, fused3d won at 50 cells up to 4096 points (by
-# 5-20%) and lost from 6144, at 24 and 32 cells up to 2048 and lost from
-# 4096, and lost at 8 cells at every count (fused3w 1.5-2x faster); at
-# 16 cells x 1024-2048 and 24-32 cells x 3072 the faster of the two
-# flipped between the calls (by 3-12%).  fused3s lost on 8 x 4 x 80^3
+# sweep (blend + bwd device ms, H100 80GB HBM3 at 700 W; PERF.md section
+# 4).  Against the texel-major fused3w blend and bwd, fused3d (fused3w's
+# bodies in blocks of a few queries, a warp over a query's cells) won on
+# 16^3 cells at every cell count from 8 to 50 up to 12 288 points (at 8
+# cells 0.0274 against 0.0322 ms; 1.5-2.2x faster at 8 to 32 cells and
+# 1 024-4 096 points, where its staged design lost), at 50 cells up to
+# 24 576 (by 2%) and lost from 32 768; at 8 cells it lost at 16 384 (2%);
+# on 16 x 4 x 32^3 it won at every count to 65 536 points and lost at
+# 100 000, on 16 x 4 x 128^3 it won up to 5 120 (0.3718 against 0.3785)
+# and lost from 6 144 (by 3-7%; a 537 MB fill in each).  fused3s lost on 8 x 4 x 80^3
 # (65.5 MB) and below the stack bound; on 16 x 4 x 128^3 it won from
 # 393 216 points in both calls (2.52 against 2.60-2.83 ms), flipped at
 # 262 144 (by 4%) and lost up to 131 072 (1.70 against 1.46); it won on
 # 64 planes (16 x 4 x 96^3 and 128^3) and lost on 48 (16 x 3 x 96^3) and
 # 24 (6 x 4 x 128^3).
-FUSED3D_MAX_Q_PER_CELL = 96
-FUSED3D_MAX_Q = 4096
+FUSED3D_MAX_Q_PER_CELL = 1536
+FUSED3D_MAX_Q = 12288
 FUSED3S_MIN_Q = 393_216
 FUSED3S_MIN_STACK_BYTES = 16 * 4 * 64**3 * 4
 FUSED3S_MIN_CHANNELS = 3
@@ -200,8 +202,8 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     their bwd adds into the cotangent in place (fused2w.bwd_geometry's
     planar) and ``"fused"`` (the v1 kernels) otherwise; in 3D
     ``"fused3d"`` up to FUSED3D_MAX_Q_PER_CELL queries a cell and
-    FUSED3D_MAX_Q queries where its chunks fit shared memory
-    (fused3d.supports), ``"fused3s"`` at FUSED3S_MIN_Q queries or
+    FUSED3D_MAX_Q queries (fused3d.supports takes every 3D stack),
+    ``"fused3s"`` at FUSED3S_MIN_Q queries or
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
     FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
     planes or more, in zeros and border padding (fused3s.supports),

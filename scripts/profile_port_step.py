@@ -9,6 +9,8 @@
     python scripts/profile_port_step.py --fused3b [--reps R]
     python scripts/profile_port_step.py --fused3s [--points Q] [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
+    python scripts/profile_port_step.py --fused3d [--points Q] [--cell-dim C]
+                                        [--reps R]
     python scripts/profile_port_step.py --v1 [config5] [--cell-dim C]
                                         [--reps R]
     python scripts/profile_port_step.py --slab [--reps R]
@@ -16,7 +18,8 @@
 
 Runs the port's train step (``pinn.make_train_step``) at the main path
 (96 x 4 x 16 x 16 cells, 100 000 points, hidden 16, Allen-Cahn; with
-``--dim 3``: 50 x 4 x 16^3, Helmholtz), fused by default, through nested
+``--dim 3``: 50 x 4 x 16^3, Helmholtz; ``--points`` fresh points a step,
+1 024 for path (c)), fused by default, through nested
 autograd with ``--nested`` or as the one-launch megakernel gradient with
 ``--megakernel``, on points already on the card.  ``--config5`` runs
 BASELINE config 5 (16 x 4 x 128^3, 1 000 000 fixed points, Helmholtz):
@@ -35,7 +38,10 @@ its z sort on config 5's volume at ``--points`` uniform points (the sort
 made once for the kernels); ``--kernels`` so times fused2w's and
 fused3w's blend and bwd (96 x C x 16^2 and 50 x C x 16^3, 100 000
 points), with each one's device ms (torch.profiler) and host
-microseconds to enqueue a call, and mega2w (96 x C x 16^2); ``--v1`` so
+microseconds to enqueue a call, and mega2w (96 x C x 16^2);
+``--fused3d`` so times fused3d's and fused3w's blend and bwd at path
+(c)'s stack (50 x C x 16^3) and ``--points`` uniform points (1 024 by
+default); ``--v1`` so
 times the v1 pair's
 blend and bwd (ops/cuda/fused.py, the fused op's route above 8 channels)
 at path (a)'s shapes (96 x C x 16^2 and 50 x C x 16^3, 100 000 points)
@@ -286,6 +292,37 @@ def _main_kernels(card, c, reps):
     return 0
 
 
+def _fused3d_kernels(card, c, reps, q):
+    """Median ms of fused3d's blend and bwd and of fused3w's (the 3D small
+    cloud's two routes) at path (c)'s stack (50 x C x 16^3) and ``q``
+    uniform points (single calls, the host's share in), and each one's
+    device ms (torch.profiler) and host microseconds to enqueue a call."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    cfg = SamplerConfig(dim=3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, spatial = 50, (16, 16, 16)
+    cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
+    pts = torch.rand((q, 3), generator=gen, device="cuda") * 2 - 1
+    g = torch.randn((7, c, q), generator=gen, device="cuda")
+    medians, device, host = {}, {}, {}
+    for kind, mod in (("fused3d", fused3d), ("fused3w", fused3w)):
+        for name, fn in (
+                (f"{kind}_blend", lambda: mod.fused_blend(cells, pts, cfg)),
+                (f"{kind}_bwd",
+                 lambda: mod.fused_bwd(g, pts, spatial, cfg, n))):
+            medians[name] = _median_ms(fn, reps)
+            device[name] = _device_ms(fn, reps)
+            host[name] = _host_us(fn)
+    print(f"{card}; 3D small-cloud kernels at {n} x {c} x 16^3, {q} points, "
+          f"median of {reps}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items())
+          + "; device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in device.items())
+          + "; host us to enqueue a call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()), flush=True)
+    return 0
+
+
 def _v1_kernels(card, c, reps, shapes):
     """Median ms of the v1 blend and bwd with C channels at path (a)'s
     2D and 3D shapes (100 000 points) or at config 5's volume (1 000 000
@@ -432,8 +469,10 @@ def main(argv=None):
                     choices=("rule", "percell", "blend_o", "slab"),
                     help="the nested 3D step on config 5's volume, through "
                          "the route rule or the route named")
-    ap.add_argument("--points", type=int, default=100_000,
-                    help="points a step of --nested-vol, or of --fused3s")
+    ap.add_argument("--points", type=int,
+                    help="points a step of the fused and --nested-vol "
+                         "steps, or of --fused3s (100 000 by default) and "
+                         "--fused3d (1 024)")
     ap.add_argument("--fused3b", action="store_true",
                     help="time fused3b's kernels alone at config 5")
     ap.add_argument("--fused3s", action="store_true",
@@ -444,6 +483,9 @@ def main(argv=None):
                          "--kernels / --slab / --sampler kernel")
     ap.add_argument("--kernels", action="store_true",
                     help="time fused2w, fused3w and mega2w alone")
+    ap.add_argument("--fused3d", action="store_true",
+                    help="time fused3d's and fused3w's kernels alone at "
+                         "path (c)'s stack")
     ap.add_argument("--v1", nargs="?", const="main",
                     choices=("main", "config5"),
                     help="time the v1 pair's blend and bwd alone at path "
@@ -467,8 +509,12 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     if args.fused3b:
         return _fused3b_kernels(card, args.reps, args.cell_dim)
+    if args.fused3d:
+        return _fused3d_kernels(card, args.cell_dim, args.reps,
+                                args.points or 1024)
+    points = args.points or 100_000
     if args.fused3s:
-        return _fused3s_kernels(card, args.reps, args.points)
+        return _fused3s_kernels(card, args.reps, points)
     if args.kernels:
         return _main_kernels(card, args.cell_dim, args.reps)
     if args.v1:
@@ -491,10 +537,10 @@ def main(argv=None):
         step = pinn.make_train_step(
             cfg, torch.optim.Adam(params.values(), lr=1e-3))
         run = lambda p: step(params, p)     # noqa: E731
-        with PointGenerator(args.points, 3, seed=7) as gen:
+        with PointGenerator(points, 3, seed=7) as gen:
             batches = [torch.from_numpy(gen.batch(i)).cuda()
                        for i in range(3 + args.steps)]
-        path = f"nested 128^3 ({args.points} points, {args.nested_vol})"
+        path = f"nested 128^3 ({points} points, {args.nested_vol})"
     else:
         cfg = (pinn.PINNConfig(cell_dim=args.cell_dim) if args.dim == 2 else
                pinn.PINNConfig(dim=3, n_cells=50, cell_dim=args.cell_dim,
@@ -505,12 +551,12 @@ def main(argv=None):
             cfg, torch.optim.Adam(params.values(), lr=1e-3),
             fused=not args.nested, megakernel=args.megakernel)
         run = lambda p: step(params, p)     # noqa: E731
-        with PointGenerator(100_000, args.dim, seed=7) as gen:
+        with PointGenerator(points, args.dim, seed=7) as gen:
             batches = [torch.from_numpy(gen.batch(i)).cuda()
                        for i in range(3 + args.steps)]
         path = ("megakernel" if args.megakernel else
                 "nested" if args.nested else "fused") + \
-            f" {args.dim}D C={args.cell_dim}"
+            f" {args.dim}D C={args.cell_dim}, {points} points"
 
     for pts in batches[:3]:
         run(pts)

@@ -169,17 +169,18 @@ def test_zsort_order_and_table_match_jax_zbin(kw, d, q, q_block):
 
 def test_fused_rule_3d_at_the_jax_dispatch_shapes():
     """route.fused_rule's 3D branch, shapes alone: fused3d up to
-    FUSED3D_MAX_Q_PER_CELL queries a cell and FUSED3D_MAX_Q queries where
-    a cell's channel group fits a block (the
+    FUSED3D_MAX_Q_PER_CELL queries a cell and FUSED3D_MAX_Q queries, on
+    cells of any size (the
     reference's 50 x 4 x 16^3 at JAX's dispatch points 120 and 200, every
-    padding); fused3s in zeros and border at FUSED3S_MIN_Q queries or more
-    over stacks of FUSED3S_MIN_STACK_BYTES or more with
-    FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
-    planes or more (config 5's 16 x 4 x 128^3 with fresh points), each
-    bound checked on both sides at the sweep's points; fused3w otherwise,
-    JAX's fused3s shape (2 x 2 x 32^3 at 2048) included, where fused3s
-    lost on the card; above 8 channels the v1 pair for stacks the L2
-    holds (tests/test_torch_port_wide.py holds that rule)."""
+    padding; 8 cells, 16 x 4 x 32^3 and JAX's fused3s shape 2 x 2 x 32^3
+    at 2048, where fused3d won on the card); fused3s in zeros and border
+    at FUSED3S_MIN_Q queries or more over stacks of
+    FUSED3S_MIN_STACK_BYTES or more with FUSED3S_MIN_CHANNELS channels
+    and FUSED3S_MIN_PLANES (cell, channel) planes or more (config 5's
+    16 x 4 x 128^3 with fresh points), each bound checked on both sides
+    at the sweep's points; fused3w otherwise; above 8 channels the v1
+    pair for stacks the L2 holds (tests/test_torch_port_wide.py holds
+    that rule)."""
     rule = route.fused_rule
     cfg = TConfig(dim=3)
     refl = TConfig(dim=3, padding_mode="reflection")
@@ -191,13 +192,17 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
     assert rule(cfg, ref, route.FUSED3D_MAX_Q) == "fused3d"
     assert rule(cfg, ref, route.FUSED3D_MAX_Q + 1) == "fused3w"
     per_cell = route.FUSED3D_MAX_Q_PER_CELL
-    assert rule(cfg, (16, 4, 16, 16, 16), 16 * per_cell) == "fused3d"
-    assert rule(cfg, (16, 4, 16, 16, 16), 16 * per_cell + 1) == "fused3w"
-    assert rule(cfg, (8, 4, 16, 16, 16), 1024) == "fused3w"
+    assert rule(cfg, (4, 4, 16, 16, 16), 4 * per_cell) == "fused3d"
+    assert rule(cfg, (4, 4, 16, 16, 16), 4 * per_cell + 1) == "fused3w"
+    assert rule(cfg, (8, 4, 16, 16, 16), 1024) == "fused3d"
+    assert rule(cfg, (8, 4, 16, 16, 16), 16384) == "fused3w"
     assert rule(cfg, ref, 100_000) == "fused3w"
-    # a 4 x 32^3 channel group (512 KB) fits no block
-    assert rule(cfg, (16, 4, 32, 32, 32), 1024) == "fused3w"
-    assert rule(cfg, (2, 2, 32, 32, 32), 2048) == "fused3w"
+    # cells of any size: nothing is staged in shared memory
+    assert rule(cfg, (16, 4, 32, 32, 32), 1024) == "fused3d"
+    assert rule(cfg, (16, 4, 128, 128, 128), 5120) == "fused3d"
+    assert rule(cfg, (16, 4, 128, 128, 128), route.FUSED3D_MAX_Q + 1) == \
+        "fused3w"
+    assert rule(cfg, (2, 2, 32, 32, 32), 2048) == "fused3d"
     big = (16, 4, 128, 128, 128)
     for padding in ("zeros", "border"):
         assert rule(TConfig(dim=3, padding_mode=padding), big,
@@ -226,13 +231,16 @@ def test_fused_rule_3d_at_the_jax_dispatch_shapes():
 
 
 def test_supports_what_a_block_stages():
-    """fused3d stages a cell's channel group in one block; fused3s takes
-    zeros and border at any size (it reads the cells in place)."""
+    """fused3d stages nothing in a block (fused3w's gather and scatter in
+    blocks of a few queries), so it takes 3D cells of any size and every
+    padding, 2D ones never; fused3s takes zeros and border at any size
+    (it reads the cells in place)."""
     cfg = TConfig(dim=3)
     assert fused3d.supports(cfg, (50, 4, 16, 16, 16))
     assert fused3d.supports(TConfig(dim=3, padding_mode="reflection"),
                             (50, 16, 16, 16, 16))
-    assert not fused3d.supports(cfg, (2, 4, 32, 32, 32))
+    assert fused3d.supports(cfg, (2, 4, 32, 32, 32))
+    assert fused3d.supports(cfg, (16, 16, 128, 128, 128))
     assert not fused3d.supports(TConfig(dim=2), (50, 4, 16, 16))
     assert fused3s.supports(cfg, (16, 4, 128, 128, 128))
     assert fused3s.supports(TConfig(dim=3, padding_mode="border"),

@@ -173,7 +173,7 @@ def test_fused_rule_bounds_at_their_edges():
     assert rule(cfg2, (fewest, 4, 16, 16), pairs_q) == "fused2d"
     assert rule(cfg2, (fewest, 4, 16, 16), pairs_q + 1) == "fused2w"
     per_cell = route.FUSED3D_MAX_Q_PER_CELL
-    for n in (8, 24, 32):
+    for n in (2, 4, 8):
         assert rule(cfg3, (n, 4, 16, 16, 16), n * per_cell) == "fused3d"
         assert rule(cfg3, (n, 4, 16, 16, 16), n * per_cell + 1) == "fused3w"
     assert rule(cfg3, (50, 4, 16, 16, 16), route.FUSED3D_MAX_Q) == "fused3d"
