@@ -56,10 +56,14 @@ channels and timed
 against the v1 pair (the sweep behind the fused op's rule above 8
 channels); the nested trainers' blends and splats a step are counted
 (no kernel for a cotangent nothing reads);
-the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs,
-timed against fused2w (the sweep behind the fused op's rule) and routed at
-their shapes.  In 3D the small- and large-cloud kernels (fused3d_blend /
-fused3d_bwd, fused3s_blend / fused3s_bwd) are held to their plain
+the small-cloud kernels (fused2d_blend / fused2d_bwd) are held to theirs
+(also in every launch layout their sweep times, the sweep behind
+ops/cuda/fused2d.py's layout rule, the blend bit-identical across calls),
+timed against fused2w (the sweep behind the fused op's rule), routed at
+their shapes, and the 2D fused trainer runs through them at 96 x 4 x 16^2
+with 1 024 fresh points a step (path (b), 3 steps, card vs CPU).  In 3D
+the small- and large-cloud kernels (fused3d_blend / fused3d_bwd,
+fused3s_blend / fused3s_bwd) are held to their plain
 versions (fused3d also in every launch layout its sweep times, the
 sweep behind ops/cuda/fused3d.py's layout rule), timed against fused3w
 and fused3b (the sweep behind the 3D rule), and the 3D fused trainer runs
@@ -1639,6 +1643,8 @@ def route_sweep_phase():
 # and point counts; path (b): the small clouds of the JAX fused2d route
 C_WIDE, STEPS_WIDE_3D, STEPS_WIDE_MEGA = 16, 5, 5
 SMALL_CLOUDS = [(N, 200), (N, 1024), (N, 2047), (8, 512)]
+# path (b)'s trainer: the 2D main stack with this many fresh points a step
+Q_SMALL2, STEPS_SMALL2 = 1024, 3
 # the variants of both new kernel pairs: (name, config flags, channels)
 FUSED_VARIANTS = [
     ("zeros", {}, 12), ("border", dict(padding_mode="border"), 12),
@@ -1714,23 +1720,44 @@ def fused_v1_kernel_phase():
             "fused_bwd": max(errs[1], errs3[1], err5[1])}
 
 
+# (N, C, S, Q) at which fused2d's blend and bwd are held to their plain
+# versions in every layout of fused2d.blend_alternatives /
+# bwd_alternatives: path (b)'s clouds, the large cells the staged design
+# refused (2 x 4 x 256^2) and N in {1, 3, 6, 96} at C in {1, 3, 4, 8, 12}
+FUSED2D_LAYOUT_CASES = ([(n, C, (H, W), q) for n, q in SMALL_CLOUDS]
+                        + [(3, C, (64, 64), 1500), (2, C, (256, 256), 4096)]
+                        + [(n, c, (12, 10), 2053) for n in (1, 3, 6, N)
+                           for c in (1, 3, C, 8, 12)])
+
+
 def fused2d_kernel_phase():
-    """B7 against its plain version at path (b)'s shapes and in the same
-    variants (2D)."""
+    """B7 against its plain version at path (b)'s shapes, in the same
+    variants (2D), at 100 000 points and on large cells, and in every
+    layout its sweep times at FUSED2D_LAYOUT_CASES (compare_small_layouts:
+    the blend bit-identical across calls)."""
     main = SamplerConfig(dim=2)
     worst = [0.0, 0.0]
+
+    def track(errs):
+        worst[:] = [max(a, b) for a, b in zip(worst, errs)]
+
     for n, q in SMALL_CLOUDS:
-        errs = compare_fused("fused2d", "path (b)", main, n, C, (H, W), q,
-                             seed=6, lo=-1.0, hi=1.0)
-        worst = [max(a, b) for a, b in zip(worst, errs)]
+        track(compare_fused("fused2d", "path (b)", main, n, C, (H, W), q,
+                            seed=6, lo=-1.0, hi=1.0))
     for name, kw, c in FUSED_VARIANTS:
         compare_fused("fused2d", name, SamplerConfig(dim=2, **kw), 8, c,
                       (12, 10), 1037, seed=7, **WIDE)
     compare_fused("fused2d", "channels-4-q-100000", main, N, C, (H, W), Q,
                   seed=8, **WIDE)
-    # a 4 x 64 x 64 cell (64 KB) takes opted-in shared memory
-    compare_fused("fused2d", "opt-in-cell", main, 3, 4, (64, 64), 1500,
+    # large cells: 3 x 4 x 64^2 (64 KB a channel group, which the staged
+    # design opted in to) and 2 x 4 x 256^2 (1 MB, which it refused)
+    compare_fused("fused2d", "large-cell", main, 3, 4, (64, 64), 1500,
                   seed=9, **WIDE)
+    compare_fused("fused2d", "larger-cell", main, 2, 4, (256, 256), 4096,
+                  seed=9, **WIDE)
+    for n, c, spatial, q in FUSED2D_LAYOUT_CASES:
+        track(compare_small_layouts("fused2d", main, n, c, spatial, q,
+                                    seed=35))
     return {"fused2d_blend": worst[0], "fused2d_bwd": worst[1]}
 
 
@@ -1770,35 +1797,51 @@ def _pair(mod, cells, pts, g, cfg):
     return run
 
 
+# (N, S, Q) of the 2D small-cloud sweep at C = 4: path (b)'s clouds on
+# 16^2 cells and past them to 100 000 points, 8 to 64 cells at 512 to
+# 49 152 points, where fused2w's blocks of 128 queries fill few SMs, and
+# larger cells (2 x 256^2, 16 x 64^2, 16 x 1024^2 over the L2)
+SMALL_CLOUD_SWEEP = (
+    [(N, H, q) for q in (200, 1024, 2047, 2731, 3072, 3584, 4096, 6144,
+                         8192, 12288, 16384, 24576, 32768, 49152, Q)]
+    + [(64, H, q) for q in (2731, 3072, 4096, 8192, 16384, 24576, 32768)]
+    + [(48, H, q) for q in (2048, 2731, 4096, 8192, 16384, 24576, 32768)]
+    + [(32, H, q) for q in (512, 1024, 2048, 4096, 6144, 8192, 12288,
+                            16384, 32768)]
+    + [(24, H, q) for q in (2048, 8192, 12288, 16384)]
+    + [(16, H, q) for q in (512, 1024, 2048, 4096, 8192, 12288, 16384,
+                            32768)]
+    + [(8, H, q) for q in (512, 1024, 2048, 4096, 8192, 12288, 16384,
+                           24576, 32768, Q)]
+    + [(2, 256, q) for q in (100, 4096, 16384)]
+    + [(16, 64, q) for q in (1024, 8192, 16384)]
+    + [(16, 1024, q) for q in (1024, 8192, 16384)])
+
+
 def small_cloud_sweep_phase():
     """fused2d against fused2w, blend + bwd device ms in turns (fused2w,
-    fused2d, fused2d, fused2w) at the small clouds and around them: the
-    measurement behind route.FUSED2D_MIN_CELLS / FUSED2D_MAX_Q /
-    FUSED2D_MAX_PAIRS.  Then the fused op at path (b)'s shapes, forward
-    and backward, through the route the rule gives, against the plain
-    versions."""
+    fused2d, fused2d, fused2w) over SMALL_CLOUD_SWEEP: the measurement
+    behind route.FUSED2D_MAX_Q / FUSED2D_MAX_Q_PER_CELL (prints the points
+    the rule sends to the slower kernel).  Then the fused op at path (b)'s
+    shapes, forward and backward, through the route the rule gives,
+    against the plain versions."""
     cfg = SamplerConfig(dim=2)
     rows = []
-    for n, q in [(N, 200), (N, 1024), (N, 2047), (N, 2731), (N, 3072),
-                 (N, 3584), (N, 4096), (N, Q), (64, 2731), (64, 3072),
-                 (48, 2048), (48, 2731), (32, 1024), (32, 2048),
-                 (32, 4096), (32, 6144),
-                 (32, 7168), (32, 8192), (32, 16384), (16, 1024),
-                 (16, 4096), (16, 8192), (8, 512), (8, 8192),
-                 (8, 16384), (8, 24576), (8, 32768), (8, Q)]:
-        cells, pts, g = _fused_inputs(n, C, (H, W), q, seed=10, lo=-1.0,
+    for n, s, q in SMALL_CLOUD_SWEEP:
+        cells, pts, g = _fused_inputs(n, C, (s, s), q, seed=10, lo=-1.0,
                                      hi=1.0)
         w1, d1, d2, w2 = (_device_ms(_pair(mod, cells, pts, g, cfg))
                           for mod in (fused2w, fused2d, fused2d, fused2w))
         wide, small = (w1 + w2) / 2, (d1 + d2) / 2
-        routed = route.fused_rule(cfg, (n, C, H, W), q)
-        rows.append((n, q, wide, small, routed))
-        print(f"sweep fused2d vs fused2w ({n}x{C}x{H}x{W}, Q={q}): blend + "
+        routed = route.fused_rule(cfg, (n, C, s, s), q)
+        rows.append((n, s, q, wide, small, routed))
+        del cells, pts, g
+        print(f"sweep fused2d vs fused2w ({n}x{C}x{s}x{s}, Q={q}): blend + "
               f"bwd device ms fused2d {small:.4f} (turns {d1:.4f} {d2:.4f}),"
               f" fused2w {wide:.4f} (turns {w1:.4f} {w2:.4f}); faster: "
               f"{'fused2d' if small < wide else 'fused2w'}; the rule routes "
               f"{routed}", flush=True)
-    slower = [(n, q) for n, q, wide, small, routed in rows
+    slower = [(n, s, q) for n, s, q, wide, small, routed in rows
               if routed != ("fused2d" if small < wide else "fused2w")]
     print(f"sweep: the rule routes {len(slower)} of {len(rows)} points to "
           f"the slower kernel {slower}", flush=True)
@@ -1933,40 +1976,42 @@ FUSED3D_LAYOUT_CASES = ([(N3, C, S3, Q_SMALL3), (8, C, S3, 512),
                            for c in (1, 3, C, 8, 12)])
 
 
-def compare_fused3d_layouts(cfg, n, c, spatial, q, seed, lo=-1.4, hi=1.4):
-    """fused3d_blend and fused3d_bwd in every layout of
-    fused3d.blend_alternatives / bwd_alternatives (the rule's, the cells
-    in place and the texel-major copy, the cotangent in place and the
-    scratch, other cell lanes, queries a block and block sizes) against
-    their plain versions on the card, and the rule's blend bit-identical
-    across two calls (no atomics: each row is one lane's store); returns
-    the max abs errors (blend, bwd)."""
+def compare_small_layouts(kind, cfg, n, c, spatial, q, seed, lo=-1.4,
+                          hi=1.4):
+    """The small-cloud pair ``kind`` ("fused2d" or "fused3d") in every
+    layout of its blend_alternatives / bwd_alternatives (the rule's, the
+    cells in place and the texel-major copy, the cotangent in place and
+    the scratch, other cell lanes, queries a block and block sizes)
+    against their plain versions on the card, and the rule's blend
+    bit-identical across two calls (no atomics: each row is one lane's
+    store); returns the max abs errors (blend, bwd)."""
+    mod = FUSED_MODS[kind]
     cells, pts, g = _fused_inputs(n, c, spatial, q, seed, lo, hi)
-    ref = fused3d.plain_fused_blend(cells, pts, cfg)
-    dref = fused3d.plain_fused_bwd(g, pts, spatial, cfg, n)
-    blends = fused3d.blend_alternatives(n, c, q, spatial)
-    bwds = fused3d.bwd_alternatives(n, c, q, spatial)
+    ref = mod.plain_fused_blend(cells, pts, cfg)
+    dref = mod.plain_fused_bwd(g, pts, spatial, cfg, n)
+    blends = mod.blend_alternatives(n, c, q, spatial)
+    bwds = mod.bwd_alternatives(n, c, q, spatial)
     errs = {}
     for name, lay in blends.items():
-        errs["blend", name] = _rel_err(fused3d.launch_blend(cells, pts, cfg,
-                                                            lay), ref)
+        errs["blend", name] = _rel_err(mod.launch_blend(cells, pts, cfg, lay),
+                                       ref)
     for name, lay in bwds.items():
-        got = fused3d.launch_bwd(g, pts, spatial, cfg, n, lay)
+        got = mod.launch_bwd(g, pts, spatial, cfg, n, lay)
         errs["bwd", name] = _rel_err(got.reshape(1, -1), dref.reshape(1, -1))
-    first = fused3d.launch_blend(cells, pts, cfg, blends["rule"])
-    same = torch.equal(first, fused3d.launch_blend(cells, pts, cfg,
-                                                   blends["rule"]))
+    first = mod.launch_blend(cells, pts, cfg, blends["rule"])
+    same = torch.equal(first, mod.launch_blend(cells, pts, cfg,
+                                               blends["rule"]))
     torch.cuda.synchronize()
     worst = {part: max((v for (k, _), v in errs.items() if k == part),
                        key=lambda e: e[1]) for part in ("blend", "bwd")}
-    print(f"compare fused3d layouts ({n}x{c}x{'x'.join(map(str, spatial))}, "
+    print(f"compare {kind} layouts ({n}x{c}x{'x'.join(map(str, spatial))}, "
           f"Q={q}): {len(blends)} blend layouts, worst rel "
           f"{worst['blend'][1]:.3e}; {len(bwds)} bwd layouts, worst rel "
           f"{worst['bwd'][1]:.3e} (tolerance rel {REL_TOL:g}); the rule's "
           f"blend bit-identical across two calls: {same}", flush=True)
     bad = [k for k, (_, rel) in errs.items() if not rel <= REL_TOL]
     if bad or not same:
-        raise RuntimeError(f"fused3d layouts at {n}x{c}x{spatial}, Q={q}: "
+        raise RuntimeError(f"{kind} layouts at {n}x{c}x{spatial}, Q={q}: "
                            f"disagree with plain {bad}, bit-identical "
                            f"{same}")
     return worst["blend"][0], worst["bwd"][0]
@@ -1976,7 +2021,7 @@ def fused3ds_kernel_phase():
     """B8 and B9 against their plain versions: fused3d at path (c)'s stack
     (50 x 4 x 16^3, Q = 200, 1024, 2047) and an opted-in 8 x 16^3 channel
     group, and in every layout its sweep times at FUSED3D_LAYOUT_CASES
-    (compare_fused3d_layouts: the blend bit-identical across calls);
+    (compare_small_layouts: the blend bit-identical across calls);
     fused3s at path (c)'s large volume (16 x 4 x 128^3, Q =
     100 000), where its launches come from, the mid volume (16 x 4 x
     32^3, Q = 4096), JAX's 2 x 2 x 32^3 at 2048 and 16 x 4 x 64^3 at
@@ -2010,8 +2055,8 @@ def fused3ds_kernel_phase():
                                    8, 8, (S3,) * 3, 1500, seed=22, **WIDE))
     for n, c, s, q in FUSED3D_LAYOUT_CASES:
         spatial = s if isinstance(s, tuple) else (s,) * 3
-        track("fused3d", compare_fused3d_layouts(main, n, c, spatial, q,
-                                                 seed=34))
+        track("fused3d", compare_small_layouts("fused3d", main, n, c,
+                                               spatial, q, seed=34))
     for kind in ("fused3d", "fused3s"):
         for name, kw, c in FUSED3_VARIANTS:
             cfg = SamplerConfig(dim=3, **kw)
@@ -2327,6 +2372,43 @@ def small_cloud_3d_trainer_phase():
         raise RuntimeError(f"path (c) launched neither fused3d nor fused3s: "
                            f"{total}")
     return total
+
+
+def small_cloud_2d_trainer_phase():
+    """Path (b)'s trainer: the 2D fused trainer at 96 x 4 x 16^2 with
+    Q_SMALL2 fresh points a step (STEPS_SMALL2 steps) through the kernels
+    the rule gives, fused2d's (one blend and one bwd a step, no other
+    kernel, no plain route); its losses against the same run on the CPU
+    (the first at LOSS_RTOL, each within GRAD_TOL) and one step's loss and
+    leaves card vs CPU; returns the launch counts."""
+    model = pinn.PINNConfig()
+    shape = (model.n_cells, model.cell_dim, model.cell_size, model.cell_size)
+    kind = route.fused_rule(model.sampler, shape, Q_SMALL2)
+    if kind != "fused2d":
+        raise RuntimeError(f"path (b)'s trainer routes to {kind}")
+    launched = ("fused2d_blend", "fused2d_bwd")
+    what = (f"2D small cloud {'x'.join(map(str, shape))}, {Q_SMALL2} points,"
+            f" through {kind}")
+    train_cfg = dict(model=model, batch_points=Q_SMALL2, steps=STEPS_SMALL2,
+                     log_every=1, seed=0)
+    launches, losses = _train_checked(
+        what, TrainConfig(device="cuda", **train_cfg), STEPS_SMALL2,
+        launched, decrease=False)
+    if any(launches[k] != STEPS_SMALL2 for k in launched):
+        raise RuntimeError(f"{what}: expected one launch of each kernel a "
+                           f"step: {_nonzero(launches)}")
+    _, cpu = train(TrainConfig(device="cpu", **train_cfg))
+    rel = [abs(a - m["loss"]) / abs(m["loss"]) for a, m in zip(losses, cpu)]
+    print(f"{what}: card vs CPU trainer losses, worst rel diff "
+          f"{max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError(f"{what}: card and CPU trainers disagree")
+    with PointGenerator(Q_SMALL2, 2, seed=31) as gen:
+        pts = torch.from_numpy(gen.batch(0))
+    _compare_losses(f"{what}: card vs plain CPU",
+                    _loss_and_grads(pinn.loss_fused, model, "cuda", pts, 31),
+                    _loss_and_grads(pinn.loss_fused, model, "cpu", pts, 31))
+    return launches
 
 
 def _parent_turns(parent, args):
@@ -4015,69 +4097,97 @@ FUSED3D_PLANAR_SWEEP = ((N3, S3, (200, 512, 1024, 1536, 2048, 4096,
                         (8, S3, (64, 512, 2048, 8192)),
                         (N_MID, S_MID, (256, 1024, 2048, 4096, 16384)),
                         (N5, S5, (1536, 8192, 16384, 32768, 65536)))
+# (N, C, S, Q) of fused2d's layout sweep: path (b)'s clouds and past
+# them, the 8- and 32-cell stacks, 64^2 cells, and C = 8
+FUSED2D_SWEEP = ([(N, C, H, q) for q in (200, 1024, 2047, 4096)]
+                 + [(8, C, H, 512), (32, C, H, 4096), (16, C, 64, 4096),
+                    (N, 8, H, 1024)])
+# (N, S, point counts) of fused2d's planar sweep at C = 4: path (b)'s
+# stack, 8 cells, 64^2 cells in the L2 and 1024^2 cells over it
+FUSED2D_PLANAR_SWEEP = ((N, H, (200, 512, 1024, 2047, 4096, 16384)),
+                        (8, H, (64, 512, 2048, 8192)),
+                        (16, 64, (256, 1024, 4096, 16384)),
+                        (16, 1024, (1024, 4096, 16384, 65536)))
 
 
 def fused3d_layout_sweep_phase():
-    """The measurement behind fused3d.geometry: fused3d_blend and
-    fused3d_bwd over FUSED3D_SWEEP in every layout of
-    fused3d.blend_alternatives / bwd_alternatives (cell lanes, queries a
-    block, threads, the read or destination, fused3w's blocks of 128
-    queries), each held to the rule's result and timed in turns by CUDA
-    events around 20 calls and by device ms (torch.profiler); then the
-    planar sweep (_fused3d_planar_sweep)."""
-    cfg = SamplerConfig(dim=3)
-    for n, c, s, q in FUSED3D_SWEEP:
-        spatial = (s,) * 3
+    """The measurement behind fused3d.geometry: _small_layout_sweep over
+    FUSED3D_SWEEP, then _small_planar_sweep over FUSED3D_PLANAR_SWEEP."""
+    _small_layout_sweep("fused3d", FUSED3D_SWEEP)
+    _small_planar_sweep("fused3d", FUSED3D_PLANAR_SWEEP)
+
+
+def fused2d_layout_sweep_phase():
+    """The measurement behind fused2d.geometry: _small_layout_sweep over
+    FUSED2D_SWEEP, then _small_planar_sweep over FUSED2D_PLANAR_SWEEP."""
+    _small_layout_sweep("fused2d", FUSED2D_SWEEP)
+    _small_planar_sweep("fused2d", FUSED2D_PLANAR_SWEEP)
+
+
+def _small_layout_sweep(kind, cases):
+    """The small-cloud pair ``kind`` ("fused2d" or "fused3d") over
+    ``cases`` ((N, C, S, Q), cells of S per axis) in every layout of its
+    blend_alternatives / bwd_alternatives (cell lanes, queries a block,
+    threads, the read or destination, fused2w's and fused3w's blocks of
+    128 queries), each held to the rule's result and timed in turns by
+    CUDA events around 20 calls and by device ms (torch.profiler)."""
+    mod = FUSED_MODS[kind]
+    dim = int(kind[5])
+    cfg = SamplerConfig(dim=dim)
+    for n, c, s, q in cases:
+        spatial = (s,) * dim
         cells, pts, g = _fused_inputs(n, c, spatial, q, seed=51, lo=-1.0,
                                      hi=1.0)
-        what = f"{n}x{c}x{s}^3, Q={q}"
+        what = f"{n}x{c}x{s}^{dim}, Q={q}"
         for part, geoms, launch, args in (
-                ("blend", fused3d.blend_alternatives(n, c, q, spatial),
-                 fused3d.launch_blend, (cells, pts, cfg)),
-                ("bwd", fused3d.bwd_alternatives(n, c, q, spatial),
-                 fused3d.launch_bwd, (g, pts, spatial, cfg, n))):
+                ("blend", mod.blend_alternatives(n, c, q, spatial),
+                 mod.launch_blend, (cells, pts, cfg)),
+                ("bwd", mod.bwd_alternatives(n, c, q, spatial),
+                 mod.launch_bwd, (g, pts, spatial, cfg, n))):
             runs = {k: functools.partial(launch, *args, v)
                     for k, v in geoms.items()}
             want = runs["rule"]()
-            _sweep(f"fused3d_{part} layout sweep ({what})", runs, geoms,
+            _sweep(f"{kind}_{part} layout sweep ({what})", runs, geoms,
                    want, reps=20)
-            _sweep(f"fused3d_{part} layout sweep ({what}), device", runs,
+            _sweep(f"{kind}_{part} layout sweep ({what}), device", runs,
                    geoms, want, reps=20,
                    timer=lambda fn, reps: _device_ms(fn, reps=reps))
             del runs, want
         del cells, pts, g
         torch.cuda.empty_cache()
-    _fused3d_planar_sweep()
 
 
-def _fused3d_planar_sweep():
-    """fused3d's planar bounds (fused3d.PLANAR_POINTS_PER_TEXEL /
-    PLANAR_VALUES for the blend's read, BWD_PLANAR_POINTS_PER_TEXEL for
-    the bwd's destination): the rule's layout against itself with the
-    other read or destination at C = 4 over FUSED3D_PLANAR_SWEEP, held to
-    each other and timed in turns by device ms (torch.profiler; CUDA
-    events around these calls read the host's enqueue); prints the points
-    where the rule picks the slower one."""
-    cfg = SamplerConfig(dim=3)
+def _small_planar_sweep(kind, cases):
+    """The planar bounds of the small-cloud pair ``kind`` (its
+    PLANAR_POINTS_PER_TEXEL / PLANAR_VALUES for the blend's read,
+    BWD_PLANAR_* for the bwd's destination): the rule's layout against
+    itself with the other read or destination at C = 4 over ``cases``
+    ((N, S, point counts)), held to each other and timed in turns by
+    device ms (torch.profiler; CUDA events around these calls read the
+    host's enqueue); prints the points where the rule picks the slower
+    one."""
+    mod = FUSED_MODS[kind]
+    dim = int(kind[5])
+    cfg = SamplerConfig(dim=dim)
     wrong = {"blend": [], "bwd": []}
-    for n, s, qs in FUSED3D_PLANAR_SWEEP:
-        spatial = (s,) * 3
+    for n, s, qs in cases:
+        spatial = (s,) * dim
         for q in qs:
             cells, pts, g = _fused_inputs(n, C, spatial, q, seed=52,
                                          lo=-1.0, hi=1.0)
-            lays = fused3d.geometry(n, C, q, spatial)
+            lays = mod.geometry(n, C, q, spatial)
             for part, rule, launch, args in (
-                    ("blend", lays.blend, fused3d.launch_blend,
+                    ("blend", lays.blend, mod.launch_blend,
                      (cells, pts, cfg)),
-                    ("bwd", lays.bwd, fused3d.launch_bwd,
+                    ("bwd", lays.bwd, mod.launch_bwd,
                      (g, pts, spatial, cfg, n))):
                 geoms = {"rule": rule, ("planar" if not rule.planar else
                                         "texel-major"):
                          rule._replace(planar=not rule.planar)}
                 runs = {k: functools.partial(launch, *args, v)
                         for k, v in geoms.items()}
-                ms = _sweep(f"fused3d {part} planar sweep ({n}x{C}x{s}^3, "
-                            f"Q={q}, {q / s ** 3:.4f} a texel, rule planar "
+                ms = _sweep(f"{kind} {part} planar sweep ({n}x{C}x{s}^{dim},"
+                            f" Q={q}, {q / s ** dim:.4f} a texel, rule planar "
                             f"{rule.planar}), device", runs, geoms,
                             runs["rule"](), reps=5,
                             timer=lambda fn, reps: _device_ms(fn, reps=reps))
@@ -4086,9 +4196,9 @@ def _fused3d_planar_sweep():
                 del runs
             del cells, pts, g
         torch.cuda.empty_cache()
-    total = sum(len(p[2]) for p in FUSED3D_PLANAR_SWEEP)
+    total = sum(len(p[2]) for p in cases)
     for part, points in wrong.items():
-        print(f"fused3d {part} planar sweep: the rule picks the slower "
+        print(f"{kind} {part} planar sweep: the rule picks the slower "
               f"{'read' if part == 'blend' else 'destination'} at "
               f"{len(points)} of {total} points {points}", flush=True)
 
@@ -4573,9 +4683,10 @@ def main(argv=None):
     wide = _timed(wide_trainer_phase)
     launches.update(fused_blend=wide["2D"]["fused_blend"],
                     fused_bwd=wide["2D"]["fused_bwd"])
-    small_launches, _ = _timed(small_cloud_sweep_phase)
-    launches.update(fused2d_blend=small_launches["fused2d_blend"],
-                    fused2d_bwd=small_launches["fused2d_bwd"])
+    _timed(small_cloud_sweep_phase)
+    path_b = _timed(small_cloud_2d_trainer_phase)
+    launches.update(fused2d_blend=path_b["fused2d_blend"],
+                    fused2d_bwd=path_b["fused2d_bwd"])
     errs.update(_timed(fused3ds_kernel_phase))
     _timed(fused3b_wide_kernel_phase)
     _timed(vol_wide_trainer_phase)
@@ -4597,6 +4708,7 @@ def main(argv=None):
     _timed(w_bwd_layout_sweep_phase)
     _timed(w_blend_layout_sweep_phase)
     _timed(fused3d_layout_sweep_phase)
+    _timed(fused2d_layout_sweep_phase)
     _timed(mega_sweep_phase)
     times.update(_timed(mega_fused3w_time_phase))
     times.update(_timed(fused3b_time_phase))

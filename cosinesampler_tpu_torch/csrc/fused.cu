@@ -95,10 +95,10 @@ CellGeom<D> geom_of(const int* sizes) {  // sizes: W, H(, D)
 }
 
 // Block (bx, by): queries [bx * qblock, ...) (qblock <= kGatherQueries:
-// the v1, fused2w and fused3w blends take 128, fused3d fewer), channels
-// [by * groups * G, ...) of c, gathered from the texel-major vol (*S, N,
-// C), or where PLANAR from the cells (N, C, *S) themselves
-// (csrc/texel_gather.cuh), into out (1 + 2D, C, Q).
+// the v1, fused2w and fused3w blends take 128, fused2d and fused3d
+// fewer), channels [by * groups * G, ...) of c, gathered from the
+// texel-major vol (*S, N, C), or where PLANAR from the cells (N, C, *S)
+// themselves (csrc/texel_gather.cuh), into out (1 + 2D, C, Q).
 template <int D, int G, bool VEC, int THREADS, bool PLANAR>
 __global__ void __launch_bounds__(THREADS)
     gather_kernel(const float* __restrict__ vol,

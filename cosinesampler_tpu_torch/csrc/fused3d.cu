@@ -41,7 +41,7 @@
 //   and flushed with global atomics.  Now both kernels are fused3w's
 //   bodies through its launchers (csrc/fused.cu fused_gather_blend /
 //   fused_scatter_bwd) with blocks of a few queries: a warp's 32 lanes
-//   over one query's cells (ops/cuda/fused3d.py geometry), 4 queries a
+//   over one query's cells (ops/cuda/small_cloud.py), 4 queries a
 //   128-thread block, so 1 024 points make 256 blocks.
 // * blend: texel_gather.cuh's gather, the cells read in place (planar)
 //   where the layout says so, or through the tiled transpose's
@@ -65,7 +65,7 @@ extern "C" {
 
 // cells (N, C, D, H, W), points, vol (the texel-major (D, H, W, N, C)
 // copy; unused where planar), out (7, C, Q); n, c, d, h, w, q; the launch
-// layout of ops/cuda/fused3d.py geometry (width, groups, cell lanes,
+// layout of ops/cuda/small_cloud.py (width, groups, cell lanes,
 // threads, queries a block, planar); kernel, padding, align, multicell,
 // strict; the offset lattice's step and stop; the stream.
 int fused3d_blend(const void* cells, const void* points, void* vol,
@@ -86,7 +86,7 @@ int fused3d_blend(const void* cells, const void* points, void* vol,
 
 // g (7, C, Q), points, scratch (texel-major (D, H, W, N, C), zeroed; not
 // used where planar), dcells (N, C, D, H, W), zeroed where planar; n, c,
-// d, h, w, q; the launch layout of ops/cuda/fused3d.py geometry (width,
+// d, h, w, q; the launch layout of ops/cuda/small_cloud.py (width,
 // block groups, lane groups, lanes, threads, queries a block, planar);
 // then the sampler arguments as fused3d_blend's.
 int fused3d_bwd(const void* g, const void* points, void* scratch,

@@ -1,9 +1,8 @@
 // The fused rows of one query, in 2D and 3D (value, jacobian, diagonal
 // Hessian, summed over the multicell ensemble): the per-query blend of
-// the mega2w train-step kernel and of the staged small-cloud 2D kernels
-// (csrc/staged_cells.cuh), whose splats add their transpose (splat_query,
-// splat_query_range).  The corner walk serves every fused kernel,
-// csrc/texel_gather.cuh's and csrc/texel_scatter.cuh's too.
+// the mega2w train-step kernel, whose splats add its transpose
+// (splat_query, splat_query_range).  The corner walk serves every fused
+// kernel, csrc/texel_gather.cuh's and csrc/texel_scatter.cuh's too.
 //
 // Rows, in the JAX package's order: value, d/dx_i for each grid axis i,
 // then d2/dx_i2 for each grid axis i (1 + 2D rows).  Grid axis 0 (x)
@@ -170,9 +169,10 @@ __device__ __forceinline__ void splat_query(float* acc, const CellGeom<D>& g,
   }
 }
 
-// The channel-looped kernels of csrc/staged_cells.cuh (fused2d) take any
-// channel count: grid axis z walks groups of at most kGroupChannels
-// channels, whose rows a thread keeps in registers.
+// The channel-looped ghost bricks (csrc/fused3b_ghost.cu) take any channel
+// count: grid axis z walks groups of at most kGroupChannels channels,
+// whose rows a thread keeps in registers (mega2w's groups are
+// kBlendGroup / kBwdGroup below).
 constexpr int kGroupChannels = 8;
 
 // The groups of c channels: as few as hold `most` each, all of width

@@ -2,8 +2,8 @@
 // (*S, N, C) volume with a few lanes a query, in 2D and 3D: the forward
 // body that fused3b_blend (csrc/fused3b.cu), fused3s_blend
 // (csrc/fused3s.cu), and through fused_gather_blend below the v1 blend
-// (csrc/fused.cu), fused2w_blend, fused3w_blend and fused3d_blend share,
-// the mirror of csrc/texel_scatter.cuh.
+// (csrc/fused.cu), fused2w_blend, fused3w_blend, fused2d_blend and
+// fused3d_blend share, the mirror of csrc/texel_scatter.cuh.
 //
 // Why a few lanes a query: the texel-major layout keeps one texel's N * C
 // values together, and the cells of one query are shifted by less than a
@@ -259,15 +259,16 @@ cudaError_t launch_gather(const GatherLayout& lay, int c, int threads,
 
 // The fused op's blend over points in query order, defined in
 // csrc/fused.cu for D = 2 and 3: the v1 blend's, fused2w_blend's,
-// fused3w_blend's and fused3d_blend's.  The tiled transpose copies the
+// fused3w_blend's, fused2d_blend's and fused3d_blend's.  The tiled
+// transpose copies the
 // cells (N, C, *S) into vol, a texel-major (*S, N, C) temporary, and
 // gather_block serves blocks of `qblock` (<= kGatherQueries) queries in
 // order with the layout `lay` and `threads` a block, its lanes storing
 // the rows out (1 + 2D, C, Q) directly (queries in order: a warp's
 // stores cover whole sectors); where `planar` it reads the cells in
 // place and vol is not used.  The v1, fused2w and fused3w blends take
-// kGatherQueries; fused3d takes a few queries a block, so that a small
-// cloud fills the card.
+// kGatherQueries; fused2d and fused3d take a few queries a block, so
+// that a small cloud fills the card.
 template <int D>
 cudaError_t fused_gather_blend(const float* cells, const float* points,
                                float* vol, float* out, int n, int c,

@@ -2,7 +2,8 @@
 // the cells with a warp's lanes over (query, cell), in 2D and 3D: the
 // backward body that fused3b_bwd (csrc/fused3b.cu), fused3s_bwd
 // (csrc/fused3s.cu), and through fused_scatter_bwd below the v1 bwd
-// (csrc/fused.cu), fused2w_bwd, fused3w_bwd and fused3d_bwd share.
+// (csrc/fused.cu), fused2w_bwd, fused3w_bwd, fused2d_bwd and
+// fused3d_bwd share.
 //
 // Why lanes over cells: the texel-major layout (*S, N, C) keeps one
 // texel's N * C values together, and the cells of one query are shifted
@@ -250,14 +251,16 @@ cudaError_t launch_scatter(const ScatterLayout& lay, int c, int threads,
 }
 
 // The fused op's bwd over points in query order, defined in csrc/fused.cu
-// for D = 2 and 3: the v1 bwd's, fused2w_bwd's, fused3w_bwd's and
-// fused3d_bwd's.  g (1 + 2D, C, Q) at points (Q, D), in blocks of
+// for D = 2 and 3: the v1 bwd's, fused2w_bwd's, fused3w_bwd's,
+// fused2d_bwd's and fused3d_bwd's.  g (1 + 2D, C, Q) at points (Q, D), in
+// blocks of
 // `qblock` (<= kScatterQueries) queries in order with the layout `lay`
 // and `threads` a block, is added into scratch (texel-major (*S, N, C),
 // zeroed), which the tiled transpose then writes out as the cells
 // cotangent out (N, C, *S); where `planar`, the scatter adds into out
 // (zeroed) in place and scratch is not used.  The v1, fused2w and
-// fused3w bwds take kScatterQueries, fused3d a few queries a block.
+// fused3w bwds take kScatterQueries, fused2d and fused3d a few queries a
+// block.
 template <int D>
 cudaError_t fused_scatter_bwd(const float* g, const float* points,
                               float* scratch, float* out, int n, int c,

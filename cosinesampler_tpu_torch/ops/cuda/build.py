@@ -108,22 +108,19 @@ def nvcc_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.fused2d_blend, lib.fused2d_bwd):
-        # 3 data pointers; n, c, h, w, q, kernel, padding, align,
-        # multicell, strict; the offset lattice's step and stop; the stream
-        fn.argtypes = [ptr, ptr, ptr] + [i32] * 10 + [f32, f32, ptr]
-        fn.restype = i32
-    # cells, points, the texel-major copy, out; n, c, d, h, w, q, the
-    # blend layout (width, groups, cell lanes, threads, queries a block,
-    # planar), kernel, padding, align, multicell, strict; the offset
-    # lattice's step and stop; the stream
-    lib.fused3d_blend.argtypes = [ptr] * 4 + [i32] * 17 + [f32, f32, ptr]
-    # g, points, scratch, dcells; n, c, d, h, w, q, the bwd layout (width,
-    # block groups, lane groups, lanes, threads, queries a block, planar),
-    # then as fused3d_blend
-    lib.fused3d_bwd.argtypes = [ptr] * 4 + [i32] * 18 + [f32, f32, ptr]
-    for fn in (lib.fused3d_blend, lib.fused3d_bwd):
-        fn.restype = i32
+    for dim, blend, bwd in ((2, lib.fused2d_blend, lib.fused2d_bwd),
+                            (3, lib.fused3d_blend, lib.fused3d_bwd)):
+        # cells, points, the texel-major copy, out; n, c, the dim sizes,
+        # q, the blend layout (width, groups, cell lanes, threads, queries
+        # a block, planar), kernel, padding, align, multicell, strict; the
+        # offset lattice's step and stop; the stream
+        blend.argtypes = [ptr] * 4 + [i32] * (14 + dim) + [f32, f32, ptr]
+        # g, points, scratch, dcells; n, c, the dim sizes, q, the bwd
+        # layout (width, block groups, lane groups, lanes, threads,
+        # queries a block, planar), then as the blend
+        bwd.argtypes = [ptr] * 4 + [i32] * (15 + dim) + [f32, f32, ptr]
+        for fn in (blend, bwd):
+            fn.restype = i32
     for dim, fn in ((2, lib.fused2w_bwd), (3, lib.fused3w_bwd)):
         # g, points, scratch, dcells; n, c, the dim sizes, q, the scatter
         # layout (width, block groups, lane groups, lanes, threads),

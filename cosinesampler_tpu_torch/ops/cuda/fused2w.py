@@ -32,10 +32,9 @@ versions in this module:
   ``bwd_alternatives``.
 
 The launch helpers (``launch``, ``gather_blend``, ``launch_bwd``,
-``kernel_blend``, ``kernel_bwd``, ``sampler_args``) serve the 3D wrappers
-(ops/cuda/fused3w.py), the small-cloud wrappers (ops/cuda/fused2d.py,
-ops/cuda/fused3d.py), the v1 wrappers (ops/cuda/fused.py) and mega2w
-too.
+``sampler_args``) serve the 3D wrappers (ops/cuda/fused3w.py), the
+small-cloud wrappers (ops/cuda/fused2d.py, ops/cuda/fused3d.py), the v1
+wrappers (ops/cuda/fused.py) and mega2w too.
 """
 
 from __future__ import annotations
@@ -169,25 +168,6 @@ def launch(entry: str, first: torch.Tensor, points: torch.Tensor, outs,
     check(lib, err, f"{entry} launch")
 
 
-def kernel_blend(entry: str, dim: int, cells: torch.Tensor,
-                 points: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
-    """(1+2d, C, Q) from the staged small-cloud blend kernel ``entry`` of
-    dimension ``dim`` (fused2d_blend) on CUDA tensors."""
-    device = cuda_device(cells, points)
-    check_kernel_inputs(cfg, cells, points)
-    if (cfg.dim != dim or cells.dim() != 2 + dim or points.dim() != 2
-            or points.shape[1] != dim):
-        raise ValueError(
-            f"{entry} takes a {dim}D config, cells (N, C, *S) and points "
-            f"(Q, {dim}); got dim {cfg.dim}, {tuple(cells.shape)} and "
-            f"{tuple(points.shape)}")
-    n, c, *spatial = cells.shape
-    q = points.shape[0]
-    out = torch.empty((1 + 2 * dim, c, q), dtype=torch.float32, device=device)
-    launch(entry, cells, points, (out,), cfg, n, c, tuple(spatial))
-    return out
-
-
 def _check_bwd_args(entry: str, dim: int, g: torch.Tensor,
                     points: torch.Tensor, in_spatial: Tuple[int, ...],
                     cfg: SamplerConfig) -> torch.device:
@@ -204,19 +184,6 @@ def _check_bwd_args(entry: str, dim: int, g: torch.Tensor,
             f"{tuple(g.shape)}, {tuple(points.shape)} and "
             f"{tuple(in_spatial)}")
     return device
-
-
-def kernel_bwd(entry: str, dim: int, g: torch.Tensor, points: torch.Tensor,
-               in_spatial: Tuple[int, ...], cfg: SamplerConfig,
-               n_cells: int) -> torch.Tensor:
-    """(N, C, *in_spatial) from the staged small-cloud transpose kernel
-    ``entry`` of dimension ``dim`` (fused2d_bwd) on CUDA tensors."""
-    device = _check_bwd_args(entry, dim, g, points, in_spatial, cfg)
-    c = g.shape[1]
-    dcells = torch.zeros((n_cells, c, *in_spatial), dtype=torch.float32,
-                         device=device)
-    launch(entry, g, points, (dcells,), cfg, n_cells, c, tuple(in_spatial))
-    return dcells
 
 
 class BwdGeometry(NamedTuple):
@@ -269,10 +236,10 @@ def launch_bwd(g: torch.Tensor, points: torch.Tensor,
                in_spatial: Tuple[int, ...], cfg: SamplerConfig, n_cells: int,
                geom: BwdGeometry, entry: Optional[str] = None) -> torch.Tensor:
     """fused2w_bwd / fused3w_bwd (by the dimension of ``in_spatial``), or
-    the scatter bwd ``entry`` (fused3d_bwd), with the launch layout
-    ``geom`` (its ``planar`` and ``args()``), on the card; not counted.
-    The wrapper allocates the zeroed texel-major scratch, or where planar
-    zeroes the cotangent instead."""
+    the scatter bwd ``entry`` (fused2d_bwd, fused3d_bwd), with the launch
+    layout ``geom`` (its ``planar`` and ``args()``), on the card; not
+    counted.  The wrapper allocates the zeroed texel-major scratch, or
+    where planar zeroes the cotangent instead."""
     dim = len(in_spatial)
     entry = entry or f"fused{dim}w_bwd"
     device = _check_bwd_args(entry, dim, g, points, in_spatial, cfg)
@@ -293,11 +260,11 @@ def launch_bwd(g: torch.Tensor, points: torch.Tensor,
 def gather_blend(entry: str, cells: torch.Tensor, points: torch.Tensor,
                  cfg: SamplerConfig, geom: BlendGeometry) -> torch.Tensor:
     """(1+2d, C, Q) from the gather blend ``entry`` (fused2w_blend,
-    fused3w_blend, fused_v1_blend2 / 3, fused3d_blend: csrc/fused.cu
-    fused_gather_blend) with the launch layout ``geom`` (ops/cuda/v1.py,
-    ops/cuda/fused3d.py: its ``planar`` and ``args()``), on CUDA tensors;
-    not counted.  The wrapper allocates the texel-major (*S, N, C) copy,
-    where the layout is not planar."""
+    fused3w_blend, fused_v1_blend2 / 3, fused2d_blend, fused3d_blend:
+    csrc/fused.cu fused_gather_blend) with the launch layout ``geom``
+    (ops/cuda/v1.py, ops/cuda/small_cloud.py: its ``planar`` and
+    ``args()``), on CUDA tensors; not counted.  The wrapper allocates the
+    texel-major (*S, N, C) copy, where the layout is not planar."""
     n, c, *spatial = cells.shape
     dim, q = len(spatial), points.shape[0]
     if dim not in (2, 3) or cfg.dim != dim or points.shape[1:] != (dim,):

@@ -17,38 +17,32 @@ a measured rule (ops/cuda/route.py ``fused_rule``, PERF.md section 4).
   a few queries, a warp's lanes over one query's cells, so that a cloud
   of a few hundred points fills the card where fused3w's blocks of 128
   queries fill a few SMs.  ``geometry`` is the host's layout of both
-  launches (the C entry points take it as integers and check it);
-  chip_smoke.py's ``fused3d_layout_sweep_phase`` times it against
-  ``blend_alternatives`` / ``bwd_alternatives``.  A tensor on the CPU
-  takes the plain version; a CUDA tensor launches the kernel on the
-  current stream, or raises for what the kernel does not take
-  (``supports``).  Each wrapper counts its launches in its ``launches``
-  attribute.
+  launches, ops/cuda/small_cloud.py's rule (shared with fused2d) with
+  this module's measured planar bounds (``RULE``); chip_smoke.py's
+  ``fused3d_layout_sweep_phase`` times it against ``blend_alternatives``
+  / ``bwd_alternatives``.  A tensor on the CPU takes the plain version; a
+  CUDA tensor launches the kernel on the current stream, or raises for
+  what the kernel does not take (``supports``).  Each wrapper counts its
+  launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
-import math
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
 from ..config import SamplerConfig
 from . import fused2w
-from .fused2d import group_width
 from .fused2w import gather_blend, plain_fused_blend, plain_fused_bwd
-from .gather import QUERIES, GatherGeometry
-from .scatter import ScatterGeometry, scatter_geometry
+from .small_cloud import (CELL_LANES, THREADS, BlendLayout, BwdLayout,
+                          Geometry, Rule)
 
-__all__ = ["BlendLayout", "BwdLayout", "Geometry", "blend_alternatives",
-           "bwd_alternatives", "fused_blend", "fused_bwd", "geometry",
-           "launch_blend", "launch_bwd", "plain_fused_blend",
-           "plain_fused_bwd", "supports"]
+__all__ = ["CELL_LANES", "RULE", "THREADS", "BlendLayout", "BwdLayout",
+           "Geometry", "blend_alternatives", "bwd_alternatives",
+           "fused_blend", "fused_bwd", "geometry", "launch_blend",
+           "launch_bwd", "plain_fused_blend", "plain_fused_bwd", "supports"]
 
-# threads a block of either launch: four warps
-THREADS = 128
-# the most lanes over one query's cells: a warp
-CELL_LANES = 32
 # the blend reads the cells in place (planar) where it reads fewer cell
 # values (N x Q x C) than PLANAR_POINTS_PER_TEXEL times the stack's plus
 # PLANAR_VALUES, the texel-major copy otherwise; the bwd adds into the
@@ -71,170 +65,13 @@ PLANAR_POINTS_PER_TEXEL = 1 / 64
 PLANAR_VALUES = 3 << 16
 BWD_PLANAR_POINTS_PER_TEXEL = 1 / 128
 BWD_PLANAR_VALUES = 1 << 16
-
-
-class BlendLayout(NamedTuple):
-    """One fused3d_blend launch: ``lanes`` (gather.py's GatherGeometry:
-    width, groups, cell lanes, threads) over blocks of ``queries``
-    queries in order, reading the cells in place where ``planar``, the
-    texel-major copy otherwise."""
-    lanes: GatherGeometry
-    queries: int
-    planar: bool = True
-
-    def blocks(self, q: int) -> int:
-        """Blocks along the queries."""
-        return -(-q // self.queries)
-
-    def args(self):
-        """The layout as the C entry point takes it: width, groups, cell
-        lanes, threads, queries a block, planar."""
-        return (*self.lanes.args(), self.queries, int(self.planar))
-
-
-class BwdLayout(NamedTuple):
-    """One fused3d_bwd launch: ``lanes`` (scatter.py's ScatterGeometry:
-    width, block groups, lane groups, lanes, threads) over blocks of
-    ``queries`` queries in order, adding into the cotangent in place
-    where ``planar``, into the texel-major scratch otherwise."""
-    lanes: ScatterGeometry
-    queries: int
-    planar: bool = False
-
-    def blocks(self, q: int) -> int:
-        """Blocks along the queries."""
-        return -(-q // self.queries)
-
-    def args(self):
-        """The layout as the C entry point takes it: width, block groups,
-        lane groups, lanes, threads, queries a block, planar."""
-        return (*self.lanes.args(), self.queries, int(self.planar))
-
-
-class Geometry(NamedTuple):
-    """Both launches' layouts for one (cells, points) shape."""
-    blend: BlendLayout
-    bwd: BwdLayout
-
-
-def _pow2_floor(x: int) -> int:
-    return 1 << (max(1, x).bit_length() - 1)
-
-
-def _queries(threads: int, lanes: int) -> int:
-    """Queries a block of ``threads`` whose queries take ``lanes`` lanes
-    each: one round of each warp, 32 // lanes queries a warp."""
-    return min(QUERIES, threads // 32 * (32 // lanes))
-
-
-def blend_planar(n: int, c: int, q: int, spatial) -> bool:
-    """Whether the blend reads the cells in place: it reads fewer cell
-    values (N x Q x C) than PLANAR_POINTS_PER_TEXEL times the stack's plus
-    PLANAR_VALUES, where the copy (a pass over the whole stack and a
-    launch, whatever Q) costs more than the sectors its records save."""
-    return (n * q * c < PLANAR_POINTS_PER_TEXEL * n * c * math.prod(spatial)
-            + PLANAR_VALUES)
-
-
-def blend_lanes(n: int, c: int, cell_lanes: int = CELL_LANES,
-                threads: int = THREADS) -> GatherGeometry:
-    """A lane holds a channel group of at most 8 channels (fused_rows.cuh
-    group_width; grid axis y walks the groups), ``cell_lanes`` lanes (a
-    power of 2, at most N) split a query's cells."""
-    return GatherGeometry(group_width(c), 1,
-                          max(1, min(cell_lanes, _pow2_floor(n))), threads)
-
-
-def blend_layout(n: int, c: int, q: int, spatial) -> BlendLayout:
-    """The blend's layout: a warp over one query's cells (fewer lanes
-    where N < 32, several queries a warp then), THREADS a block, one round
-    a warp (4 queries a block at N >= 32: 1 024 points make 256 blocks),
-    the cells in place by ``blend_planar``."""
-    lanes = blend_lanes(n, c)
-    return BlendLayout(lanes, _queries(lanes.threads, lanes.lanes),
-                       blend_planar(n, c, q, spatial))
-
-
-def bwd_planar(n: int, c: int, q: int, spatial) -> bool:
-    """Whether the bwd adds into the cotangent in place: it adds fewer
-    cell values (N x Q x C, at 8 corners each) than
-    BWD_PLANAR_POINTS_PER_TEXEL times the stack's plus BWD_PLANAR_VALUES,
-    where the scratch's fill and transpose (passes over the whole stack,
-    whatever Q) cost more than the sectors its float4 reductions save."""
-    return (n * q * c < BWD_PLANAR_POINTS_PER_TEXEL * n * c
-            * math.prod(spatial) + BWD_PLANAR_VALUES)
-
-
-def bwd_layout(n: int, c: int, q: int, spatial) -> BwdLayout:
-    """The bwd's layout: scatter.py's lanes over (cell, channel group),
-    groups of 4 channels at C a multiple of 4 (float4 reductions into the
-    scratch), a warp or half of one a query, THREADS a block, one round a
-    warp (fused3w_bwd's lanes in blocks of a few queries); into the
-    cotangent in place by ``bwd_planar``."""
-    lanes = scatter_geometry(n, c, dim=3)._replace(threads=THREADS)
-    return BwdLayout(lanes, _queries(lanes.threads, lanes.lanes),
-                     bwd_planar(n, c, q, spatial))
-
-
-def geometry(n: int, c: int, q: int, spatial) -> Geometry:
-    """Both launches' layouts for N cells of C channels over ``spatial``
-    at Q points in query order."""
-    return Geometry(blend_layout(n, c, q, spatial),
-                    bwd_layout(n, c, q, spatial))
-
-
-def _unique(alts):
-    out = {}
-    for name, lay in alts.items():
-        if name == "rule" or lay not in out.values():
-            out[name] = lay
-    return out
-
-
-def blend_alternatives(n: int, c: int, q: int, spatial):
-    """The blend layouts chip_smoke.py's sweep times against the rule's,
-    by name: the other read (the texel-major copy or planar), 8 and 16
-    cell lanes, two and four rounds a warp (twice and four times the
-    queries a block), 256 threads, and fused3w's blocks of 128 queries
-    with two cell lanes; layouts equal to the rule's are left out."""
-    rule = blend_layout(n, c, q, spatial)
-    other = "texel-major copy" if rule.planar else "planar"
-    alts = {"rule": rule, other: rule._replace(planar=not rule.planar)}
-    for cell_lanes in (8, 16):
-        lanes = blend_lanes(n, c, cell_lanes)
-        alts[f"{cell_lanes} cell lanes"] = rule._replace(
-            lanes=lanes, queries=_queries(THREADS, lanes.lanes))
-    for rounds in (2, 4):
-        alts[f"{rounds} rounds a warp"] = rule._replace(
-            queries=min(QUERIES, rounds * rule.queries))
-    wide = rule.lanes._replace(threads=2 * THREADS)
-    alts["256 threads"] = rule._replace(lanes=wide, queries=_queries(
-        wide.threads, wide.lanes))
-    alts["fused3w's blocks"] = rule._replace(
-        lanes=blend_lanes(n, c, 2, 2 * THREADS), queries=QUERIES)
-    return _unique(alts)
-
-
-def bwd_alternatives(n: int, c: int, q: int, spatial):
-    """The bwd layouts chip_smoke.py's sweep times against the rule's, by
-    name: the other destination (the texel-major scratch or planar), half
-    the lanes a query, two and four rounds a warp, 256 threads, and
-    fused3w's blocks of 128 queries; layouts equal to the rule's are left
-    out."""
-    rule = bwd_layout(n, c, q, spatial)
-    other = "texel-major scratch" if rule.planar else "planar"
-    alts = {"rule": rule, other: rule._replace(planar=not rule.planar)}
-    half = rule.lanes._replace(lanes=max(1, rule.lanes.lanes // 2))
-    alts["half the lanes"] = rule._replace(
-        lanes=half, queries=_queries(THREADS, half.lanes))
-    for rounds in (2, 4):
-        alts[f"{rounds} rounds a warp"] = rule._replace(
-            queries=min(QUERIES, rounds * rule.queries))
-    wide = rule.lanes._replace(threads=2 * THREADS)
-    alts["256 threads"] = rule._replace(lanes=wide, queries=_queries(
-        wide.threads, wide.lanes))
-    alts["fused3w's blocks"] = rule._replace(queries=QUERIES)
-    return _unique(alts)
+RULE = Rule(PLANAR_POINTS_PER_TEXEL, PLANAR_VALUES,
+            BWD_PLANAR_POINTS_PER_TEXEL, BWD_PLANAR_VALUES)
+blend_layout = RULE.blend_layout
+bwd_layout = RULE.bwd_layout
+geometry = RULE.geometry
+blend_alternatives = RULE.blend_alternatives
+bwd_alternatives = RULE.bwd_alternatives
 
 
 def supports(cfg: SamplerConfig, cells_shape) -> bool:

@@ -86,17 +86,24 @@ KERNEL_PRECISIONS = ("exact", "highest")
 # fused3w 1.1-1.8x faster where it adds in place (16 x C x 128^3 at up
 # to 16 384 points, C = 12 and 16).
 FUSED_MAX_CHANNELS = 8
-# in 2D up to 8 channels, fused2d over FUSED2D_MIN_CELLS cells or more up
-# to FUSED2D_MAX_Q queries or up to FUSED2D_MAX_PAIRS (cell, query)
-# pairs, fused2w otherwise: each the last point where fused2d won in
-# chip_smoke.py's sweep (PERF.md section 4).  Against the texel-major
-# fused2w blend and bwd, fused2d won at 96 cells x 2731 points and tied
-# at 96 x 3072 (0.1032 against 0.1028 ms, blend + bwd), won at 64 x 3072
-# (196 608 pairs) and 48 x 2731, lost at 32 cells at every count from
-# 1024 (by 8-12%) and at 16 and 8 cells (by 2x).
-FUSED2D_MIN_CELLS = 48
-FUSED2D_MAX_Q = 2731
-FUSED2D_MAX_PAIRS = 1 << 18
+# in 2D up to 8 channels, fused2d up to FUSED2D_MAX_Q queries or up to
+# FUSED2D_MAX_Q_PER_CELL queries a cell, whichever allows more; fused2w
+# otherwise: each the last point where fused2d won in chip_smoke.py's
+# sweep in two calls (blend + bwd device ms, H100 80GB HBM3 at 700 W;
+# PERF.md section 4).  Against the texel-major fused2w blend and bwd,
+# fused2d (fused2w's bodies in blocks of a few queries, a warp over a
+# query's cells) won on 16^2 cells at every cell count from 8 to 96 up
+# to 12 288 points (1.1-6x: fused2w's 128-query blocks fill few SMs; at 8
+# to 32 cells by 10-12% at 12 288) and lost at 16 to 32 cells from 16 384
+# (by 1-5%); from 32 cells it won up to 384 points a cell (48 x 16 384,
+# 64 x 24 576, 96 x 32 768 by 0.4%) and lost from 512 (48 x 24 576,
+# 64 x 32 768, 96 x 49 152, by 3-10%).  At 8 cells the faster flipped
+# between the calls at 16 384 and 24 576 (by 1-3%); fused2d won on
+# 2 x 4 x 256^2 up to 4 096 points and on 16 x 4 x 64^2 at 16 384 (by
+# 18%, past the bound), and lost on 16 x 4 x 1024^2 (over the L2) at
+# 8 192 (by 11%, within it).
+FUSED2D_MAX_Q = 12288
+FUSED2D_MAX_Q_PER_CELL = 384
 # in 3D up to 8 channels, fused3d up to FUSED3D_MAX_Q_PER_CELL queries a
 # cell and FUSED3D_MAX_Q queries; fused3s, in zeros and border padding, at
 # FUSED3S_MIN_Q queries or more over a stack of FUSED3S_MIN_STACK_BYTES
@@ -207,10 +214,10 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
     more over stacks of FUSED3S_MIN_STACK_BYTES or more,
     FUSED3S_MIN_CHANNELS channels and FUSED3S_MIN_PLANES (cell, channel)
     planes or more, in zeros and border padding (fused3s.supports),
-    ``"fused3w"`` otherwise; in 2D ``"fused2d"`` over FUSED2D_MIN_CELLS
-    cells or more up to FUSED2D_MAX_Q queries or FUSED2D_MAX_PAIRS (cell,
-    query) pairs where its chunks fit shared memory (fused2d.supports),
-    ``"fused2w"`` otherwise.  Off the
+    ``"fused3w"`` otherwise; in 2D ``"fused2d"`` up to FUSED2D_MAX_Q
+    queries or FUSED2D_MAX_Q_PER_CELL queries a cell, whichever allows
+    more (fused2d.supports takes every 2D stack), ``"fused2w"``
+    otherwise.  Off the
     card the same kernel routes apply, whose wrappers take the plain
     version on the CPU."""
     n, c, *spatial = cells_shape
@@ -235,8 +242,7 @@ def fused_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
                 and fused3s.supports(cfg, cells_shape)):
             return "fused3s"
         return "fused3w"
-    small = n >= FUSED2D_MIN_CELLS and (
-        n_queries <= FUSED2D_MAX_Q or n * n_queries <= FUSED2D_MAX_PAIRS)
+    small = n_queries <= max(FUSED2D_MAX_Q, FUSED2D_MAX_Q_PER_CELL * n)
     if small and fused2d.supports(cfg, cells_shape):
         return "fused2d"
     return "fused2w"

@@ -11,6 +11,8 @@
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
     python scripts/profile_port_step.py --fused3d [--points Q] [--cell-dim C]
                                         [--reps R]
+    python scripts/profile_port_step.py --fused2d [--points Q] [--cell-dim C]
+                                        [--reps R]
     python scripts/profile_port_step.py --v1 [config5] [--cell-dim C]
                                         [--reps R]
     python scripts/profile_port_step.py --slab [--reps R]
@@ -41,7 +43,9 @@ points), with each one's device ms (torch.profiler) and host
 microseconds to enqueue a call, and mega2w (96 x C x 16^2);
 ``--fused3d`` so times fused3d's and fused3w's blend and bwd at path
 (c)'s stack (50 x C x 16^3) and ``--points`` uniform points (1 024 by
-default); ``--v1`` so
+default); ``--fused2d`` so times fused2d's and fused2w's blend and bwd
+at path (b)'s stacks (96 x C x 16^2 at 200, 1 024 and 2 047 points and
+8 x C x 16^2 at 512, or 96 x C x 16^2 at ``--points``); ``--v1`` so
 times the v1 pair's
 blend and bwd (ops/cuda/fused.py, the fused op's route above 8 channels)
 at path (a)'s shapes (96 x C x 16^2 and 50 x C x 16^3, 100 000 points)
@@ -82,6 +86,12 @@ from cosinesampler_tpu_torch.utils.pointgen import PointGenerator
 
 _COUNTERS = {"fused2w_blend": fused2w.fused_blend,
              "fused2w_bwd": fused2w.fused_bwd}
+try:    # checkouts from before the fused2d kernels lack them
+    from cosinesampler_tpu_torch.ops.cuda import fused2d
+    _COUNTERS.update(fused2d_blend=fused2d.fused_blend,
+                     fused2d_bwd=fused2d.fused_bwd)
+except ImportError:
+    fused2d = None
 try:    # checkouts from before the blend_o / splat_o kernels lack them
     from cosinesampler_tpu_torch.ops.cuda import blend_splat
     _COUNTERS.update(blend_o=blend_splat.blend, splat_o=blend_splat.splat)
@@ -323,6 +333,45 @@ def _fused3d_kernels(card, c, reps, q):
     return 0
 
 
+def _fused2d_kernels(card, c, reps, q):
+    """Median ms of fused2d's blend and bwd and of fused2w's (the 2D small
+    cloud's two routes) at path (b)'s stacks (96 x C x 16^2 at 200, 1 024
+    and 2 047 uniform points and 8 x C x 16^2 at 512, or 96 x C x 16^2 at
+    ``q``; single calls, the host's share in), and each one's device ms
+    (torch.profiler) and host microseconds to enqueue a call."""
+    from cosinesampler_tpu_torch.ops.config import SamplerConfig
+    cfg = SamplerConfig(dim=2)
+    spatial = (16, 16)
+    clouds = ((96, q),) if q else ((96, 200), (96, 1024), (96, 2047),
+                                   (8, 512))
+    parts = []
+    for n, nq in clouds:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cells = torch.rand((n, c, *spatial), generator=gen, device="cuda")
+        pts = torch.rand((nq, 2), generator=gen, device="cuda") * 2 - 1
+        g = torch.randn((5, c, nq), generator=gen, device="cuda")
+        medians, device, host = {}, {}, {}
+        for kind, mod in (("fused2d", fused2d), ("fused2w", fused2w)):
+            for name, fn in (
+                    (f"{kind}_blend",
+                     lambda: mod.fused_blend(cells, pts, cfg)),
+                    (f"{kind}_bwd",
+                     lambda: mod.fused_bwd(g, pts, spatial, cfg, n))):
+                medians[name] = _median_ms(fn, reps)
+                device[name] = _device_ms(fn, reps)
+                host[name] = _host_us(fn)
+        parts.append(
+            f"{n} x {c} x 16^2, {nq} points: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in medians.items())
+            + "; device ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in device.items())
+            + "; host us: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    print(f"{card}; 2D small-cloud kernels, median of {reps}: "
+          + " | ".join(parts), flush=True)
+    return 0
+
+
 def _v1_kernels(card, c, reps, shapes):
     """Median ms of the v1 blend and bwd with C channels at path (a)'s
     2D and 3D shapes (100 000 points) or at config 5's volume (1 000 000
@@ -472,7 +521,8 @@ def main(argv=None):
     ap.add_argument("--points", type=int,
                     help="points a step of the fused and --nested-vol "
                          "steps, or of --fused3s (100 000 by default) and "
-                         "--fused3d (1 024)")
+                         "--fused3d (1 024) and --fused2d (path (b)'s "
+                         "clouds)")
     ap.add_argument("--fused3b", action="store_true",
                     help="time fused3b's kernels alone at config 5")
     ap.add_argument("--fused3s", action="store_true",
@@ -486,6 +536,9 @@ def main(argv=None):
     ap.add_argument("--fused3d", action="store_true",
                     help="time fused3d's and fused3w's kernels alone at "
                          "path (c)'s stack")
+    ap.add_argument("--fused2d", action="store_true",
+                    help="time fused2d's and fused2w's kernels alone at "
+                         "path (b)'s stacks")
     ap.add_argument("--v1", nargs="?", const="main",
                     choices=("main", "config5"),
                     help="time the v1 pair's blend and bwd alone at path "
@@ -512,6 +565,8 @@ def main(argv=None):
     if args.fused3d:
         return _fused3d_kernels(card, args.cell_dim, args.reps,
                                 args.points or 1024)
+    if args.fused2d:
+        return _fused2d_kernels(card, args.cell_dim, args.reps, args.points)
     points = args.points or 100_000
     if args.fused3s:
         return _fused3s_kernels(card, args.reps, points)

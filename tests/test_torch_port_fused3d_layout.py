@@ -162,10 +162,10 @@ def _calls(text, name):
 def test_other_callers_of_the_shared_launchers_keep_128_queries_a_block():
     """csrc/fused.cu's launchers take the queries a block as their last
     argument, by default the shared bodies' kGatherQueries /
-    kScatterQueries (128); every caller but fused3d.cu (the v1, fused2w
-    and fused3w blends and bwds) leaves it at that default, and their
-    host layouts have no block size of their own; fused3d.cu passes its
-    layout's."""
+    kScatterQueries (128); every caller but the small-cloud pairs
+    (fused2d.cu, fused3d.cu) leaves it at that default (the v1, fused2w
+    and fused3w blends and bwds), and their host layouts have no block
+    size of their own; fused2d.cu and fused3d.cu pass their layout's."""
     csrc = build.CSRC
     gather_h = (csrc / "texel_gather.cuh").read_text()
     scatter_h = (csrc / "texel_scatter.cuh").read_text()
@@ -181,12 +181,13 @@ def test_other_callers_of_the_shared_launchers_keep_128_queries_a_block():
                 if args[0].startswith("const float*"):
                     continue        # an explicit instantiation
                 seen += 1
-                if path.name == "fused3d.cu":
+                if path.name in ("fused2d.cu", "fused3d.cu"):
                     assert len(args) == 14 and args[-1] == "queries", args
                 else:
                     assert len(args) == 13, (path.name, name, args)
-    # the v1 blends and bwds in 2D and 3D, fused2w's, fused3w's, fused3d's
-    assert seen == 10
+    # the v1 blends and bwds in 2D and 3D, fused2w's, fused3w's, fused2d's,
+    # fused3d's
+    assert seen == 12
     assert gather.QUERIES == scatter.QUERIES == 128
     assert "queries" not in v1.BlendGeometry._fields
     assert "queries" not in scatter.ScatterGeometry._fields
@@ -229,11 +230,12 @@ def _blocks(q, queries):
 
 
 def _blend_f64(x, pts, spatial, cfg, lay, n, c):
-    """The (7, C, Q) rows fused3d_blend stores over blocks of
-    ``lay.queries`` queries, in f64 through the plain corner tables at the
-    kernel's addresses: the texel-major copy ((texel * N + cell) * C +
-    channel) or the planar cells ((cell * C + channel) * texels +
-    texel)."""
+    """The (1 + 2D, C, Q) rows fused3d_blend (fused2d_blend in 2D) stores
+    over blocks of ``lay.queries`` queries, in f64 through the plain
+    corner tables at the kernel's addresses: the texel-major copy ((texel
+    * N + cell) * C + channel) or the planar cells ((cell * C + channel) *
+    texels + texel)."""
+    dim = len(spatial)
     texels = math.prod(spatial)
     q = pts.shape[0]
     qi, ni, chl = [], [], []
@@ -247,15 +249,15 @@ def _blend_f64(x, pts, spatial, cfg, lay, n, c):
     if lay.planar:
         flat, src0, step = x.reshape(-1), (ni * c + chl) * texels, 1
     else:
-        flat, src0, step = (x.permute(2, 3, 4, 0, 1).reshape(-1),
+        flat, src0, step = (x.permute(*range(2, 2 + dim), 0, 1).reshape(-1),
                             ni * c + chl, n * c)
     offs = multicell_offsets(n, cfg.multicell, F64, "cpu")[ni]
-    rows = torch.zeros((q, 7, c), dtype=F64)
-    for row, o in enumerate(all_orders(3)):
+    rows = torch.zeros((q, 1 + 2 * dim, c), dtype=F64)
+    for row, o in enumerate(all_orders(dim)):
         tables = per_axis_tables(pts[qi], spatial, cfg, o, n, offset=offs)
         acc = torch.zeros(qi.shape, dtype=F64)
-        for corner in itertools.product((0, 1), repeat=3):
-            idx, wgt, ok = corner_index_weight(tables, corner, spatial, 3)
+        for corner in itertools.product((0, 1), repeat=dim):
+            idx, wgt, ok = corner_index_weight(tables, corner, spatial, dim)
             texel = idx.clamp(0, texels - 1)
             acc = acc + torch.where(ok, wgt * flat[src0 + texel * step], 0.0)
         rows.index_put_((qi, torch.full_like(qi, row), chl), acc,
@@ -264,10 +266,12 @@ def _blend_f64(x, pts, spatial, cfg, lay, n, c):
 
 
 def _bwd_f64(g, pts, spatial, cfg, lay, n):
-    """The (N, C, D, H, W) cotangent fused3d_bwd adds over blocks of
-    ``lay.queries`` queries, in f64 at the kernel's addresses: in place
-    ((cell * C + channel) * texels + texel) where planar, else into the
-    texel-major scratch ((texel * N + cell) * C + channel) moved back."""
+    """The (N, C, *S) cotangent fused3d_bwd (fused2d_bwd in 2D) adds over
+    blocks of ``lay.queries`` queries, in f64 at the kernel's addresses:
+    in place ((cell * C + channel) * texels + texel) where planar, else
+    into the texel-major scratch ((texel * N + cell) * C + channel) moved
+    back."""
+    dim = len(spatial)
     geom = lay.lanes
     c, q = g.shape[1:]
     texels = math.prod(spatial)
@@ -283,11 +287,11 @@ def _bwd_f64(g, pts, spatial, cfg, lay, n):
     acc = torch.zeros((texels * n * c,), dtype=F64)
     ch = grp[:, None] * geom.width + torch.arange(geom.width)[None, :]
     live = ch < c
-    for row, o in enumerate(all_orders(3)):
+    for row, o in enumerate(all_orders(dim)):
         tables = per_axis_tables(pts[qi], spatial, cfg, o, n, offset=offs)
         gq = g[row][ch.clamp(max=c - 1), qi[:, None]]
-        for corner in itertools.product((0, 1), repeat=3):
-            idx, wgt, ok = corner_index_weight(tables, corner, spatial, 3)
+        for corner in itertools.product((0, 1), repeat=dim):
+            idx, wgt, ok = corner_index_weight(tables, corner, spatial, dim)
             keep = ok[:, None] & live
             texel = idx.clamp(0, texels - 1)[:, None]
             dst = ((ni[:, None] * c + ch) * texels + texel if lay.planar
@@ -295,7 +299,8 @@ def _bwd_f64(g, pts, spatial, cfg, lay, n):
             acc.index_add_(0, dst[keep], (wgt[:, None] * gq)[keep])
     if lay.planar:
         return acc.reshape(n, c, *spatial)
-    return acc.reshape(*spatial, n, c).permute(3, 4, 0, 1, 2)
+    return acc.reshape(*spatial, n, c).permute(dim, dim + 1,
+                                               *range(dim))
 
 
 @pytest.mark.parametrize("padding,multicell", [

@@ -78,31 +78,32 @@ def test_fused_rule_follows_the_jax_order():
     kernels (fused3w's channel groups only over stacks larger than the
     L2, tests/test_torch_port_wide.py); the 3D kernels in 3D (fused3d for
     these small clouds; tests/test_torch_port_fused3ds.py holds the 3D
-    branch), fused2d for small 2D clouds over FUSED2D_MIN_CELLS cells or
-    more whose channel group fits shared memory, fused2w otherwise; off
-    the card the same kernel routes."""
+    branch), fused2d for small 2D clouds (up to FUSED2D_MAX_Q points or
+    FUSED2D_MAX_Q_PER_CELL points a cell, whichever allows more, on any
+    stack), fused2w otherwise; off the card the same kernel routes."""
     cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
-    max_q, pairs = route.FUSED2D_MAX_Q, route.FUSED2D_MAX_PAIRS
-    fewest = route.FUSED2D_MIN_CELLS
+    max_q, per_cell = route.FUSED2D_MAX_Q, route.FUSED2D_MAX_Q_PER_CELL
     rule = route.fused_rule
     assert rule(cfg2, (96, 4, 16, 16), 100_000) == "fused2w"
     # the sweep's points (PERF.md section 4), each to its faster kernel
-    for n, q, want in [(96, 2047, "fused2d"), (96, 2731, "fused2d"),
-                       (96, 3072, "fused2w"), (96, 3584, "fused2w"),
-                       (96, 4096, "fused2w"), (64, 2731, "fused2d"),
-                       (64, 3072, "fused2d"), (48, 2048, "fused2d"),
-                       (48, 2731, "fused2d"), (32, 1024, "fused2w"),
-                       (32, 2048, "fused2w"), (32, 4096, "fused2w"),
-                       (32, 6144, "fused2w"), (32, 7168, "fused2w"),
-                       (32, 8192, "fused2w"), (8, 512, "fused2w"),
-                       (8, 8192, "fused2w"), (8, 16384, "fused2w"),
-                       (8, 24576, "fused2w"), (8, 32768, "fused2w")]:
+    for n, q, want in [(96, 2047, "fused2d"), (96, 4096, "fused2d"),
+                       (96, 24576, "fused2d"), (96, 32768, "fused2d"),
+                       (96, 49152, "fused2w"), (64, 24576, "fused2d"),
+                       (64, 32768, "fused2w"), (48, 16384, "fused2d"),
+                       (48, 24576, "fused2w"), (32, 1024, "fused2d"),
+                       (32, 12288, "fused2d"), (32, 16384, "fused2w"),
+                       (32, 32768, "fused2w"), (24, 12288, "fused2d"),
+                       (24, 16384, "fused2w"), (16, 512, "fused2d"),
+                       (16, 12288, "fused2d"), (16, 32768, "fused2w"),
+                       (8, 512, "fused2d"), (8, 12288, "fused2d"),
+                       (8, 32768, "fused2w"), (8, 100_000, "fused2w")]:
         assert rule(cfg2, (n, 4, 16, 16), q) == want, (n, q)
-    assert rule(cfg2, (96, 4, 16, 16), max_q) == "fused2d"
-    assert rule(cfg2, (96, 4, 16, 16), max_q + 1) == "fused2w"
-    assert rule(cfg2, (fewest, 4, 16, 16), pairs // fewest) == "fused2d"
-    assert rule(cfg2, (fewest, 4, 16, 16), pairs // fewest + 1) == "fused2w"
-    assert rule(cfg2, (fewest - 1, 4, 16, 16), 100) == "fused2w"
+    for n in (1, 8, max_q // per_cell):
+        assert rule(cfg2, (n, 4, 16, 16), max_q) == "fused2d"
+        assert rule(cfg2, (n, 4, 16, 16), max_q + 1) == "fused2w"
+    for n in (max_q // per_cell + 1, 96):
+        assert rule(cfg2, (n, 4, 16, 16), per_cell * n) == "fused2d"
+        assert rule(cfg2, (n, 4, 16, 16), per_cell * n + 1) == "fused2w"
     assert rule(cfg3, (50, 4, 16, 16, 16), 100) == "fused3d"
     for shape in ((96, 16, 16, 16), (50, 16, 16, 16, 16)):
         cfg = cfg2 if len(shape) == 4 else cfg3
@@ -111,8 +112,8 @@ def test_fused_rule_follows_the_jax_order():
     assert rule(cfg2, (96, 9, 16, 16), 1024) == "fused"
     assert rule(cfg2, (96, 9, 16, 16), 100_000) == "fused"
     assert rule(cfg2, (16, 9, 1024, 1024), 1024) == "fused2w"
-    # a 4 x 256^2 cell (1 MB) is over a block's shared memory
-    assert rule(cfg2, (2, 4, 256, 256), 100) == "fused2w"
+    # a 4 x 256^2 cell (1 MB): nothing is staged, so fused2d takes it
+    assert rule(cfg2, (2, 4, 256, 256), 100) == "fused2d"
     for what, args in [
             ("f64", (cfg2, (96, 4, 16, 16), 100_000, "cuda", F64)),
             ("f64 at C > 8", (cfg3, (8, 16, 8, 8, 8), 100, "cuda", F64)),

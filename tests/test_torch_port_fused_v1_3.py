@@ -41,11 +41,19 @@ def test_plain_route_of_the_sampler_counts_and_matches(monkeypatch):
 
 
 def test_fused2d_supports_what_a_block_stages():
+    """No block stages a channel group of a cell any more (fused2d runs
+    fused2w's bodies in blocks of a few queries): every 2D stack is taken,
+    whatever its cells' size and channel count, in every padding mode; 3D
+    is refused."""
     assert fused2d.supports(TConfig(dim=2), (96, 4, 16, 16))
     assert fused2d.supports(TConfig(dim=2), (96, 16, 16, 16))
     assert fused2d.supports(TConfig(dim=2), (3, 4, 64, 64))
-    assert not fused2d.supports(TConfig(dim=2), (2, 4, 256, 256))
+    assert fused2d.supports(TConfig(dim=2), (2, 4, 256, 256))
+    assert fused2d.supports(TConfig(dim=2), (16, 16, 1024, 1024))
+    assert fused2d.supports(TConfig(dim=2, padding_mode="reflection"),
+                            (1, 3, 7, 9))
     assert not fused2d.supports(TConfig(dim=3), (2, 4, 8, 8, 8))
+    assert not fused2d.supports(TConfig(dim=2), (2, 4, 8, 8, 8))
 
 
 @pytest.mark.parametrize("mod", [fused_v1, fused2d], ids=["v1", "fused2d"])

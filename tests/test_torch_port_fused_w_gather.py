@@ -158,20 +158,25 @@ def test_w_blend_lane_walk_matches_plain_fused_blend_f64(dim):
 def test_fused_rule_bounds_at_their_edges():
     """route.fused_rule's measured bounds up to 8 channels on their two
     sides, shapes alone (chip_smoke.py small_cloud_sweep_phase,
-    small_cloud_3d_sweep_phase; PERF.md section 4): fused2d over
-    FUSED2D_MIN_CELLS cells or more up to FUSED2D_MAX_Q queries or
-    FUSED2D_MAX_PAIRS pairs; fused3d up to FUSED3D_MAX_Q_PER_CELL queries
+    small_cloud_3d_sweep_phase; PERF.md section 4): fused2d up to
+    FUSED2D_MAX_Q queries or FUSED2D_MAX_Q_PER_CELL queries a cell,
+    whichever allows more, on any stack; fused3d up to
+    FUSED3D_MAX_Q_PER_CELL queries
     a cell and FUSED3D_MAX_Q; fused3s from FUSED3S_MIN_Q; fused2w / fused3w
     otherwise."""
     rule = route.fused_rule
     cfg2, cfg3 = TConfig(dim=2), TConfig(dim=3)
-    fewest, max_q = route.FUSED2D_MIN_CELLS, route.FUSED2D_MAX_Q
-    assert rule(cfg2, (fewest, 4, 16, 16), max_q) == "fused2d"
-    assert rule(cfg2, (fewest - 1, 4, 16, 16), max_q) == "fused2w"
-    assert rule(cfg2, (96, 4, 16, 16), max_q + 1) == "fused2w"
-    pairs_q = route.FUSED2D_MAX_PAIRS // fewest
-    assert rule(cfg2, (fewest, 4, 16, 16), pairs_q) == "fused2d"
-    assert rule(cfg2, (fewest, 4, 16, 16), pairs_q + 1) == "fused2w"
+    max_q, per_cell2 = route.FUSED2D_MAX_Q, route.FUSED2D_MAX_Q_PER_CELL
+    for n in (1, 8, 32):
+        assert n * per_cell2 <= max_q
+        assert rule(cfg2, (n, 4, 16, 16), max_q) == "fused2d"
+        assert rule(cfg2, (n, 4, 16, 16), max_q + 1) == "fused2w"
+    assert rule(cfg2, (2, 4, 256, 256), max_q) == "fused2d"
+    assert rule(cfg2, (16, 4, 1024, 1024), max_q + 1) == "fused2w"
+    for n in (33, 48, 96):
+        assert n * per_cell2 > max_q
+        assert rule(cfg2, (n, 4, 16, 16), n * per_cell2) == "fused2d"
+        assert rule(cfg2, (n, 4, 16, 16), n * per_cell2 + 1) == "fused2w"
     per_cell = route.FUSED3D_MAX_Q_PER_CELL
     for n in (2, 4, 8):
         assert rule(cfg3, (n, 4, 16, 16, 16), n * per_cell) == "fused3d"
