@@ -19,17 +19,22 @@ plain versions and timed against fused3b_bwd at rb 1, 2, 4 and 8 and at
 16 channels), and the nested 3D trainer on config 5's volume (100 000
 points) for 3 steps through the route ops/cuda/route.py gives it
 (slab_blend / slab_splat over the slab bins, one build a step) and 3
-steps forced through percell (percell_blend / percell_splat); the
+steps forced through percell (percell_blend / percell_splat), and on
+8 x 4 x 192^3 cells, whose rows slab cannot stage, for 3 steps through
+the route the rule gives it (percell, one plan a step) against the same
+steps through blend_o / splat_o; the
 per-cell surface of 4 x 4 x 128^3 cells (per-cell 16^3 grids), its
 sparse case, a 4 x 4 x 1024^2 2D volume and a stack of 1024 x 4 x 16^3
 cells go through their routes too, and percell, slab, the percell plan
 and the slab bins are held to their plain versions at all those shapes,
 at a skewed and a sparse cloud on config 5's volume and (percell) on 8 x
-4 x 32 x 256^2 cells at 2^20 pairs; percell's tiles, splat_o's and
+4 x 32 x 256^2 cells at 2^20 pairs and on 8 x 4 x 192^3 cells (the
+nested trainer's points, and points on every tile's edges); percell's
+blend and splat tiles (and the rule's pair bound for percell), splat_o's and
 blend_o's launch geometries, mega2w's work units and the lane layouts
 of fused3b_bwd's and fused3s_bwd's shared scatter and of fused3b_blend's
 and fused3s_blend's shared gather are each timed against their
-alternatives (the sweeps behind percell.geometry,
+alternatives (the sweeps behind percell.geometry, percell.splat_geometry,
 blend_splat.splat_geometry, blend_splat.blend_geometry,
 mega2w.geometry, scatter.scatter_geometry and gather.gather_geometry), and
 so is fused2w_bwd's and fused3w_bwd's scatter, with its destination
@@ -137,6 +142,9 @@ N5, S5, Q5, STEPS_VOL = 16, 128, 1_000_000, 5
 # the nested 3D trainer on config 5's volume with the reference's 3D point
 # count (test_3d.py), through the over-budget route (slab; percell forced)
 QN, STEPS_NESTED_VOL = 100_000, 3
+# the nested 3D trainer's cells that percell takes by the rule (rows
+# slab cannot stage): 8 x 4 x 192^3 (906 MB) at the same points
+N192, S192 = 8, 192
 # the per-cell surface of scripts/smoke_slab.py: 4 x 4 x 128^3 cells,
 # per-cell (16, 16, 16) grids; its sparse case (2, 2, 2); and a 2D volume
 # over a block's shared memory, 4 x 4 x 1024^2 with per-cell 128^2 grids
@@ -147,6 +155,12 @@ NS, SS, GS = 1024, 16, 1024
 # cells whose rows the slab kernels cannot stage (percell's route): 8 x 4
 # x 32 x 256^2 at 2^20 (cell, query) pairs
 NW, SW, QW = 8, (32, 256, 256), 1 << 20
+# the percell launches no main path takes but route.rule gives: 2 x 4 x
+# 256^3 cells (537 MB; D * H over the plan's histogram, keys of 2 y rows)
+# at 150 000 shared points, and 8 x 4 x 16 x 16 x 12288 cells (403 MB;
+# rows too wide for a 256-thread splat block) at 2^15 points a cell
+SK, QK = 256, 150_000
+SWIDE, QWIDE = (16, 16, 12288), 1 << 15
 # kernel vs plain: max |kernel - plain| over the largest |plain| of the row
 # (f32, other summation order, f32 atomics in the splats).  A blend_o or
 # splat_o launch is one row: order k scales it by (pi * mult)^k, so only an
@@ -1011,6 +1025,41 @@ def _nested_vol_inputs(seed):
     return x, grid, gout
 
 
+def _nested_192_inputs(seed):
+    """8 x 4 x 192^3 cells, the nested trainer's first batch of 100 000
+    points as their shared grid, and a cotangent."""
+    gen = _cuda_gen(seed)
+    x = torch.rand((N192, C, *(S192,) * 3), generator=gen, device="cuda")
+    grid = _trainer_points(QN, 3).reshape(1, 1, 1, QN, 3)
+    gout = torch.randn((N192, C, 1, 1, QN), generator=gen, device="cuda")
+    return x, grid, gout
+
+
+def _tile_edge_points(s, seed, q=6000):
+    """(1, 1, 1, q, 3) shared points over s^3 cells (multicell,
+    align_corners) whose y and z source coordinates in cell 0 fall on the
+    first and last rows of every percell splat tile and blend tile and a
+    hair either side, and on the cell's first and last rows and past
+    them; x over the cell and past it."""
+    gen = _cuda_gen(seed)
+    dz, ty = percell.splat_geometry(C, (s,) * 3)[:2]
+    bz, by = percell.geometry(C, (s,) * 3)
+    rows = {}
+    for axis, steps in ((2, (dz, bz)), (1, (ty, by))):
+        edges = sorted({e for st in steps for t in range(0, s, st)
+                        for e in (t, t + st - 1)} | {-1, 0, s - 1, s})
+        rows[axis] = torch.tensor(
+            [e + h for e in edges for h in (-1e-3, 0.0, 1e-3, 0.5)],
+            device="cuda")
+    pts = torch.rand((q, 3), generator=gen, device="cuda") * 2.2 - 1.1
+    scale = 0.5 * (s - 2)
+    for axis, vals in rows.items():
+        pick = torch.randint(0, vals.numel(), (q,), generator=gen,
+                             device="cuda")
+        pts[:, axis] = vals[pick] / scale - 1.0
+    return pts.reshape(1, 1, 1, q, 3)
+
+
 def _per_cell_inputs(dim, n, spatial, grid_out, seed, lo=-0.95, hi=0.95):
     """Cells, per-cell grids (N, *grid_out, dim) in [lo, hi] (the range of
     scripts/smoke_slab.py) and a cotangent, made on the card."""
@@ -1046,7 +1095,8 @@ def compare_route(what, name, cfg, x, grid, gout, orders_list):
     """Route ``name``'s blend and splat against their plain versions on
     the card at each order (one launch is one row, within REL_TOL), and
     the blend equal bit for bit to blend_o's (the same corner walk and
-    FMA order).  Returns the largest abs errors."""
+    FMA order) and to itself on a second call.  Returns the largest abs
+    errors."""
     plan = (percell.make_plan(grid, tuple(x.shape), cfg)
             if name == "percell" else None)
     worst = [0.0, 0.0]
@@ -1057,6 +1107,7 @@ def compare_route(what, name, cfg, x, grid, gout, orders_list):
         dx = splat_k(gout)
         dref = splat_p(gout)
         other = blend_splat.blend(x, grid, cfg, orders)
+        again = blend_k()
         torch.cuda.synchronize()
         if out.shape != ref.shape or dx.shape != dref.shape:
             raise RuntimeError(f"{name} {what} {orders}: shape mismatch")
@@ -1064,19 +1115,20 @@ def compare_route(what, name, cfg, x, grid, gout, orders_list):
             raise RuntimeError(f"{name} {what} {orders}: non-finite output")
         abs_b, rel_b = _rel_err(out.reshape(1, -1), ref.reshape(1, -1))
         abs_s, rel_s = _rel_err(dx.reshape(1, -1), dref.reshape(1, -1))
-        same = torch.equal(out, other)
+        same = torch.equal(out, other) and torch.equal(out, again)
         print(f"compare {name} {what} ({'x'.join(map(str, x.shape))}, grid "
               f"{tuple(grid.shape)}) orders {orders}: blend abs {abs_b:.3e} "
               f"rel {rel_b:.3e}; splat abs {abs_s:.3e} rel {rel_s:.3e}; "
-              f"blend == blend_o bit for bit: {same}", flush=True)
+              f"blend == blend_o and a second call bit for bit: {same}",
+              flush=True)
         if not (rel_b <= REL_TOL and rel_s <= REL_TOL):
             raise RuntimeError(f"{name} {what} {orders}: kernel disagrees "
                                "with the plain version")
         if not same:
             raise RuntimeError(f"{name} {what} {orders}: blend differs from "
-                               "blend_o's")
+                               "blend_o's or from its own second call")
         worst = [max(worst[0], abs_b), max(worst[1], abs_s)]
-        del out, ref, dx, dref, other
+        del out, ref, dx, dref, other, again
     return worst
 
 
@@ -1125,7 +1177,7 @@ def _band_points(q, s, rows, seed, y_rows=None):
 
 def compare_plan(what, cfg, cells_shape, grid):
     """percell_plan against plain_plan on the card: the same first slot of
-    every (cell, tile) and, slot by slot, a pair of the same key (the
+    every (cell, key) and, slot by slot, a pair of the same key (the
     kernel orders a bin by its atomics, the plain version by query); perm
     a permutation."""
     got = percell.make_plan(grid, cells_shape, cfg)
@@ -1135,15 +1187,15 @@ def compare_plan(what, cfg, cells_shape, grid):
         torch.arange(want.starts.numel() - 1, device=grid.device),
         (want.starts[1:] - want.starts[:-1]).long())
     slots = torch.arange(got.perm.numel(), device=grid.device)
-    ok = ((got.dz, got.ty) == (want.dz, want.ty)
+    ok = ((got.kz, got.ky) == (want.kz, want.ky)
           and torch.equal(got.starts, want.starts)
           and torch.equal(key[got.perm.long()], key[want.perm.long()])
           and torch.equal(torch.sort(got.perm).values.long(), slots))
     sizes = want.starts[1:] - want.starts[:-1]
     print(f"compare percell_plan {what} ({'x'.join(map(str, cells_shape))}, "
-          f"grid {tuple(grid.shape)}): {got.perm.numel()} pairs in tiles of "
-          f"({got.dz}, {got.ty}) rows, {int((sizes == 0).sum())} of "
-          f"{sizes.numel()} (cell, tile) bins empty, the fullest "
+          f"grid {tuple(grid.shape)}): {got.perm.numel()} pairs in keys of "
+          f"({got.kz}, {got.ky}) rows, {int((sizes == 0).sum())} of "
+          f"{sizes.numel()} (cell, key) bins empty, the fullest "
           f"{int(sizes.max())}; equal to the plain plan: {ok}", flush=True)
     if not ok:
         raise RuntimeError(f"percell_plan {what}: differs from plain_plan")
@@ -1197,6 +1249,53 @@ def pc_slab_kernel_phase():
         compare_plan(what, cfg3, tuple(x.shape), grid)
         e = compare_route(what, "percell", cfg3, x, grid, gout,
                           [(0, 0, 0), (1, 0, 2)])
+        errs["percell_blend"] = max(errs["percell_blend"], e[0])
+        errs["percell_splat"] = max(errs["percell_splat"], e[1])
+        del x, grid, gout
+        torch.cuda.empty_cache()
+    # the nested trainer's cells that percell takes by the rule: 8 x 4 x
+    # 192^3 at its 100 000 shared points, and points on every splat tile's
+    # edges (a hair either side of each tile's first and last rows)
+    x, grid, gout = _nested_192_inputs(52)
+    compare_plan("nested-192", cfg3, tuple(x.shape), grid)
+    e = compare_route("nested-192", "percell", cfg3, x, grid, gout,
+                      [(0, 0, 0), (0, 0, 1), (1, 1, 1)])
+    pts = _tile_edge_points(S192, 53)
+    compare_plan("nested-192 tile edges", cfg3, tuple(x.shape), pts)
+    e2 = compare_route("nested-192 tile edges", "percell", cfg3, x, pts,
+                       gout[..., :pts.shape[3]].contiguous(),
+                       [(0, 0, 0), (0, 2, 1)])
+    errs["percell_blend"] = max(errs["percell_blend"], e[0], e2[0])
+    errs["percell_splat"] = max(errs["percell_splat"], e[1], e2[1])
+    del x, grid, gout, pts
+    torch.cuda.empty_cache()
+    # stacks the rule sends to percell on its other launches: 256^2 planes,
+    # whose D * H rows exceed the plan's histogram (keys of 2 y rows, the
+    # walks dropping the pairs of other tiles' rows), at points on every
+    # tile's edges; and rows too wide for a 256-thread splat block (one
+    # 1024-thread block an SM), per-cell points
+    for what, (x, grid, gout), keys, threads in (
+            ("coarse keys", (torch.rand((2, C, *(SK,) * 3),
+                                        generator=_cuda_gen(56),
+                                        device="cuda"),
+                             _tile_edge_points(SK, 57, QK),
+                             torch.randn((2, C, 1, 1, QK),
+                                         generator=_cuda_gen(58),
+                                         device="cuda")), (1, 2), 256),
+            ("1024-thread splat", _per_cell_inputs(
+                3, NW, SWIDE, (1, 1, QWIDE), 59, -1.0, 1.0), (1, 1), 1024)):
+        shape = tuple(x.shape)
+        pairs = shape[0] * grid.shape[-2]
+        tile = percell.splat_geometry(C, shape[2:])
+        if (percell.key_grid(*shape[2:4]) != keys or tile.threads != threads
+                or route.rule(cfg3, shape, pairs) != "percell"):
+            raise RuntimeError(f"percell {what} ({shape}, {pairs} pairs): "
+                               f"keys {percell.key_grid(*shape[2:4])}, splat "
+                               f"tile {tuple(tile)}, route "
+                               f"{route.rule(cfg3, shape, pairs)}")
+        compare_plan(what, cfg3, shape, grid)
+        e = compare_route(what, "percell", cfg3, x, grid, gout,
+                          [(0, 0, 0), (0, 1, 2)])
         errs["percell_blend"] = max(errs["percell_blend"], e[0])
         errs["percell_splat"] = max(errs["percell_splat"], e[1])
         del x, grid, gout
@@ -1469,6 +1568,25 @@ def pc_slab_time_phase():
     shape = tuple(x.shape)
     plan_ms = _time_plan("pair plan", lambda: percell.make_plan(
         grid, shape, cfg), QW, f"{NW}x{C}x{'x'.join(map(str, SW))}")
+    plan = percell.make_plan(grid, shape, cfg)
+    touched = _touched_values(x, grid, cfg)
+    flops = 2 * 8 * C * QW
+    wide = {
+        "percell_blend": (lambda: percell.blend(x, grid, cfg, o, plan),
+                          _bound(_kernel_bytes(x, grid, C * QW, 4 * QW,
+                                               touched), flops)),
+        "percell_splat": (lambda: percell.splat(gout, grid, SW, cfg, o,
+                                                plan),
+                          _bound(_kernel_bytes(gout, grid, x.numel(),
+                                               4 * QW), flops))}
+    for name, (kernel, (bound_ms, bound_by)) in wide.items():
+        ms = _time_ms(kernel, 5)
+        times[name].update(ms_wide_rows_cosine=ms,
+                           bound_ms_wide_rows=bound_ms)
+        print(f"time {name} on {NW}x{C}x{'x'.join(map(str, SW))} (per-cell "
+              f"Q={QW // NW}, order 0): kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it",
+              flush=True)
     plan_l = percell.make_plan(grid, shape, lib_cfg)
     lib = _against_library(f"{NW}x{C}x{'x'.join(map(str, SW))}, per-cell "
                            f"Q={QW // NW}", {
@@ -1479,65 +1597,131 @@ def pc_slab_time_phase():
     for name, (ms, lib_ms) in lib.items():
         times[name].update(ms_wide_rows=ms, library_ms_wide_rows=lib_ms,
                            plan_ms_wide_rows=plan_ms)
-    del x, grid, gout, plan_l
+    del x, grid, gout, plan, plan_l
     torch.cuda.empty_cache()
     percell_tile_sweep()
     route_sweep_phase()
+    percell_route_sweep_phase()
     return times
 
 
 # the shared memory a percell tile may take in percell_tile_sweep: two,
 # three and four blocks an SM, and one
 TILE_SWEEP_BYTES = (113 * 1024, 75 * 1024, 55 * 1024, 227 * 1024)
+# the percell splat tiles of the sweep: one z row of each of these y rows
+# (splat_geometry's first tier, at SPLAT_ROWS) and the tile that walks
+# the fewest pairs in each of these bytes (its second tier, at
+# SPLAT_FALLBACK_BYTES)
+SPLAT_SWEEP_ROWS = (6, 9, 12, 18, 27)
+SPLAT_SWEEP_BYTES = (37 * 1024, 56 * 1024)
+
+
+@contextlib.contextmanager
+def _percell_attrs(**attrs):
+    """percell's module attributes set to ``attrs`` for the block, and
+    restored after it."""
+    saved = {k: getattr(percell, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(percell, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(percell, k, v)
+
+
+def _under(attrs, fn):
+    """``fn`` called with percell's module attributes set to ``attrs``."""
+    def call():
+        with _percell_attrs(**attrs):
+            return fn()
+    return call
+
+
+def _percell_sweep_cases():
+    """The shapes of the percell tile sweeps: the nested volume, 8 x 4 x
+    32 x 256^2 at 2^20 per-cell pairs and 8 x 4 x 192^3 at the nested
+    trainer's points."""
+    return (("nested volume", _nested_vol_inputs(50)),
+            ("8x4x32x256^2", _per_cell_inputs(3, NW, SW, (1, 1, QW // NW),
+                                              51, -1.0, 1.0)),
+            ("8x4x192^3", _nested_192_inputs(54)))
+
+
+def _blend_tiles(spatial):
+    """The blend tiles the sweep times, by name: percell.geometry's at
+    each budget of TILE_SWEEP_BYTES, and its tiles of one z row there;
+    each with the module attributes that give it."""
+    tiles = {}
+    for tile_bytes in TILE_SWEEP_BYTES:
+        for max_rows in (percell.MAX_TILE_ROWS, 1):
+            attrs = dict(TILE_BYTES=tile_bytes, MAX_TILE_ROWS=max_rows)
+            with _percell_attrs(**attrs):
+                tile = percell.geometry(C, spatial)
+            tiles.setdefault(f"blend {tile_bytes // 1024} KB tile {tile}",
+                             attrs)
+    return tiles
+
+
+def _splat_tiles(spatial):
+    """The splat tiles the sweep times, by name: splat_geometry's at each
+    of SPLAT_SWEEP_ROWS and SPLAT_SWEEP_BYTES, each with the module
+    attributes that give it."""
+    tiles = {}
+    settings = ([dict(SPLAT_ROWS=r) for r in SPLAT_SWEEP_ROWS]
+                + [dict(SPLAT_BYTES=0, SPLAT_FALLBACK_BYTES=b)
+                   for b in SPLAT_SWEEP_BYTES])
+    for attrs in settings:
+        with _percell_attrs(**attrs):
+            tile = percell.splat_geometry(C, spatial)
+        tiles.setdefault(f"splat {tuple(tile)}", attrs)
+    return tiles
 
 
 def percell_tile_sweep():
-    """The measurement behind percell.geometry: percell_blend (order 0)
-    at the nested volume and on 8 x 4 x 32 x 256^2 cells (2^20 per-cell
-    pairs) with the tiles of each budget in TILE_SWEEP_BYTES, and tiles of
-    one z row (bins by (cell, z row, y band)) at each, blend and plan
-    timed in turns, each blend equal to blend_o's bit for bit."""
+    """The measurements behind percell.geometry and percell.splat_geometry:
+    percell_blend (order 0) at the nested volume, on 8 x 4 x 32 x 256^2
+    cells (2^20 per-cell pairs) and on 8 x 4 x 192^3 with the tiles of
+    _blend_tiles, each equal to blend_o's bit for bit, and percell_splat
+    with the tiles of _splat_tiles, each within REL_TOL of the plain
+    splat; ms in turns, and the plan's build once."""
     cfg = SamplerConfig(dim=3)
     o = (0, 0, 0)
-    budget = percell.TILE_BYTES
-    cases = (("nested volume", _nested_vol_inputs(50)[:2]),
-             ("8x4x32x256^2", _per_cell_inputs(3, NW, SW, (1, 1, QW // NW),
-                                               51, -1.0, 1.0)[:2]))
-    try:
-        for what, (x, grid) in cases:
-            spatial = tuple(x.shape[2:])
-            shape = tuple(x.shape)
-            want = blend_splat.blend(x, grid, cfg, o)
-            runs = {}
-            for tile_bytes in TILE_SWEEP_BYTES:
-                percell.TILE_BYTES = tile_bytes
-                dz, ty = percell.geometry(C, spatial)
-                one_row = (tile_bytes - percell.BARRIER_BYTES) // (
-                    4 * C * 2 * spatial[2]) - 1
-                for tile in ((dz, ty), (1, min(one_row, spatial[1]))):
-                    plan = percell.make_plan(grid, shape, cfg, tile)
-                    if not torch.equal(percell.blend(x, grid, cfg, o, plan),
-                                       want):
-                        raise RuntimeError(f"percell_blend {what} tile "
-                                           f"{tile}: differs from blend_o's")
-                    runs[f"{tile_bytes // 1024} KB tile {tile}"] = (
-                        functools.partial(percell.blend, x, grid, cfg, o,
-                                          plan),
-                        functools.partial(percell.make_plan, grid, shape,
-                                          cfg, tile))
-            ms = {k: [] for k in runs}
-            for k in list(runs) + list(runs)[::-1]:
-                ms[k].append((_time_ms(runs[k][0], 5),
-                              _time_ms(runs[k][1], 5)))
-            print(f"percell tile sweep {what} ({'x'.join(map(str, shape))}, "
-                  f"grid {tuple(grid.shape)}), blend / plan ms: " + "; ".join(
-                      f"{k} {sum(b for b, _ in v) / 2:.4f} / "
-                      f"{sum(p for _, p in v) / 2:.4f}"
-                      for k, v in ms.items()), flush=True)
-            del x, grid, want, runs
-            torch.cuda.empty_cache()
-    finally:
-        percell.TILE_BYTES = budget
+    for what, (x, grid, gout) in _percell_sweep_cases():
+        spatial = tuple(x.shape[2:])
+        shape = tuple(x.shape)
+        plan = percell.make_plan(grid, shape, cfg)
+        plan_ms = _time_ms(functools.partial(percell.make_plan, grid, shape,
+                                             cfg), 5)
+        want = blend_splat.blend(x, grid, cfg, o)
+        ref = percell.plain_splat_percell(gout, grid, spatial, cfg, o, plan)
+        runs = {}
+        for name, attrs in _blend_tiles(spatial).items():
+            run = _under(attrs, functools.partial(percell.blend, x, grid,
+                                                  cfg, o, plan))
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"percell_blend {what} {name}: differs "
+                                   "from blend_o's")
+            runs[name] = run
+        for name, attrs in _splat_tiles(spatial).items():
+            run = _under(attrs, functools.partial(percell.splat, gout, grid,
+                                                  spatial, cfg, o, plan))
+            _, err = _rel_err(run().reshape(1, -1), ref.reshape(1, -1))
+            if not err <= REL_TOL:
+                raise RuntimeError(f"percell_splat {what} {name}: disagrees "
+                                   f"with plain ({err:.3e})")
+            runs[name] = run
+        del ref
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(_time_ms(runs[k], 5))
+        print(f"percell tile sweep {what} ({'x'.join(map(str, shape))}, "
+              f"grid {tuple(grid.shape)}), ms in two turns; plan "
+              f"{plan_ms:.4f}: " + "; ".join(
+                  f"{k} {' '.join(f'{v:.4f}' for v in vals)}"
+                  for k, vals in ms.items()), flush=True)
+        del x, grid, gout, want, runs, plan
+        torch.cuda.empty_cache()
 
 
 def _route_ms(x, grid, gout, cfg):
@@ -1635,6 +1819,48 @@ def route_sweep_phase():
                   + f" ms; rule picks {picked}", flush=True)
             del x, grid, gout
             torch.cuda.empty_cache()
+
+
+# the pair counts of percell_route_sweep_phase: 2^16 to 2^20
+PERCELL_SWEEP_PAIRS = tuple(1 << k for k in range(16, 21))
+
+
+def percell_route_sweep_phase():
+    """The measurement behind route.rule's bound for percell: one blend and
+    one splat (order 0) on percell (its plan reused, and built in the
+    call) and on blend_o / splat_o, in turns (_route_ms), on the cells
+    percell takes (8 x 4 x 32 x 256^2 and 8 x 4 x 192^3) at
+    PERCELL_SWEEP_PAIRS (cell, query) pairs, per-cell and shared points;
+    what route.rule picks, and how many points it sends to the slower
+    route."""
+    cfg = SamplerConfig(dim=3)
+    slower = 0
+    points = 0
+    for spatial in (SW, (S192,) * 3):
+        for pairs in PERCELL_SWEEP_PAIRS:
+            for shared in (False, True):
+                x, grid, gout = _per_cell_inputs(3, NW, spatial,
+                                                 (1, 1, pairs // NW), 55)
+                if shared:
+                    grid = grid[:1].contiguous()
+                ms = _route_ms(x, grid, gout, cfg)
+                picked = route.rule(cfg, tuple(x.shape), pairs)
+                faster = "percell" if ms["percell"] < ms["blend_o"] else \
+                    "blend_o"
+                points += 1
+                slower += picked != faster
+                print(f"percell route sweep {NW}x{C}x"
+                      f"{'x'.join(map(str, spatial))}, "
+                      f"{'shared' if shared else 'per-cell'} "
+                      f"Q={pairs // NW} ({pairs} pairs): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                      + f" ms; rule picks {picked}, faster {faster}",
+                      flush=True)
+                del x, grid, gout
+                torch.cuda.empty_cache()
+    print(f"percell route sweep: the rule sends {slower} of {points} points "
+          f"to the slower route (percell with its plan reused against "
+          f"blend_o / splat_o)", flush=True)
 
 
 # --- fused v1 (C > 8) and fused2d (small clouds) ------------------------------
@@ -3445,6 +3671,63 @@ def nested_vol_trainer_phase():
     return launches
 
 
+MODEL_192 = pinn.PINNConfig(dim=3, n_cells=N192, cell_size=S192,
+                            pde="helmholtz")
+
+
+def nested_192_trainer_phase():
+    """The nested 3D trainer (fused=False, Helmholtz, MODEL_NV's settings)
+    on 8 x 4 x 192^3 cells (906 MB), 100 000 fresh points a step: 3 steps
+    through route.rule's own choice, which must be percell (rows slab
+    cannot stage), 40 percell_blend and 40 percell_splat a step, one plan
+    a step and no other sampler kernel; then the same steps routed to
+    blend_o / splat_o, the losses of each step within GRAD_TOL of
+    blend_o's and the first within LOSS_RTOL; the peak memory.  Returns
+    the routed run's launches."""
+    def cfg():
+        return TrainConfig(model=MODEL_192, device="cuda", fused=False,
+                           batch_points=QN, steps=STEPS_NESTED_VOL,
+                           log_every=1, seed=0)
+
+    shape = (N192, C, *(S192,) * 3)
+    routed = route.rule(MODEL_192.sampler, shape, N192 * QN)
+    if routed != "percell":
+        raise RuntimeError(f"route.rule sends the nested 192^3 trainer to "
+                           f"{routed}, not percell")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plans = percell.make_plan.launches
+    launches, losses = _train_checked(
+        f"nested 3D {N192}x{C}x{S192}^3, {QN} points (route.rule: "
+        f"{routed})", cfg(), STEPS_NESTED_VOL, ROUTE_KERNELS[routed],
+        decrease=False)
+    built = percell.make_plan.launches - plans
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    _check_nested_launches(f"nested 192^3 trainer ({routed})", 3,
+                           launches["percell_blend"] / STEPS_NESTED_VOL,
+                           launches["percell_splat"] / STEPS_NESTED_VOL)
+    print(f"nested 192^3 trainer ({routed}): percell plans built {built} "
+          f"times in {STEPS_NESTED_VOL} steps; peak device memory "
+          f"{peak:.3f} GiB", flush=True)
+    if built != STEPS_NESTED_VOL:
+        raise RuntimeError("the nested 192^3 trainer built other than one "
+                           "percell plan a step")
+    with _routed("blend_o"):
+        _, ref = _train_checked(
+            f"nested 3D {N192}x{C}x{S192}^3, {QN} points, routed to "
+            f"blend_o", cfg(), STEPS_NESTED_VOL, ("blend_o", "splat_o"),
+            decrease=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"nested 192^3 trainer: percell vs blend_o / splat_o losses "
+          f"{' '.join(f'{v:.8g}' for v in ref)} (blend_o); worst rel diff "
+          f"{max(rel):.3e}, first {rel[0]:.3e}", flush=True)
+    if rel[0] > LOSS_RTOL or max(rel) > GRAD_TOL:
+        raise RuntimeError("the percell and blend_o nested 192^3 trainers "
+                           "disagree")
+    return launches
+
+
 def _per_cell_chain(x, grid, w, axis):
     """u_ax, u_axax (per pair) and u_axax_cell of u = w . sample(cells,
     grid) by nested autograd, on the tensors' device."""
@@ -4666,10 +4949,12 @@ def main(argv=None):
     vol = _timed(vol_trainer_phase)
     ghost = _timed(ghost_trainer_phase)
     nested_vol = _timed(nested_vol_trainer_phase)
+    nested_192 = _timed(nested_192_trainer_phase)
     _timed(per_cell_chain_phase)
     _timed(sparse_and_2d_phase)
-    launches.update({k: nested_vol[k] for k in (
-        "percell_blend", "percell_splat", "slab_blend", "slab_splat")})
+    launches.update({k: nested_vol[k] for k in ("slab_blend", "slab_splat")})
+    launches.update({k: nested_192[k] for k in ("percell_blend",
+                                                 "percell_splat")})
     launches.update(blend_o=nested["blend_o"], splat_o=nested["splat_o"],
                     mega2w=mega["mega2w"],
                     fused3w_blend=fused3["fused3w_blend"],

@@ -389,9 +389,9 @@ int slab_bins(const void* grid, void* key, void* rank, void* starts,
   auto* pm = static_cast<int*>(perm);
   auto cs = static_cast<cudaStream_t>(stream);
   return dim == 2
-             ? csm::bins::sort_pairs(gr, k, r, st, pm, s, p,
+             ? csm::bins::sort_pairs(gr, k, r, st, pm, nullptr, s, p,
                                      RowKey<2>{s.size[1]}, cs)
-             : csm::bins::sort_pairs(gr, k, r, st, pm, s, p,
+             : csm::bins::sort_pairs(gr, k, r, st, pm, nullptr, s, p,
                                      RowKey<3>{s.size[2]}, cs);
 }
 

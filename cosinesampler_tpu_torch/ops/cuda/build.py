@@ -193,14 +193,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.splat_o.argtypes = [ptr] * 3 + [i32] * 21 + [f32, f32, ptr]
     lib.splat_o.restype = i32
     # input, grid, perm, starts, out; then as percell_splat below, with
-    # the tile's z rows dz, y rows ty, channels cc and staged after the
-    # orders
-    lib.percell_blend.argtypes = [ptr] * 5 + [i32] * 20 + [f32, f32, ptr]
+    # staged in place of the splat's threads
+    lib.percell_blend.argtypes = [ptr] * 5 + [i32] * 22 + [f32, f32, ptr]
     lib.percell_blend.restype = i32
-    # gout, grid, perm, out; dim, n, c, d, h, w, q, grid batch, 3 orders,
-    # kernel, padding, align, multicell, strict; the offset lattice's step
-    # and stop; the stream
-    lib.percell_splat.argtypes = [ptr] * 4 + [i32] * 16 + [f32, f32, ptr]
+    # gout, grid, perm, starts, out; dim, n, c, d, h, w, q, grid batch, 3
+    # orders, the plan's keys (kz, ky), the tile's z rows dz, y rows ty,
+    # channels cc, threads a block, kernel, padding, align, multicell,
+    # strict; the offset lattice's step and stop; the stream
+    lib.percell_splat.argtypes = [ptr] * 5 + [i32] * 22 + [f32, f32, ptr]
     lib.percell_splat.restype = i32
     for fn in (lib.slab_blend, lib.slab_splat):
         # input or gout, grid, perm, starts, out; then as percell_splat,
@@ -212,11 +212,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stop; the stream
     lib.slab_bins.argtypes = [ptr] * 5 + [i32] * 11 + [f32, f32, ptr]
     lib.slab_bins.restype = i32
-    # grid, key, rank, starts, perm; n, d, h, w, q, grid batch, dz, ty,
-    # padding, align, multicell, strict; the offset lattice's step and
-    # stop; the stream
-    lib.percell_plan.argtypes = [ptr] * 5 + [i32] * 12 + [f32, f32, ptr]
+    # grid, key, rank, starts, perm, the scan's scratch; n, d, h, w, q,
+    # grid batch, the keys (kz, ky), padding, align, multicell, strict;
+    # the offset lattice's step and stop; the stream
+    lib.percell_plan.argtypes = [ptr] * 6 + [i32] * 12 + [f32, f32, ptr]
     lib.percell_plan.restype = i32
+    # the scan scratch's ints for N * K counts
+    lib.percell_scan_scratch.argtypes = [i32]
+    lib.percell_scan_scratch.restype = i32
     lib.csm_error_string.argtypes = [i32]
     lib.csm_error_string.restype = ctypes.c_char_p
     return lib

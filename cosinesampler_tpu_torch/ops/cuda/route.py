@@ -61,12 +61,18 @@ STACK_L2_BYTES = 50 * 10**6
 # along the chain, beat blend_o / splat_o over a stack larger than L2: on
 # 16 x 4 x 128^3 2^18 won and 131 072 lost, on 1024 x 4 x 16^3 and 4 x 4
 # x 1024^2 2^18 won (the 2D volume lost at 65 536).  percell, its plan
-# reused, lost to slab at every point at 2^18 pairs or more, and beat
-# blend_o / splat_o where slab cannot stage two rows at 2^20 pairs (8 x 4
-# x 32 x 256^2: 0.855 vs 1.40 ms); at 2^18 there it lost by 6% (0.507 vs
-# 0.478) and at 65 536 by 24%, so the crossover lies between 2^18 and
-# 2^20 and the rule sends 2^18 to the slower route (PERF.md section 4)
+# reused, lost to slab at every point at 2^18 pairs or more (PERF.md
+# section 4)
 MIN_PAIRS = 1 << 18
+# percell takes the cells slab cannot stage at one (cell, query) pair or
+# more for every PERCELL_TEXELS_PER_PAIR texels of the stack (N * D * H *
+# W): its blend and splat, the plan reused, against blend_o / splat_o in
+# chip_smoke.py's percell_route_sweep_phase (two calls, H100 80GB HBM3
+# at 700 W; PERF.md section 4) won on 8 x 4 x 32 x 256^2 from 131 072
+# pairs (one a 128 texels) and lost at 65 536, and on 8 x 4 x 192^3 won
+# from 2^19 (one a 108) and lost at 2^18 (one a 216); MIN_PAIRS (2^18)
+# sent 4 of those 20 points to the slower route, this bound none
+PERCELL_TEXELS_PER_PAIR = 128
 # the kernels index with 32-bit ints: a tensor of this many elements or
 # more takes the plain route
 INDEX_LIMIT = 2**31
@@ -134,18 +140,21 @@ FUSED3S_MIN_PLANES = 64
 def rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],
          n_pairs: int) -> str:
     """The route of a CUDA f32 blend or splat over (N, C, *S) cells and
-    ``n_pairs`` (cell, query) pairs.  A stack over the L2 at MIN_PAIRS
-    pairs or more: slab where slab.supports the cells (two rows of one
-    channel fit a block's shared memory, and the bins' histogram of a
-    cell's rows), percell for 3D cells whose rows do not fit; blend_o /
-    splat_o otherwise.  Both ops of a chain take one
-    route, so they share one plan."""
-    if (n_pairs < MIN_PAIRS
-            or 4 * math.prod(cells_shape) <= STACK_L2_BYTES):
+    ``n_pairs`` (cell, query) pairs.  A stack over the L2: slab at
+    MIN_PAIRS pairs or more where slab.supports the cells (two rows of
+    one channel fit a block's shared memory, and the bins' histogram of a
+    cell's rows); percell for 3D cells whose rows do not fit, at a pair
+    or more for every PERCELL_TEXELS_PER_PAIR texels; blend_o / splat_o
+    otherwise.  Both ops of a chain take one route, so they share one
+    plan."""
+    if 4 * math.prod(cells_shape) <= STACK_L2_BYTES:
         return "blend_o"
     if slab.geometry(cells_shape[1], cells_shape[2:], 1) is not None:
-        return "slab" if slab.supports(cfg, cells_shape) else "blend_o"
-    return "percell" if percell.supports(cfg, cells_shape) else "blend_o"
+        return ("slab" if n_pairs >= MIN_PAIRS
+                and slab.supports(cfg, cells_shape) else "blend_o")
+    texels = cells_shape[0] * math.prod(cells_shape[2:])
+    return ("percell" if n_pairs * PERCELL_TEXELS_PER_PAIR >= texels
+            and percell.supports(cfg, cells_shape) else "blend_o")
 
 
 def sampler_rule(cfg: SamplerConfig, cells_shape: Tuple[int, ...],

@@ -5,7 +5,8 @@
     python scripts/profile_port_step.py --config5 vol|planned|fused
                                         [--profile]
     python scripts/profile_port_step.py --nested-vol [percell|blend_o|slab]
-                                        [--points Q] [--profile]
+                                        [--points Q] [--cell-size S]
+                                        [--n-cells N] [--profile]
     python scripts/profile_port_step.py --fused3b [--reps R]
     python scripts/profile_port_step.py --fused3s [--points Q] [--reps R]
     python scripts/profile_port_step.py --kernels [--cell-dim C] [--reps R]
@@ -29,10 +30,12 @@ the vol-resident step (``vol``), the planned step with its per-call
 relayout (``planned``) or the query-ordered step through the fused op's
 route (``fused``: fused3s at this volume and point count), and prints the
 step's peak device memory.  ``--nested-vol`` runs the nested
-3D trainer's step on config 5's volume (16 x 4 x 128^3, Helmholtz) with
-``--points`` fresh points a step (100 000 by default), every sampler call
-through the route ops/cuda/route.py gives it or, when named, through
-that route.  ``--fused3b`` times fused3b's blend and bwd kernels alone
+3D trainer's step on config 5's volume (16 x 4 x 128^3, Helmholtz; or
+``--n-cells`` x 4 x ``--cell-size``^3, 8 x 4 x 192^3 the cells percell
+takes by the rule) with ``--points`` fresh points a step (100 000 by
+default), every sampler call through the route ops/cuda/route.py gives
+it or, when named, through that route.  ``--fused3b`` times fused3b's
+blend and bwd kernels alone
 on config 5's volume and points (``--cell-dim`` channels, 4 by default,
 the kernel layout), each the median of ``--reps`` calls (CUDA events)
 after 3 warm-up calls; ``--fused3s`` so times fused3s's blend and bwd and
@@ -243,6 +246,21 @@ def _device_ms(fn, reps):
     return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
 
+def _device_kernels(fn, reps):
+    """Each device operation of one call of ``fn``: {name: ms a call}
+    (torch.profiler over ``reps`` calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation}
+
+
 def _host_us(fn, calls=50):
     """Host microseconds to enqueue one call of ``fn``: the host clock
     around ``calls`` calls with no synchronisation inside (the launch
@@ -408,7 +426,8 @@ def _v1_kernels(card, c, reps, shapes):
 
 def _slab_kernels(card, reps):
     """Median ms of the slab blend and splat at the nested volume and the
-    routed small cells, bins (where the wrappers take them) built once."""
+    routed small cells, bins (where the wrappers take them) built once;
+    and of the bins' build (also its device ms)."""
     import inspect
     from cosinesampler_tpu_torch.ops.config import SamplerConfig
     from cosinesampler_tpu_torch.ops.cuda import slab
@@ -436,6 +455,11 @@ def _slab_kernels(card, reps):
             o = (0, 0, 0)
             kw = ({"bins": slab.make_bins(grid, shape, cfg, True)}
                   if takes_bins else {})
+            if takes_bins and name == "cosine":
+                build = lambda: slab.make_bins(grid, shape, cfg, True)  # noqa: E731
+                medians[f"{what} bins build"] = _median_ms(build, reps)
+                medians[f"{what} bins build device"] = _device_ms(build,
+                                                                   reps)
             medians[f"{what} {name} blend"] = _median_ms(
                 lambda: slab.blend(x, grid, cfg, o, **kw), reps)
             medians[f"{what} {name} splat"] = _median_ms(
@@ -455,7 +479,8 @@ def _sampler_kernels(card, reps):
     splat and plan build on the nested volume (16 x 4 x 128^3, the nested
     trainer's 100 000 shared points; cosine, and linear without multicell,
     the setting of grid_sample) and on 8 x 4 x 32 x 256^2 cells at 2^20
-    per-cell pairs."""
+    per-cell pairs; the percell ones also as device ms (torch.profiler,
+    "device")."""
     from cosinesampler_tpu_torch.ops.config import SamplerConfig
     gen = torch.Generator(device="cuda").manual_seed(0)
     medians = {}
@@ -490,13 +515,20 @@ def _sampler_kernels(card, reps):
                                                    multicell=False))):
             o = (0, 0, 0)
             plan = percell.make_plan(grid, shape, cfg)
-            medians[f"{what} {name} percell plan"] = _median_ms(
-                lambda: percell.make_plan(grid, shape, cfg), reps)
-            medians[f"{what} {name} percell blend"] = _median_ms(
-                lambda: percell.blend(x, grid, cfg, o, plan), reps)
-            medians[f"{what} {name} percell splat"] = _median_ms(
-                lambda: percell.splat(gout, grid, shape[2:], cfg, o, plan),
-                reps)
+            ops = {"plan": lambda: percell.make_plan(grid, shape, cfg),
+                   "blend": lambda: percell.blend(x, grid, cfg, o, plan),
+                   "splat": lambda: percell.splat(gout, grid, shape[2:], cfg,
+                                                  o, plan)}
+            for op, fn in ops.items():
+                medians[f"{what} {name} percell {op}"] = _median_ms(fn, reps)
+                medians[f"{what} {name} percell {op} device"] = _device_ms(
+                    fn, reps)
+            if name == "cosine":
+                print(f"{card}; {what} percell plan build, device ms a "
+                      "build: " + ", ".join(
+                          f"{k[:60]} {v:.4f}" for k, v in
+                          _device_kernels(ops["plan"], reps).items()),
+                      flush=True)
         del x, gout
         torch.cuda.empty_cache()
     print(f"{card}; sampler kernels, median of {reps}: "
@@ -548,6 +580,11 @@ def main(argv=None):
     ap.add_argument("--sampler", action="store_true",
                     help="time splat_o, blend_o and the percell route "
                          "alone")
+    ap.add_argument("--cell-size", type=int, default=128,
+                    help="cells of --cell-size^3 texels in --nested-vol "
+                         "(128: config 5's volume)")
+    ap.add_argument("--n-cells", type=int, default=16,
+                    help="cells of --nested-vol")
     ap.add_argument("--cell-dim", type=int, default=4,
                     help="channels of --fused3b, --kernels, --v1 and the "
                          "main-path steps")
@@ -585,8 +622,8 @@ def main(argv=None):
     elif args.nested_vol:
         if args.nested_vol != "rule":
             route.pick = lambda *a: args.nested_vol
-        cfg = pinn.PINNConfig(dim=3, n_cells=16, cell_size=128,
-                              pde="helmholtz")
+        cfg = pinn.PINNConfig(dim=3, n_cells=args.n_cells,
+                              cell_size=args.cell_size, pde="helmholtz")
         params = pinn.init_params(torch.Generator().manual_seed(0), cfg,
                                   "cuda")
         step = pinn.make_train_step(
@@ -595,7 +632,8 @@ def main(argv=None):
         with PointGenerator(points, 3, seed=7) as gen:
             batches = [torch.from_numpy(gen.batch(i)).cuda()
                        for i in range(3 + args.steps)]
-        path = f"nested 128^3 ({points} points, {args.nested_vol})"
+        path = (f"nested {args.n_cells}x4x{args.cell_size}^3 ({points} "
+                f"points, {args.nested_vol})")
     else:
         cfg = (pinn.PINNConfig(cell_dim=args.cell_dim) if args.dim == 2 else
                pinn.PINNConfig(dim=3, n_cells=50, cell_dim=args.cell_dim,

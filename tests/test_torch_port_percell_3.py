@@ -26,15 +26,19 @@ from test_torch_port_percell import C, F64, N_CELL, Q, SHAPE, _data
 def test_plan_invariants_and_keys(kw, per_cell):
     """Every pair sits in exactly one slot, each cell's pairs in that
     cell's slots; the starts are monotone from 0 to N*Q and the slots run
-    through the (cell, tile) keys in order; the pairs of one key keep their
-    query order (a stable sort); and each pair's key is (cell, z tile, y
-    band) of its floor corner on the JAX package's compute_source_coords
-    with the cell's own shift, clamped to the cell's rows (the JAX route's
-    (cell, z row) bins, cut into y bands)."""
+    through the (cell, key) keys in order; the pairs of one key keep their
+    query order (a stable sort); and each pair's key is (cell, z key, y
+    key) of its floor corner on the JAX package's compute_source_coords
+    with the cell's own shift, clamped to the cell's rows, for keys of 3 z
+    rows by 5 y rows (the JAX route's (cell, z row) bins, cut into y
+    bands) and by default a key a (z row, y row)."""
     cells, grid, _ = _data(3, per_cell, -1.7, 1.7)
     tcfg, jcfg = TConfig(dim=3, **kw), JConfig(dim=3, **kw)
+    assert percell.key_grid(*SHAPE[:2]) == (1, 1)
     plan = percell.make_plan(torch.from_numpy(grid), cells.shape, tcfg,
-                             tile=(3, 5))
+                             keys=(3, 5))
+    rows = percell.make_plan(torch.from_numpy(grid), cells.shape, tcfg)
+    assert (rows.kz, rows.ky) == (1, 1)
     perm = plan.perm.numpy().astype(np.int64)
     starts = plan.starts.numpy().astype(np.int64)
     pairs = N_CELL * Q
@@ -42,7 +46,8 @@ def test_plan_invariants_and_keys(kw, per_cell):
     tiles = -(-d // 3) * -(-h // 5)
     assert plan.perm.dtype == plan.starts.dtype == torch.int32
     assert perm.shape == (pairs,) and starts.shape == (N_CELL * tiles + 1,)
-    assert (plan.n, plan.q, plan.dz, plan.ty) == (N_CELL, Q, 3, 5)
+    assert rows.starts.shape == (N_CELL * d * h + 1,)
+    assert (plan.n, plan.q, plan.kz, plan.ky) == (N_CELL, Q, 3, 5)
     np.testing.assert_array_equal(np.sort(perm), np.arange(pairs))
     np.testing.assert_array_equal(perm // Q, np.repeat(np.arange(N_CELL), Q))
     assert starts[0] == 0 and starts[-1] == pairs
@@ -64,15 +69,21 @@ def test_plan_invariants_and_keys(kw, per_cell):
     np.testing.assert_array_equal(key[perm], slot_key)
     same_key = np.diff(slot_key) == 0
     assert np.all(np.diff(perm)[same_key] > 0)
+    row = floor(2, d) * h + floor(1, h)
+    key = (np.arange(N_CELL)[:, None] * d * h + row).reshape(-1)
+    slot_key = np.repeat(np.arange(N_CELL * d * h),
+                         np.diff(rows.starts.numpy().astype(np.int64)))
+    rperm = rows.perm.numpy().astype(np.int64)
+    np.testing.assert_array_equal(key[rperm], slot_key)
+    assert np.all(np.diff(rperm)[np.diff(slot_key) == 0] > 0)
 
 
-def test_grid_plans_never_serve_a_stale_plan(monkeypatch):
+def test_grid_plans_never_serve_a_stale_plan():
     """GridPlans reuses its plan for the same grid only: another grid, the
     same grid changed in place and another cell shape or config each get
-    a plan built anew, equal to make_plan's (tiles of a small shared-memory
-    budget, so that a cell has many)."""
-    monkeypatch.setattr(percell, "TILE_BYTES", 2000)
-    assert percell.geometry(C, SHAPE) == (2, 2)
+    a plan built anew, equal to make_plan's (a key a (z row, y row), so
+    that a cell has many)."""
+    assert percell.key_grid(*SHAPE[:2]) == (1, 1)
     cfg = TConfig(dim=3)
     _, a, _ = _data(4)
     _, b, _ = _data(5)
@@ -99,12 +110,14 @@ def test_grid_plans_never_serve_a_stale_plan(monkeypatch):
 
 
 def test_rule_routes_by_cell_stack_and_pairs():
-    """The measured rule (PERF.md section 4): over a stack larger than L2
-    with 2^18 pairs or more, slab wherever two rows of one channel fit a
+    """The measured rule (PERF.md section 4): over a stack larger than L2,
+    slab with 2^18 pairs or more wherever two rows of one channel fit a
     block's shared memory (the nested 128^3 trainer's 1.6 M pairs, 64 KB
     to 524 KB cells, the 2D volume), percell for 3D cells whose rows do
-    not (256^2 planes); each bound pinned on both sides: 2^18 and 131 072
-    pairs, a stack just over and just under L2; blend_o / splat_o
+    not (256^2 and 192^2 planes) at a pair or more for every 128 texels;
+    each bound pinned on both sides: 2^18 and 131 072 pairs, 131 072 and
+    131 071 pairs on 8 x 4 x 32 x 256^2, 442 368 and 442 367 on 8 x 4 x
+    192^3, a stack just over and just under L2; blend_o / splat_o
     elsewhere: the 16^3 main path's stack, the per-cell surface's 16 384
     pairs, more cells than slab takes, 2D rows too wide for slab, and a
     leading axis deeper than the bins' shared-memory histogram takes
@@ -120,7 +133,14 @@ def test_rule_routes_by_cell_stack_and_pairs():
         assert route.rule(cfg3, shape, (1 << 18) - 1) == "blend_o"
     wide = (8, 4, 32, 256, 256)
     assert route.rule(cfg3, wide, 1 << 20) == "percell"
+    assert route.rule(cfg3, wide, 131_072) == "percell"
+    assert route.rule(cfg3, wide, 131_071) == "blend_o"
     assert route.rule(cfg3, wide, 65_536) == "blend_o"
+    cube = (8, 4, 192, 192, 192)
+    assert route.rule(cfg3, cube, 8 * 100_000) == "percell"
+    assert route.rule(cfg3, cube, 442_368) == "percell"
+    assert route.rule(cfg3, cube, 442_367) == "blend_o"
+    assert route.rule(cfg3, cube, 1 << 18) == "blend_o"
     # a stack of 50 MB stays in L2: blend_o; one just over it: slab
     assert route.rule(cfg3, (762, 4, 16, 16, 16), 1 << 20) == "blend_o"
     assert route.rule(cfg3, (763, 4, 16, 16, 16), 1 << 20) == "slab"

@@ -1,4 +1,4 @@
-"""PyTorch port, the tiles of the percell route: the (cell, z tile, y band)
+"""PyTorch port, the tiles of the percell route: the (cell, z key, y key)
 plan of the pairs that the percell kernels walk, held to the JAX package's
 coordinate transform with numpy binning; the plain percell versions over
 that order, each blend slot read from its tile's window, against the JAX
@@ -23,9 +23,10 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_CELL, C, Q = 3, 2, 400
 SHAPE = (12, 20, 16)
-# tiles of 2 z rows by 4 y rows: a window of 3 x 5 rows of 2 channels
+# tiles (and plan keys) of 2 z rows by 4 y rows: a blend window of 3 x 5
+# rows of 2 channels
 TILE = (2, 4)
-SMALL_BUDGET = 16 + 4 * C * 3 * 5 * SHAPE[2]
+SMALL_BUDGET = 16 + percell.WALK_BYTES + 4 * C * 3 * 5 * SHAPE[2]
 
 
 def _grid(seed, per_cell, lo=-1.3, hi=1.3, y_band=None, z_band=None):
@@ -85,11 +86,12 @@ PLAN_CASES = [
 
 @pytest.mark.parametrize("kw,kind", PLAN_CASES)
 def test_plain_plan_matches_numpy(kw, kind):
-    """Every slot's pair lies in the bin of its (cell, z tile, y band) on
-    the JAX package's transform with numpy binning, the pairs of a bin in
+    """Every slot's pair lies in the bin of its (cell, z key, y key) on
+    the JAX package's transform with numpy binning, keys of 2 z rows by 4
+    y rows and by default a key a (z row, y row), the pairs of a bin in
     query order (a stable sort); the starts are monotone from 0 to N*Q;
     every pair has one slot, each cell's pairs in that cell's slots.  On
-    band edges a pair goes by its floor; a skewed cloud fills one bin a
+    key edges a pair goes by its floor; a skewed cloud fills one bin a
     cell; reflection and border fold the coordinate first."""
     tcfg, jcfg = TConfig(dim=3, **kw), JConfig(dim=3, **kw)
     grid = {"edges": lambda: _edge_grid(1, tcfg),
@@ -106,7 +108,7 @@ def test_plain_plan_matches_numpy(kw, kind):
     tiles = -(-d // TILE[0]) * bands
     pairs = N_CELL * Q
     assert plan.perm.dtype == plan.starts.dtype == torch.int32
-    assert (plan.n, plan.q, plan.dz, plan.ty) == (N_CELL, Q, *TILE)
+    assert (plan.n, plan.q, plan.kz, plan.ky) == (N_CELL, Q, *TILE)
     assert starts.shape == (N_CELL * tiles + 1,)
     assert starts[0] == 0 and starts[-1] == pairs
     assert np.all(np.diff(starts) >= 0)
@@ -128,6 +130,17 @@ def test_plain_plan_matches_numpy(kw, kind):
     again = percell.make_plan(torch.from_numpy(grid), cells_shape, tcfg, TILE)
     assert torch.equal(again.perm, plan.perm)
     assert torch.equal(again.starts, plan.starts)
+    # the default keys: a (z row, y row) each
+    rows = percell.plain_plan(torch.from_numpy(grid), cells_shape, tcfg)
+    assert (rows.kz, rows.ky) == (1, 1)
+    row = _floors(grid, 2, d, jcfg) * h + _floors(grid, 1, h, jcfg)
+    key = (np.arange(N_CELL)[:, None] * d * h + row).reshape(-1)
+    rstarts = rows.starts.numpy().astype(np.int64)
+    assert rstarts.shape == (N_CELL * d * h + 1,)
+    slot_key = np.repeat(np.arange(N_CELL * d * h), np.diff(rstarts))
+    rperm = rows.perm.numpy().astype(np.int64)
+    np.testing.assert_array_equal(key[rperm], slot_key)
+    assert np.all(np.diff(rperm)[np.diff(slot_key) == 0] > 0)
 
 
 @pytest.mark.parametrize("kw,orders,per_cell", [
@@ -152,7 +165,7 @@ def test_plain_percell_over_tiles_matches_jax(monkeypatch, kw, orders,
     tcfg, jcfg = TConfig(dim=3, **kw), JConfig(dim=3, backend="xla", **kw)
     tgrid = torch.from_numpy(grid)
     plan = percell.make_plan(tgrid, cells.shape, tcfg)
-    assert (plan.dz, plan.ty) == TILE
+    assert (plan.kz, plan.ky) == (1, 1)
 
     def close(got, want):
         want = np.asarray(want)
@@ -183,7 +196,8 @@ def test_percell_tiles():
         assert (dz, ty) == tile
         assert percell.channels(c, spatial, dz, ty) == c
         d, h, w = spatial
-        window = 16 + 4 * c * min(dz + 1, d) * min(ty + 1, h) * w
+        window = (16 + percell.WALK_BYTES
+                  + 4 * c * min(dz + 1, d) * min(ty + 1, h) * w)
         assert window <= percell.TILE_BYTES < window + 4 * c * (dz + 1) * w
     assert percell.geometry(1, (4, 4, 8192)) == (1, 4)
     assert percell.channels(1, (4, 4, 8192), 1, 4) == 0
